@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test: the PyTorch / CUDA port's full-image eval step on one GPU.
+"""Chip smoke test: the PyTorch / CUDA port's full-image eval step and its
+training step on one GPU.
 
 Run from the repository root with no arguments:
 
@@ -10,16 +11,29 @@ sm_90a), then:
 
 1. prints the card (nvidia-smi name and power limit);
 2. builds the kernels and prints the build time and ptxas report;
-3. holds each kernel against its plain PyTorch twin on the card, on the first
-   chunk's inputs of the flagship eval (both fields' inputs as
-   ``render_rays`` builds them, [16384, 128, ch]), and times both with CUDA
-   events;
+3. holds each forward kernel against its plain PyTorch twin on the card, on
+   the first chunk's inputs of the flagship eval (both fields' inputs as
+   ``render_rays`` builds them, [16384, 128, ch]), and times kernel, twin and
+   the one library call that computes the same function, with CUDA events;
 4. runs the eval step at a small configuration on CUDA (the kernels) and on
    the CPU (the twins) with the same seeded weights, and compares every map;
 5. runs the flagship eval step (288x512, 8 keyframes + target, 4 neighbours,
    128 samples, width-256 fields, float32) with every launch counter reset
-   first, checks the maps and that every kernel of the path launched, and
-   times s/image with the input changed between runs.
+   first, checks the maps and that every forward kernel of the path launched
+   and no backward kernel did, and times s/image with the input changed
+   between runs;
+6. holds each backward kernel (warp K2, volume K4, coordinates K5, field K7)
+   against its twin's autograd at the flagship training step's own inputs
+   (the step's rays, encoding volumes and field inputs, a random output
+   gradient), and times kernel, twin and library call;
+7. runs the training step at a small configuration on CUDA and on the CPU
+   from the same weights and draws, in both phases (motion-mask rays; the
+   chain pass), and compares the loss, every log, every gradient and the
+   parameters after the step;
+8. runs the flagship training step (``presets.FLAGSHIP_TRAIN``: R = 1,112
+   rays) with every launch counter reset first, asserts the exact launches
+   of every kernel per step in both phases, checks the logs and that the
+   parameters moved, and times a window of steps: train_rays_per_sec.
 
 The second-to-last line of stdout is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -40,6 +54,10 @@ import numpy as np
 import torch
 
 SEED = 0
+# one H100 SXM: HBM rate and float32 peak outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+TRAIN_STEPS = 5              # timed flagship training steps, after warm-up
 
 
 def log(msg: str) -> None:
@@ -82,9 +100,146 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernels_vs_twins(dev, cfg, system, batch):
-    """Each kernel against its twin on the first chunk's inputs of the
-    flagship eval, at the shapes the main path gives it."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def volume_cells(ndc, dims) -> int:
+    """Distinct in-range corner cells that the trilinear taps at ndc [..., 3]
+    ((x, y, z) in [0, 1], align_corners=True, zeros padding) read from a
+    [D, Hv, Wv, ...] table: what a lookup must read of it, counted on the
+    card from this run's points."""
+    D, Hv, Wv = dims
+    p = ndc.reshape(-1, 3) * torch.tensor([Wv - 1, Hv - 1, D - 1],
+                                          dtype=ndc.dtype, device=ndc.device)
+    x0, y0, z0 = p.floor().long().unbind(-1)
+    cells = []
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                x, y, z = x0 + dx, y0 + dy, z0 + dz
+                ok = (x >= 0) & (x < Wv) & (y >= 0) & (y < Hv) & (z >= 0) & (z < D)
+                cells.append(((z * Hv + y) * Wv + x)[ok])
+    return int(torch.unique(torch.cat(cells)).numel())
+
+
+def image_pixels(xy, H, W) -> int:
+    """Distinct pixels that the border-padded bilinear taps at xy [V, N, 2]
+    (pixel coordinates) read from V images of H x W, counted on the card."""
+    V = xy.shape[0]
+    x = xy[..., 0].clamp(0, W - 1)
+    y = xy[..., 1].clamp(0, H - 1)
+    x0, y0 = x.floor().long(), y.floor().long()
+    x1, y1 = (x0 + 1).clamp(max=W - 1), (y0 + 1).clamp(max=H - 1)
+    base = torch.arange(V, device=xy.device)[:, None] * (H * W)
+    taps = [base + yy * W + xx for yy in (y0, y1) for xx in (x0, x1)]
+    return int(torch.unique(torch.cat([t.reshape(-1) for t in taps])).numel())
+
+
+def counters():
+    """Every kernel wrapper of the port, by the name its count is read as."""
+    from zest_tpu_torch.kernels import color_gather, fused_mlp, plane_sweep, trilinear
+    return {"homo_warp_cm": plane_sweep.homo_warp_cm,
+            "homo_warp_cm_grad": plane_sweep.homo_warp_cm_grad,
+            "sample_volume": trilinear.sample_volume,
+            "volume_grad": trilinear.volume_grad,
+            "coords_grad": trilinear.coords_grad,
+            "gather_colors": color_gather.gather_colors,
+            "fused_nerf_forward": fused_mlp.fused_nerf_forward,
+            "fused_nerf_backward": fused_mlp.fused_nerf_backward}
+
+
+def reset_counters() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+class Rows:
+    """One JSON row per kernel; a kernel checked on several inputs (both
+    field layouts, the passes of a step) sums its times and its bound."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def check(self, name, source, replaces, counter, kern, plain, library,
+              tol, iters, moved_bytes, flops, relative=False):
+        """kern and plain return a tensor or a tuple of them. Forward outputs
+        are held to tol x max(1, |plain|); gradients (relative=True) to tol x
+        the largest |plain| of each output."""
+        with torch.no_grad():
+            out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        err, ok = 0.0, True
+        for a, b in zip(outs, refs):
+            e = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            limit = tol * (max(scale, 1e-30) if relative else max(1.0, scale))
+            ok = ok and bool(torch.isfinite(a).all()) and e <= limit
+            err = max(err, e)
+        with torch.no_grad():
+            ms = cuda_ms(kern, iters)
+            plain_ms = cuda_ms(plain, iters)
+            lib_ms = cuda_ms(library, iters) if library is not None else None
+        bound_ms = 1e3 * max(moved_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+        log(f"[kernel] {name}: shapes {[tuple(a.shape) for a in outs]} "
+            f"max_abs_err {err:.3e} (tol {tol:g}) kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, library "
+            f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
+            f"{bound_ms:.3f} ms -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its twin: {err}")
+        row = self.rows.setdefault(name, dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            counter=counter, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+            bytes=0, flops=0, library_ms=0.0 if library is not None else None))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["bytes"] += moved_bytes
+        row["flops"] += flops
+        if lib_ms is not None:
+            row["library_ms"] += lib_ms
+        del out, ref, outs, refs
+
+    def finish(self, eval_launches: dict, train_launches: dict) -> list:
+        """The rows with their launches: on the eval path for the kernels
+        it runs (the forward ones), on the training step for the others;
+        ``train_launches`` is every kernel's count per training step."""
+        rows = []
+        for r in self.rows.values():
+            b_ms = 1e3 * r["bytes"] / HBM_BYTES_PER_S
+            o_ms = 1e3 * r["flops"] / F32_FLOP_PER_S
+            c = r["counter"]
+            path = "eval" if eval_launches[c] else "train"
+            rows.append(dict(
+                name=r["name"], route=r["route"], source=r["source"],
+                replaces=r["replaces"],
+                launches=(eval_launches if path == "eval" else train_launches)[c],
+                path=path, train_launches=train_launches[c],
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations",
+                library_ms=r["library_ms"]))
+        return rows
+
+
+def field_macs(field) -> int:
+    """Multiply-adds per point of a field: one per weight."""
+    return sum(m.weight.numel() for m in field.modules()
+               if isinstance(m, torch.nn.Linear))
+
+
+def forward_kernels(rows, dev, cfg, system, batch):
+    """Phase 3: each forward kernel against its twin on the first chunk's
+    inputs of the flagship eval, at the shapes the main path gives it."""
+    import torch.nn.functional as F
+
     from zest_tpu_torch import geometry, render
     from zest_tpu_torch.kernels.color_gather import (gather_colors,
                                                      gather_colors_plain)
@@ -108,24 +263,36 @@ def kernels_vs_twins(dev, cfg, system, batch):
             "static": render.static_field_inputs(models, rays, kw["im_w2c_ref"]),
             "dynamic": render.dynamic_field_inputs(models, rays, kw["nb_w2c_ref"],
                                                    kw["ref_frame_idx"])}
-    cases = []
 
     # K1: source view 1 (32 features + 3 RGB) over the padded frustum
     src = torch.randn((h, w, 35), generator=gen, device=dev)
     grid = homography_grid(batch["proj_mats"][1], depths, (h, w), pad=cfg.pad)
-    cases.append(("plane_sweep_warp", "zest_tpu_torch/csrc/plane_sweep.cu",
-                  "zest_tpu/kernels/plane_sweep.py:239", homo_warp_cm,
-                  lambda: homo_warp_cm(src, grid),
-                  lambda: homo_warp_cm_plain(src, grid), 1e-5, 20))
+    src_nchw = src.permute(2, 0, 1)[None].contiguous()
+    grid_flat = grid.reshape(1, -1, 1, 2)
+    D, Hp, Wp, _ = grid.shape
+    rows.check("plane_sweep_warp", "zest_tpu_torch/csrc/plane_sweep.cu",
+               "zest_tpu/kernels/plane_sweep.py:239", "homo_warp_cm",
+               lambda: homo_warp_cm(src, grid),
+               lambda: homo_warp_cm_plain(src, grid),
+               lambda: F.grid_sample(src_nchw, grid_flat, align_corners=True),
+               1e-5, 20, nbytes(src, grid) + 4 * D * 35 * Hp * Wp,
+               8 * D * 35 * Hp * Wp)
 
     # K3: an encoding volume at the chunk's ray points
     vol = torch.randn((128, h + 2 * cfg.pad, w + 2 * cfg.pad, 8), generator=gen,
                       device=dev)
     ndc = rays.ndc.contiguous()
-    cases.append(("trilinear_sample", "zest_tpu_torch/csrc/trilinear.cu",
-                  "zest_tpu/kernels/trilinear.py:279", sample_volume,
-                  lambda: sample_volume(vol, ndc),
-                  lambda: sample_volume_plain(vol, ndc), 1e-5, 20))
+    vol_ncdhw = vol.permute(3, 0, 1, 2)[None].contiguous()
+    grid3 = (ndc * 2.0 - 1.0).reshape(1, -1, 1, 1, 3)
+    n = ndc.numel() // 3
+    # bytes: the volume cells the chunk's taps touch, the points, the output
+    rows.check("trilinear_sample", "zest_tpu_torch/csrc/trilinear.cu",
+               "zest_tpu/kernels/trilinear.py:279", "sample_volume",
+               lambda: sample_volume(vol, ndc),
+               lambda: sample_volume_plain(vol, ndc),
+               lambda: F.grid_sample(vol_ncdhw, grid3, align_corners=True),
+               1e-5, 20, 32 * volume_cells(ndc, vol.shape[:3]) + nbytes(ndc)
+               + 32 * n, 128 * n)
 
     # K8: the 8 source views at the chunk's projected points
     V = imgs_un.shape[0] - 1
@@ -136,51 +303,35 @@ def kernels_vs_twins(dev, cfg, system, batch):
                               6.0)[..., :2] * inv_scale
         for v in range(V)]).reshape(V, -1, 2).contiguous()
     src_imgs = imgs_un[:-1].contiguous()
-    cases.append(("color_gather", "zest_tpu_torch/csrc/color_gather.cu",
-                  "zest_tpu/kernels/color_gather.py:138", gather_colors,
-                  lambda: gather_colors(src_imgs, xy),
-                  lambda: gather_colors_plain(src_imgs, xy), 1e-5, 20))
+    imgs_nchw = src_imgs.permute(0, 3, 1, 2).contiguous()
+    grid8 = (xy / torch.tensor([(W - 1) * 0.5, (H - 1) * 0.5], device=dev)
+             - 1.0)[:, :, None, :]
+    rows.check("color_gather", "zest_tpu_torch/csrc/color_gather.cu",
+               "zest_tpu/kernels/color_gather.py:138", "gather_colors",
+               lambda: gather_colors(src_imgs, xy),
+               lambda: gather_colors_plain(src_imgs, xy),
+               lambda: F.grid_sample(imgs_nchw, grid8, padding_mode="border",
+                                     align_corners=True),
+               1e-5, 20, 12 * image_pixels(xy, H, W) + nbytes(xy)
+               + 12 * xy.shape[0] * xy.shape[1], 24 * xy.shape[0] * xy.shape[1])
 
     # K6: both fields on the chunk's inputs as render_rays builds them
-    # ([16384, 128, ch]); the twin is the field module itself
+    # ([16384, 128, ch]); the twin is the field module itself; no single
+    # library call computes a field
     for kind, inputs in field_inputs.items():
         field = getattr(system, f"nerf_{kind}")
-        cases.append((f"fused_nerf/{kind}", "zest_tpu_torch/csrc/fused_mlp.cu",
-                      "zest_tpu/kernels/fused_mlp.py:376", fused_nerf_forward,
-                      functools.partial(fused_nerf_forward, field, *inputs),
-                      functools.partial(field, *inputs), 1e-4, 3))
-
-    rows = {}
-    for label, source, replaces, wrapper, kern, plain, tol, iters in cases:
-        with torch.no_grad():
-            out, ref = kern(), plain()
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            scale = max(1.0, float(ref.abs().max()))
-            ok = bool(torch.isfinite(out).all()) and err <= tol * scale
-            ms = cuda_ms(kern, iters)
-            plain_ms = cuda_ms(plain, iters)
-        rel = err / max(float(ref.abs().max()), 1e-30)
-        log(f"[kernel] {label}: shape {tuple(out.shape)} max_abs_err {err:.3e}"
-            f" max_rel_err {rel:.3e} (tol {tol:g} x {scale:.3g}) kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{label} disagrees with its twin: {err}")
-        # one row per kernel: K6's times are one static plus one dynamic
-        # call, as every chunk makes one of each
-        name = label.split("/")[0]
-        row = rows.setdefault(name, dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            wrapper=wrapper, max_abs_err=0.0, ms=0.0, plain_ms=0.0))
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ms"] += ms
-        row["plain_ms"] += plain_ms
-    return list(rows.values())
+        n = inputs[0].numel() // inputs[0].shape[-1]
+        rows.check("fused_nerf", "zest_tpu_torch/csrc/fused_mlp.cu",
+                   "zest_tpu/kernels/fused_mlp.py:376", "fused_nerf_forward",
+                   functools.partial(fused_nerf_forward, field, *inputs),
+                   functools.partial(field, *inputs), None, 1e-4, 3,
+                   nbytes(*inputs) + 4 * n * field.out_ch
+                   + 4 * field_macs(field), 2 * n * field_macs(field))
 
 
 def small_slice(dev):
-    """The eval step at the small preset on CUDA against the same step on the
-    CPU."""
+    """Phase 4: the eval step at the small preset on CUDA against the same
+    step on the CPU."""
     from zest_tpu_torch import presets
     from zest_tpu_torch.system import EVAL_KEYS
     _, system, batch, params = presets.build(presets.SMALL,
@@ -205,31 +356,24 @@ def small_slice(dev):
         raise AssertionError("small slice renders a constant image")
 
 
-def counters():
-    from zest_tpu_torch.kernels.color_gather import gather_colors
-    from zest_tpu_torch.kernels.fused_mlp import fused_nerf_forward
-    from zest_tpu_torch.kernels.plane_sweep import homo_warp_cm
-    from zest_tpu_torch.kernels.trilinear import sample_volume
-    return (homo_warp_cm, sample_volume, gather_colors, fused_nerf_forward)
-
-
 def flagship(cfg, system, batch, params):
-    """The flagship eval step with every launch counter reset first."""
+    """Phase 5: the flagship eval step with every launch counter reset
+    first."""
     from zest_tpu_torch.system import EVAL_KEYS
     step = system.make_eval_step()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters():
-        fn.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     maps = step(params, batch)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters()}
+    launches = read_counters()
     H, W = cfg.img_h, cfg.img_w
     n_chunks = -(-(H * W) // cfg.eval_chunk)
     n_src = batch["images"].shape[0] - 2
-    expected = {"homo_warp_cm": n_src, "sample_volume": 2 * n_chunks,
-                "gather_colors": 2 * n_chunks, "fused_nerf_forward": 2 * n_chunks}
+    expected = dict.fromkeys(launches, 0)
+    expected.update(homo_warp_cm=n_src, sample_volume=2 * n_chunks,
+                    gather_colors=2 * n_chunks, fused_nerf_forward=2 * n_chunks)
     log(f"[flagship] first run {first:.2f} s, launches {launches}")
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
@@ -259,6 +403,266 @@ def flagship(cfg, system, batch, params):
     return launches
 
 
+def backward_kernels(rows, dev, cfg, system, batch):
+    """Phase 6: each backward kernel against its twin's autograd at the
+    flagship training step's inputs: the step-0 rays, both encoding volumes,
+    the three field passes' inputs and a random output gradient."""
+    import torch.nn.functional as F
+
+    from zest_tpu_torch import render, sampling
+    from zest_tpu_torch.kernels import fused_mlp, plane_sweep, trilinear
+    from zest_tpu_torch.models.mvsnet import depth_plane_values
+    from zest_tpu_torch.ops.homography import homography_grid
+    from zest_tpu_torch.system import phase_for_step
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    H, W = cfg.img_h, cfg.img_w
+    phase = phase_for_step(cfg, 0)
+    draws = sampling.sample_draws(gen, cfg, H, W, int(batch["motion_count"]),
+                                  phase.extra_samples)
+    near_far = batch["near_fars"][0]
+    with torch.no_grad():
+        static_vol, _, _ = system.enc_static(batch["images"][:-1],
+                                             batch["proj_mats"][:-1], near_far,
+                                             pad=cfg.pad)
+        dyn_vol, _, _ = system.enc_dy(batch["nb_imgs"], batch["nb_proj_mats"],
+                                      near_far, pad=cfg.pad)
+        models = system.render_models(batch)
+        rays = system.train_rays(batch, draws, phase)
+        kw = system.render_kwargs(batch)
+        st_in = render.static_field_inputs(models, rays, kw["im_w2c_ref"])
+        dy_in = render.dynamic_field_inputs(models, rays, kw["nb_w2c_ref"],
+                                            kw["ref_frame_idx"])
+        raw_dy = fused_mlp.fused_nerf_forward(system.nerf_dynamic, *dy_in)
+        warped = torch.cat([rays.ndc + raw_dy[..., 4:7],
+                            rays.ndc + raw_dy[..., 7:10]]).contiguous()
+        dt = 2.0 / batch["total_frames"]
+        ones = torch.ones_like(rays.ndc[..., :1])
+        t_pp = torch.cat([ones * (kw["ref_frame_idx"] - dt),
+                          ones * (kw["ref_frame_idx"] + dt)])
+        col = dy_in[1][..., 8:]
+        pp_in = render._dynamic_inputs(models, warped, t_pp,
+                                       torch.cat([col, col]),
+                                       torch.cat([dy_in[2], dy_in[2]]))
+    R, S = rays.ndc.shape[:2]
+    log(f"[backward] R = {R} rays of {S} samples; volumes "
+        f"{tuple(static_vol.shape)}, {tuple(dyn_vol.shape)}")
+
+    # K7: the field backward on the three passes of a step; d_pack is held
+    # leaf by leaf, each weight and bias to 1e-4 of its own largest element
+    def leafwise(field, offsets, grads):
+        d_pts, d_feats, d_views, d_pack = grads
+        return (d_pts, d_feats, d_views,
+                *(t for _, t in fused_mlp.pack_leaves(field, d_pack, offsets)))
+
+    for label, field, inputs in (("static", system.nerf_static, st_in),
+                                 ("dynamic", system.nerf_dynamic, dy_in),
+                                 ("t-1 / t+1", system.nerf_dynamic, pp_in)):
+        flat = [t.reshape(-1, t.shape[-1]).contiguous() for t in inputs]
+        n = flat[0].shape[0]
+        g = torch.randn((n, field.out_ch), generator=gen, device=dev)
+        with torch.no_grad():
+            pack, offsets = fused_mlp.pack_weights(field)
+        log(f"[backward] field {label}: {n} points")
+        rows.check("fused_nerf_backward", "zest_tpu_torch/csrc/fused_mlp.cu",
+                   "zest_tpu/kernels/fused_mlp.py:398", "fused_nerf_backward",
+                   lambda: leafwise(field, offsets, fused_mlp.fused_nerf_backward(
+                       field, *flat, g, pack, offsets)),
+                   lambda: leafwise(field, offsets,
+                                    fused_mlp.fused_nerf_backward_plain(
+                                        field, *flat, g)),
+                   None, 1e-4, 2,
+                   2 * nbytes(*flat) + nbytes(g) + 2 * nbytes(pack),
+                   6 * n * field_macs(field), relative=True)
+        field.zero_grad(set_to_none=True)
+
+    # K4 (d_vol) on the three lookups of a step, K5 (d_ndc) on the warped one;
+    # the library call is F.grid_sample's backward on the same layout. Bytes:
+    # K4 reads the points and g and writes d_vol once; K5 reads the volume
+    # cells its taps touch, the points and g, and writes d_ndc
+    def lookups():
+        yield "static", static_vol, rays.ndc.contiguous()
+        yield "dynamic", dyn_vol, rays.ndc.contiguous()
+        yield "t-1 / t+1", dyn_vol, warped
+    for label, vol, ndc in lookups():
+        n = ndc.numel() // 3
+        g = torch.randn((*ndc.shape[:-1], 8), generator=gen, device=dev)
+        vol5 = vol.permute(3, 0, 1, 2)[None].contiguous()
+        grid5 = (ndc * 2.0 - 1.0).reshape(1, -1, 1, 1, 3).contiguous()
+        g5 = g.reshape(1, -1, 8).permute(0, 2, 1).reshape(1, 8, -1, 1, 1).contiguous()
+        lib = functools.partial(torch.ops.aten.grid_sampler_3d_backward, g5,
+                                vol5, grid5, 0, 0, True)
+        rows.check("trilinear_grad_volume", "zest_tpu_torch/csrc/trilinear.cu",
+                   "zest_tpu/kernels/trilinear.py:303", "volume_grad",
+                   lambda: trilinear.volume_grad(vol.shape, ndc, g),
+                   lambda: trilinear.sample_volume_grads_plain(vol, ndc, g)[0],
+                   lambda: lib([True, False]), 1e-5, 5,
+                   nbytes(ndc, g, vol), 128 * n, relative=True)
+        if label == "t-1 / t+1":
+            rows.check("trilinear_grad_coords", "zest_tpu_torch/csrc/trilinear.cu",
+                       "zest_tpu/kernels/trilinear.py:353", "coords_grad",
+                       lambda: trilinear.coords_grad(vol, ndc, g),
+                       lambda: trilinear.sample_volume_grads_plain(vol, ndc, g)[1],
+                       lambda: lib([False, True]), 1e-5, 5,
+                       32 * volume_cells(ndc, vol.shape[:3]) + nbytes(ndc, g)
+                       + 12 * n, 8 * 40 * n, relative=True)
+
+    # K2: d_src of source view 1 over the 128 planes
+    h, w = cfg.img_h // 4, cfg.img_w // 4
+    depths = depth_plane_values(near_far[0], near_far[1])
+    grid = homography_grid(batch["proj_mats"][1], depths, (h, w), pad=cfg.pad)
+    D, Hp, Wp, _ = grid.shape
+    C = 35
+    src = torch.randn((h, w, C), generator=gen, device=dev)
+    g = torch.randn((D, C, Hp * Wp), generator=gen, device=dev)
+    src_nchw = src.permute(2, 0, 1)[None].contiguous()
+    grid_flat = grid.reshape(1, -1, 1, 2).contiguous()
+    g_lib = g.permute(1, 0, 2).reshape(1, C, -1, 1).contiguous()
+    rows.check("plane_sweep_warp_backward", "zest_tpu_torch/csrc/plane_sweep.cu",
+               "zest_tpu/kernels/plane_sweep.py:261", "homo_warp_cm_grad",
+               lambda: plane_sweep.homo_warp_cm_grad(g, grid, (h, w)),
+               lambda: plane_sweep.homo_warp_cm_grad_plain(src, grid, g),
+               lambda: torch.ops.aten.grid_sampler_2d_backward(
+                   g_lib, src_nchw, grid_flat, 0, 0, True, [True, False]),
+               1e-5, 5, nbytes(g, grid) + nbytes(src), 8 * g.numel(),
+               relative=True)
+    del static_vol, dyn_vol, models, rays, st_in, dy_in, pp_in, warped, g
+    torch.cuda.empty_cache()
+
+
+def _compare_train(tag, ref, out, rtol=1e-4, grad_tol=1e-4):
+    """Logs to rtol; gradients to grad_tol of their module's largest (each
+    field, each encoder); parameters after the step where the gradient is
+    clear of Adam's epsilon and of the packages' difference."""
+    logs, grads, params, new = ref
+    logs_c, grads_c, _, new_c = out
+    for k, v in logs.items():
+        a, b = float(logs_c[k]), float(v)
+        if not (np.isfinite(a) and abs(a - b) <= rtol * abs(b) + 1e-12):
+            raise AssertionError(f"{tag} log {k}: CUDA {a} CPU {b}")
+    scale = {}
+    for k, v in grads.items():
+        m = k.split(".")[0]
+        scale[m] = max(scale.get(m, 0.0), float(v.abs().max()))
+    worst = 0.0
+    for k, v in grads.items():
+        err = float((grads_c[k].cpu() - v).abs().max())
+        worst = max(worst, err / scale[k.split(".")[0]])
+        if err > grad_tol * scale[k.split(".")[0]]:
+            raise AssertionError(f"{tag} grad {k}: differs by {err}")
+        big = (v.abs() > 10 * err) & (v.abs() > 1e-5)
+        d = float((new_c[k].cpu() - new[k])[big].abs().max()) if big.any() else 0.0
+        if d > 1e-6:
+            raise AssertionError(f"{tag} updated {k}: differs by {d}")
+    moved = sum(int((new[k] != params[k]).sum()) for k in params)
+    if moved == 0:
+        raise AssertionError(f"{tag}: no parameter moved")
+    log(f"[small-train] {tag}: loss {float(logs['train_loss']):.6f} (CUDA "
+        f"{float(logs_c['train_loss']):.6f}); worst gradient difference "
+        f"{worst:.2e} of its module's largest; {moved} parameters moved")
+
+
+def small_train(dev):
+    """Phase 7: the small training step on CUDA and on the CPU, from the
+    same weights and draws, in both phases."""
+    from zest_tpu_torch import presets, sampling
+    from zest_tpu_torch.system import TrainState, phase_for_step
+    cfg, system, batch, params = presets.build(presets.SMALL_TRAIN,
+                                               presets.SMALL_SCENE, "cpu", SEED)
+    _, system_c, batch_c, params_c = presets.build(
+        presets.SMALL_TRAIN, presets.SMALL_SCENE, dev, SEED)
+    H, W = cfg.img_h, cfg.img_w
+    chain_step = cfg.decay_iteration_clamped * 2000 + 1
+    for step in (0, chain_step):
+        phase = phase_for_step(cfg, step)
+        draws = sampling.sample_draws(torch.Generator().manual_seed(SEED + step),
+                                      cfg, H, W, int(batch["motion_count"]),
+                                      phase.extra_samples)
+        runs = []
+        for sys_, b, p, d in ((system, batch, params, draws),
+                              (system_c, batch_c, params_c, draws.to(dev))):
+            opt = sys_.make_optimizer(presets.STEPS_PER_EPOCH)
+            _, logs, grads = sys_.loss_and_grads(p, b, d, phase, step)
+            state, _ = sys_.make_train_step(opt)(
+                TrainState(p, opt.init(p), step), b, d, phase)
+            runs.append((logs, grads, p, state.params))
+        torch.cuda.synchronize()
+        _compare_train(f"step {step} {tuple(phase)}", *runs)
+
+
+def flagship_train(cfg, system, batch, params):
+    """Phase 8: the flagship training step: exact launches per step in both
+    phases, finite logs, moved parameters, then a timed window of steps."""
+    from zest_tpu_torch import presets, sampling
+    from zest_tpu_torch.system import TrainState, phase_for_step
+    dev = batch["images"].device
+    H, W = cfg.img_h, cfg.img_w
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    motion_count = int(batch["motion_count"])
+    opt = system.make_optimizer(presets.STEPS_PER_EPOCH)
+    step_fn = system.make_train_step(opt)
+    n_rays = cfg.batch_size + cfg.num_extra_samples
+
+    def run(state, phase):
+        draws = sampling.sample_draws(gen, cfg, H, W, motion_count,
+                                      phase.extra_samples)
+        return step_fn(state, batch, draws, phase)
+
+    n_src = batch["images"].shape[0] - 2
+    state0 = TrainState(params, opt.init(params), 0)
+    phase0 = phase_for_step(cfg, 0)
+    chain_step = cfg.decay_iteration_clamped * 2000 + 1
+    phase_c = phase_for_step(cfg, chain_step)
+    launches = {}
+    for tag, state, phase, extra in (("step 0", state0, phase0, 0),
+                                     (f"step {chain_step}",
+                                      state0._replace(step=chain_step),
+                                      phase_c, 1)):
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, logs = run(state, phase)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        got = read_counters()
+        expected = dict(homo_warp_cm=n_src, homo_warp_cm_grad=n_src,
+                        sample_volume=3 + extra, volume_grad=3 + extra,
+                        coords_grad=1 + extra, gather_colors=2,
+                        fused_nerf_forward=3 + extra,
+                        fused_nerf_backward=3 + extra)
+        log(f"[train] {tag} {tuple(phase)}: first run {first:.2f} s, "
+            f"launches {got}")
+        if got != expected:
+            raise AssertionError(f"{tag}: launches {got}, expected {expected}")
+        bad = [k for k, v in logs.items() if not bool(torch.isfinite(v))]
+        if bad:
+            raise AssertionError(f"{tag}: non-finite logs {bad}")
+        log(f"[train] {tag} logs: " + ", ".join(
+            f"{k} {float(v):.5g}" for k, v in logs.items()))
+        moved = sum(int(bool((new.params[k] != state.params[k]).any()))
+                    for k in params)
+        log(f"[train] {tag}: {moved} of {len(params)} parameter tensors moved")
+        if moved < len(params) // 2:
+            raise AssertionError(f"{tag}: only {moved} parameter tensors moved")
+        launches[tag] = got
+        if tag == "step 0":
+            state1 = new
+
+    torch.cuda.reset_peak_memory_stats()
+    state, logs = run(state1, phase0)                 # warm-up
+    float(logs["train_loss"])
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, logs = run(state, phase0)
+    loss = float(logs["train_loss"])                  # waits for the device
+    dt = time.perf_counter() - t0
+    log(f"[train] {TRAIN_STEPS} steps in {dt:.3f} s ({1e3 * dt / TRAIN_STEPS:.1f}"
+        f" ms/step), loss {loss:.5g}; train_rays_per_sec "
+        f"{n_rays * TRAIN_STEPS / dt:.1f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches["step 0"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -269,13 +673,17 @@ def main() -> int:
     smi = card()
     build()
     from zest_tpu_torch import presets
-    cfg, system, batch, params = presets.build(presets.FLAGSHIP,
+    cfg, system, batch, params = presets.build(presets.FLAGSHIP_TRAIN,
                                                presets.FLAGSHIP_SCENE, dev, SEED)
-    results = kernels_vs_twins(dev, cfg, system, batch)
+    rows = Rows()
+    forward_kernels(rows, dev, cfg, system, batch)
     small_slice(dev)
-    launches = flagship(cfg, system, batch, params)
+    eval_launches = flagship(cfg, system, batch, params)
+    backward_kernels(rows, dev, cfg, system, batch)
+    small_train(dev)
+    train_launches = flagship_train(cfg, system, batch, params)
+    results = rows.finish(eval_launches, train_launches)
     for r in results:
-        r["launches"] = launches[r.pop("wrapper").__name__]
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never launched on the main path")
     banned = [m for m in sys.modules

@@ -3,7 +3,7 @@
 The port carries these host-side modules itself so that it never imports the
 JAX package; here they are held to the originals. The scene is compared
 exactly (same NumPy operations on the same numbers), key by key, on every key
-the eval step reads.
+the eval and training steps read.
 """
 import dataclasses
 
@@ -24,10 +24,12 @@ def test_config_fields_and_defaults_match_zest_tpu():
 
 
 @pytest.mark.parametrize("preset", [presets.SMALL, presets.FLAGSHIP,
+                                    presets.SMALL_TRAIN, presets.FLAGSHIP_TRAIN,
                                     dict(train_sceneflow=False, num_input=5)])
 def test_config_derived_widths_match_zest_tpu(preset):
     cfg, ref = ZestConfig(**preset), JZestConfig(**preset)
     assert (cfg.feat_dim, cfg.feat_dim_dy) == (ref.feat_dim, ref.feat_dim_dy)
+    assert cfg.decay_iteration_clamped == ref.decay_iteration_clamped
     for k, v in preset.items():
         assert getattr(cfg, k) == getattr(ref, k) == v, k
 

@@ -59,17 +59,30 @@ def test_eval_step_matches_zest_tpu():
 
 
 def test_port_imports_no_jax():
-    """The port runs its eval step in a fresh interpreter without JAX and
-    without the JAX package ``zest_tpu``."""
+    """The port runs its eval step and one training step in a fresh
+    interpreter without JAX and without the JAX package ``zest_tpu``."""
     script = textwrap.dedent("""
         import sys
         import torch
-        from zest_tpu_torch import presets
+        from zest_tpu_torch import presets, sampling
+        from zest_tpu_torch.system import TrainState, phase_for_step
         _, system, batch, params = presets.build(
             presets.SMALL, presets.SMALL_SCENE, "cpu")
         maps = system.make_eval_step()(params, batch)
         assert maps["rgb_map_ref"].shape == (32, 64, 3)
         assert all(bool(torch.isfinite(v).all()) for v in maps.values())
+        cfg, system, batch, params = presets.build(
+            presets.SMALL_TRAIN, presets.SMALL_SCENE, "cpu")
+        opt = system.make_optimizer(presets.STEPS_PER_EPOCH)
+        phase = phase_for_step(cfg, 0)
+        draws = sampling.sample_draws(torch.Generator().manual_seed(0), cfg,
+                                      32, 64, int(batch["motion_count"]),
+                                      phase.extra_samples)
+        state, logs = system.make_train_step(opt)(
+            TrainState(params, opt.init(params), 0), batch, draws, phase)
+        assert state.step == 1
+        assert all(bool(torch.isfinite(v)) for v in logs.values())
+        assert any(bool((state.params[k] != params[k]).any()) for k in params)
         banned = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "zest_tpu")]
         assert not banned, banned
@@ -101,7 +114,12 @@ def test_init_params_covers_the_state_dict():
 
 @pytest.mark.parametrize("change", [dict(train_sceneflow=False),
                                     dict(precision=16),
-                                    dict(use_mvs_dy=False)])
+                                    dict(use_mvs_dy=False),
+                                    dict(patch_size=8),
+                                    dict(gan_type="basic"),
+                                    dict(with_depth_loss_reg=True),
+                                    dict(with_depth_smoothness=True),
+                                    dict(with_distortion_loss=True)])
 def test_configs_outside_the_port_raise(change):
     with pytest.raises(NotImplementedError):
         ZestSystem(ZestConfig(**{**CFG, **change}))

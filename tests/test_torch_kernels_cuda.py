@@ -1,5 +1,5 @@
-"""zest_tpu_torch's CUDA kernels against their plain PyTorch twins, on the
-card. Every test here needs a CUDA device and skips without one; the suite
+"""zest_tpu_torch's CUDA kernels (forward and backward) against their plain
+PyTorch twins and their autograd, on the card. Every test here needs a CUDA device and skips without one; the suite
 imports no JAX, so on the GPU machine it runs without the JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -10,12 +10,20 @@ coordinates as F.grid_sample and blend the same taps, atol 1e-5. The fused
 field chains ten float32 products in another summation order than cuBLAS:
 1e-4 of the output scale. The small eval slice: rtol = atol = 1e-4, since
 cuDNN and the CPU order the convolution sums differently.
+
+The backward kernels: K2 (warp) and K4 (volume) add with atomics in an order
+that changes from run to run, K5 (coordinates) sums 8 corners in another
+order than F.grid_sample, and K7 (field) sums the weight gradients over the
+points in tiles and chunks: each is held to 1e-5 (the gathers) or 1e-4 (the
+field) of its output's scale, never bit for bit; K7's weight gradient leaf
+by leaf, each weight and each bias to 1e-4 of its own largest element.
 """
 import numpy as np
 import pytest
 import torch
 
 from zest_tpu_torch.kernels.color_gather import gather_colors, gather_colors_plain
+from zest_tpu_torch.kernels import fused_mlp, plane_sweep, trilinear
 from zest_tpu_torch.kernels.fused_mlp import fused_nerf_forward
 from zest_tpu_torch.kernels.plane_sweep import homo_warp_cm, homo_warp_cm_plain
 from zest_tpu_torch.kernels.trilinear import sample_volume, sample_volume_plain
@@ -129,3 +137,134 @@ def test_eval_slice_on_cuda_matches_cpu(dev):
         np.testing.assert_allclose(out[k].cpu().numpy(), ref[k].numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=k)
     assert float(ref["rgb_map_ref"].std()) > 1e-3
+
+
+def _rel_err(a, b):
+    torch.cuda.synchronize()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("shape", [(12, 40, 35, 9, 4), (7, 33, 5, 3, 0)])
+def test_warp_backward_kernel_matches_autograd(dev, shape):
+    """K2 against autograd through the twin; the second shape has a pixel
+    count (7 x 33 padded by 0) that fills no block evenly."""
+    h, w, C, D, pad = shape
+    g = _gen(dev, 5)
+    src = torch.randn((h, w, C), generator=g, device=dev)
+    proj = torch.tensor([[1, 0.01, 0.5, 0.3], [0.02, 1, -0.3, 0.2],
+                         [1e-4, 0, 1, 0.01]], device=dev)
+    grid = homography_grid(proj, torch.linspace(2.0, 6.0, D, device=dev),
+                           (h, w), pad=pad).contiguous()
+    cot = torch.randn((D, C, grid.shape[1] * grid.shape[2]), generator=g,
+                      device=dev)
+    before = plane_sweep.homo_warp_cm_grad.launches
+    s_ = src.clone().requires_grad_(True)
+    (homo_warp_cm(s_, grid) * cot).sum().backward()
+    assert plane_sweep.homo_warp_cm_grad.launches == before + 1
+    ref = plane_sweep.homo_warp_cm_grad_plain(src, grid, cot)
+    assert _rel_err(s_.grad, ref) <= 1e-5
+
+
+def test_warp_backward_kernel_wide_footprint(dev):
+    """A homography that spreads a row's taps over the whole source: the
+    kernel's direct-atomics path."""
+    g = _gen(dev, 6)
+    src = torch.randn((64, 128, 8), generator=g, device=dev)
+    proj = torch.tensor([[0.2, 1.0, 0.0, 3.0], [1.0, 0.1, 0.0, 2.0],
+                         [0.0, 0.0, 1.0, 0.0]], device=dev)
+    grid = homography_grid(proj, torch.linspace(2.0, 6.0, 16, device=dev),
+                           (64, 128)).contiguous()
+    cot = torch.randn((16, 8, 64 * 128), generator=g, device=dev)
+    out = plane_sweep.homo_warp_cm_grad(cot, grid, (64, 128))
+    ref = plane_sweep.homo_warp_cm_grad_plain(src, grid, cot)
+    assert _rel_err(out, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("n_points", [300 * 7, 1, 12345])
+def test_volume_backward_kernels_match_autograd(dev, n_points):
+    """K4 (d_vol) and K5 (d_ndc) against F.grid_sample's autograd, with
+    points outside the volume and a count that fills no block evenly."""
+    g = _gen(dev, 7)
+    vol = torch.randn((16, 12, 20, 8), generator=g, device=dev)
+    ndc = torch.rand((n_points, 3), generator=g, device=dev) * 1.4 - 0.2
+    cot = torch.randn((n_points, 8), generator=g, device=dev)
+    v_, n_ = (t.clone().requires_grad_(True) for t in (vol, ndc))
+    launches = (trilinear.volume_grad.launches, trilinear.coords_grad.launches)
+    (sample_volume(v_, n_) * cot).sum().backward()
+    assert (trilinear.volume_grad.launches, trilinear.coords_grad.launches) \
+        == (launches[0] + 1, launches[1] + 1)
+    d_vol, d_ndc = trilinear.sample_volume_grads_plain(vol, ndc, cot)
+    assert _rel_err(v_.grad, d_vol) <= 1e-5
+    assert _rel_err(n_.grad, d_ndc) <= 1e-5
+
+
+def test_volume_backward_skips_coords_without_grad(dev):
+    g = _gen(dev, 8)
+    vol = torch.randn((8, 8, 8, 8), generator=g, device=dev, requires_grad=True)
+    ndc = torch.rand((100, 3), generator=g, device=dev)
+    launches = trilinear.coords_grad.launches
+    sample_volume(vol, ndc).sum().backward()
+    assert trilinear.coords_grad.launches == launches
+    with torch.no_grad():
+        assert sample_volume(vol, ndc).grad_fn is None
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_field_backward_kernel_matches_autograd(dev, width, static, monkeypatch):
+    """K7 against autograd through the field module: d_pts, d_feats,
+    d_views and every weight's gradient; 1000 points (a ragged last tile),
+    in chunks of 384 so the weight gradients add over three chunks."""
+    monkeypatch.setattr(fused_mlp, "CHUNK_ROWS", 384)
+    P, F = (63, 40) if static else (84, 24)
+    torch.manual_seed(9)
+    field = NeRFField(8, width, P, 27, F, static=static).to(dev)
+    g = _gen(dev, 10)
+    n = 1000
+    pts, feats, views = (torch.randn((n, c), generator=g, device=dev)
+                         for c in (P, F, 27))
+    cot = torch.randn((n, field.out_ch), generator=g, device=dev)
+    ins = [t.clone().requires_grad_(True) for t in (pts, feats, views)]
+    before = fused_mlp.fused_nerf_backward.launches
+    field.zero_grad()
+    (fused_nerf_forward(field, *ins) * cot).sum().backward()
+    assert fused_mlp.fused_nerf_backward.launches == before + 1
+    _, offsets = fused_mlp.pack_weights(field)
+    got = [t.grad for t in ins] + [fused_mlp.pack_grads(field)]
+    ref = fused_mlp.fused_nerf_backward_plain(field, pts, feats, views, cot)
+    for name, a, b in zip(("d_pts", "d_feats", "d_views"), got, ref):
+        assert _rel_err(a, b) <= 1e-4, name
+    # every weight and bias to 1e-4 of its own largest gradient
+    for (name, a), (_, b) in zip(fused_mlp.pack_leaves(field, got[3], offsets),
+                                 fused_mlp.pack_leaves(field, ref[3], offsets)):
+        assert _rel_err(a, b) <= 1e-4, name
+
+
+def test_train_step_on_cuda_matches_cpu(dev):
+    """One SMALL_TRAIN step on the card and on the CPU from the same weights
+    and draws: the loss and logs to rtol 1e-4, the gradients to 1e-4 of
+    each module's largest (cuDNN and the CPU sum the convolutions in
+    another order)."""
+    from zest_tpu_torch import presets, sampling
+    from zest_tpu_torch.system import phase_for_step
+    cfg, system, batch, params = presets.build(presets.SMALL_TRAIN,
+                                               presets.SMALL_SCENE, "cpu")
+    phase = phase_for_step(cfg, 0)
+    draws = sampling.sample_draws(torch.Generator().manual_seed(1), cfg, 32,
+                                  64, int(batch["motion_count"]),
+                                  phase.extra_samples)
+    _, logs, grads = system.loss_and_grads(params, batch, draws, phase, 0)
+    system.to(dev)
+    _, logs_c, grads_c = system.loss_and_grads(
+        {k: v.to(dev) for k, v in params.items()},
+        {k: v.to(dev) for k, v in batch.items()}, draws.to(dev), phase, 0)
+    for k, v in logs.items():
+        np.testing.assert_allclose(float(logs_c[k]), float(v), rtol=1e-4,
+                                   err_msg=k)
+    scale = {}
+    for k, v in grads.items():
+        m = k.split(".")[0]
+        scale[m] = max(scale.get(m, 0.0), float(v.abs().max()))
+    for k, v in grads.items():
+        err = float((grads_c[k].cpu() - v).abs().max())
+        assert err <= 1e-4 * scale[k.split(".")[0]], (k, err)

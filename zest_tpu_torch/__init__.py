@@ -3,19 +3,24 @@
 The port mirrors ``zest_tpu``'s module names so each counterpart is easy to
 find:
 
-- ``geometry``, ``sampling``  — rays, NDC, pixel grids, depth candidates
+- ``geometry``, ``sampling``  — rays, NDC, flow reprojection, pixel grids and
+                                 samplers, depth candidates, a step's draws
 - ``ops``                      — grid sampling and the plane-sweep homography
 - ``models``                   — positional encoding, FeatureNet, CostRegNet,
                                  the MVS encoder and the NeRF field
-- ``render``                   — two-field volume rendering (eval path)
-- ``system``                   — ``ZestSystem`` and its full-image eval step
+- ``render``                   — two-field volume rendering (eval and training)
+- ``losses``                   — the scene-flow loss bundle of a training step
+- ``system``                   — ``ZestSystem``: its full-image eval step and
+                                 its training step (clip, Adam, cosine LR)
 - ``convert``                  — ``zest_tpu`` param tree → this port's state dict
 - ``config``, ``data``         — the config dataclass and the synthetic scene
                                  (standard library and NumPy only)
-- ``presets``                  — the small and the flagship configuration with
-                                 seeded weights, for checks and measurements
-- ``kernels``                  — hand-written CUDA kernels (sources in
-                                 ``csrc/``) with their plain PyTorch twins
+- ``presets``                  — the small and the flagship eval and training
+                                 configurations with seeded weights, for
+                                 checks and measurements
+- ``kernels``                  — hand-written CUDA kernels, forward and
+                                 backward (sources in ``csrc/``), with their
+                                 plain PyTorch twins
 
 Nothing here imports JAX or ``zest_tpu``.
 """

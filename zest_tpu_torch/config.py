@@ -1,13 +1,15 @@
 """The port's configuration: the fields of ``zest_tpu.config.ZestConfig`` that
-the eval path reads, with the same names and defaults.
+the eval and the training step read, with the same names and defaults.
 
 Standard library only. Fields the port does not support yet (``net_type``
-other than v0, ``train_video``, ``use_color_volume``, 16-bit precision) are
-kept so that ``system.ZestSystem`` can refuse them by name.
+other than v0, ``train_video``, ``use_color_volume``, 16-bit precision,
+patches, GAN, the depth and distortion regularizers) are kept so that
+``system.ZestSystem`` can refuse them by name.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass
@@ -44,6 +46,37 @@ class ZestConfig:
     eval_chunk: int = 16384      # rays per eval chunk; 0 = use ``chunk``
     precision: int = 32
     bf16: bool = False
+    raw_noise_std: float = 0.0
+
+    # training: rays, schedule and phases
+    batch_size: int = 1024
+    num_extra_samples: int = 512
+    use_motion_mask: bool = False
+    decay_iteration: int = 50
+    with_chain_loss: bool = False
+    lrate: float = 5e-4
+    num_epochs: int = 8
+
+    # loss weights of the scene-flow bundle
+    lambda_cyc: float = 0.1
+    lambda_prob_reg: float = 0.1
+    lambda_sf_reg: float = 0.1
+    lambda_sf_smooth: float = 0.1
+    lambda_sf_depth: float = 0.04
+    lambda_optical_flow: float = 0.02
+    lambda_blending_reg: float = 1e-3
+
+    # training switches the port does not support yet
+    patch_size: int = -1
+    gan_type: Optional[str] = None
+    with_depth_loss_reg: bool = False
+    with_depth_smoothness: bool = False
+    with_distortion_loss: bool = False
+
+    @property
+    def decay_iteration_clamped(self) -> int:
+        """Decay of the data-driven priors: min(decay_iteration, 250)."""
+        return min(self.decay_iteration, 250)
 
     @property
     def feat_dim(self) -> int:

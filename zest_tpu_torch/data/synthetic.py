@@ -1,9 +1,11 @@
-"""Synthetic dynamic scene: the eval step's inputs without any data on disk.
+"""Synthetic dynamic scene: the eval and training steps' inputs without any
+data on disk.
 
 The same scene as ``zest_tpu.data.synthetic`` (smooth procedural images, a
 small camera arc, proj_mats of intrinsic/4 @ w2c relative to the first
-keyframe, identity neighbour proj_mats), cut to the keys the eval step reads.
-NumPy only; deterministic per (frame, seed).
+keyframe, identity neighbour proj_mats, the pixel grid as optical flow), cut
+to the keys the eval and training steps read. NumPy only; deterministic per
+(frame, seed).
 """
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ import numpy as np
 # ImageNet statistics every loader normalizes with
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+# static length of the motion-mask coordinate list (``motion_count`` rows
+# of it are valid)
+MOTION_COORDS_PAD = 16384
 
 
 def _procedural_image(H, W, t, seed=0):
@@ -32,9 +37,9 @@ def _normalized_image(H, W, t, seed):
 
 
 class SyntheticDataset:
-    """Eval samples of a tiny synthetic dynamic scene: the keyframes plus the
-    target in ``images``, and the four temporal neighbours t-2..t+2 of the
-    dynamic volume in ``nb_*``."""
+    """Samples of a tiny synthetic dynamic scene: the keyframes plus the
+    target in ``images``, the four temporal neighbours t-2..t+2 of the
+    dynamic volume in ``nb_*``, and the training keys."""
 
     def __init__(self, *, img_h=48, img_w=64, num_frames=None,
                  num_keyframes=4, seed=0):
@@ -109,4 +114,26 @@ class SyntheticDataset:
             "nb_intr": np.stack([self.intrinsic] * len(nbs)),
             "nb_proj_mats": np.tile(np.eye(4, dtype=np.float32)[:3],
                                     (len(nbs), 1, 1)),
+            **self._training_keys(target),
+        }
+
+    def _training_keys(self, target):
+        """What the training step reads beyond the eval keys: optical flow
+        (the pixel grid itself) and its masks, the motion-mask coordinates
+        (every pixel, row-major, padded to ``MOTION_COORDS_PAD``) and the
+        w2c of the first temporal neighbours t-1 and t+1."""
+        H, W, nf = self.H, self.W, self.num_frames
+        flow = np.stack(np.mgrid[0:H, 0:W][::-1], -1).astype(np.float32)
+        coords = np.argwhere(np.ones((H, W)))[:MOTION_COORDS_PAD]
+        motion_coords = np.zeros((MOTION_COORDS_PAD, 2), np.float32)
+        motion_coords[:len(coords)] = coords
+        fnb = [max(target - 1, 0), min(target + 1, nf - 1)]
+        return {
+            "flow_fwd": flow,
+            "flow_bwd": flow.copy(),
+            "mask_fwd": np.ones((H, W), np.float32),
+            "mask_bwd": np.ones((H, W), np.float32),
+            "motion_coords": motion_coords,
+            "motion_count": np.asarray(len(coords), np.int32),
+            "fnb_w2cs": np.stack([np.linalg.inv(self._pose(v)) for v in fnb]),
         }

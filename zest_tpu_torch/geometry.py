@@ -49,6 +49,38 @@ def world_to_ndc(points, w2c_ref, intrinsic_ref, inv_scale, near, far,
     return torch.cat([xy, z], -1)
 
 
+def ndc_to_euclidean(xyz_ndc, H: float, W: float, f: float):
+    """Forward-facing NDC → Euclidean: z_e = 2 / (clamp(z, -1, 0.99) - 1),
+    x_e = -x * z_e * W / (2f), y_e = -y * z_e * H / (2f)."""
+    z_e = 2.0 / (torch.clamp(xyz_ndc[..., 2:3], -1.0, 0.99) - 1.0)
+    x_e = -xyz_ndc[..., 0:1] * z_e * W / (2.0 * f)
+    y_e = -xyz_ndc[..., 1:2] * z_e * H / (2.0 * f)
+    return torch.cat([x_e, y_e, z_e], -1)
+
+
+def se3_transform_points(pts, R, T):
+    """pts' = R pts + T. pts [..., 3]; R [3, 3]; T [3, 1]."""
+    return (R @ pts[..., :3, None] + T)[..., 0]
+
+
+def perspective_projection(pts_3d, h: float, w: float, f: float):
+    """Camera-space points → pixels, with the reference's sign convention
+    for OpenGL-format input."""
+    x = pts_3d[..., 0:1] * f / -pts_3d[..., 2:3] + w / 2.0
+    y = -pts_3d[..., 1:2] * f / -pts_3d[..., 2:3] + h / 2.0
+    return torch.cat([x, y], -1)
+
+
+def projection_from_ndc(w2c, H: float, W: float, f: float, weights_ref,
+                        raw_pts):
+    """The expected NDC point of each ray (weights_ref [R, S] over raw_pts
+    [R, S, 3]) reprojected into the neighbour camera w2c [4, 4] → [R, 2]."""
+    pts_3d = torch.sum(weights_ref[..., None] * raw_pts, -2)
+    pts_world = ndc_to_euclidean(pts_3d, H, W, f)
+    pts_local = se3_transform_points(pts_world, w2c[:3, :3], w2c[:3, 3:])
+    return perspective_projection(pts_local, H, W, f)
+
+
 def depth2dist(z_vals, cos_angle):
     """Distances between adjacent samples, the last one 1e10, times |d|."""
     dists = z_vals[..., 1:] - z_vals[..., :-1]

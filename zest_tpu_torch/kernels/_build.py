@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zest_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
     # src, grid, out, D, h, w, C, P, stream
@@ -38,6 +38,20 @@ SIGNATURES = {
     # n, P, F, V, width, depth, skip, n_extra, stream
     "zt_fused_nerf_forward": [_P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # n, chunk, P, F, V, width, depth, skip, n_extra, floats (host long long*)
+    "zt_fused_nerf_backward_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # pts, feats, views, g, wpack, offsets (host int*), scratch, scratch_len,
+    # chunk, d_pts, d_feats, d_views, d_pack,
+    # n, P, F, V, width, depth, skip, n_extra, stream
+    "zt_fused_nerf_backward": [_P, _P, _P, _P, _P, _P, _P, _L, _I,
+                               _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
+    # g, ndc, d_vol, n_points, D, Hv, Wv, stream
+    "zt_trilinear_grad_volume": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # vol, ndc, g, d_ndc, n_points, D, Hv, Wv, stream
+    "zt_trilinear_grad_coords": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # g, grid, d_src, D, h, w, C, Hp, Wp, stream
+    "zt_plane_sweep_warp_backward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,9 +1,18 @@
-"""Trilinear encoding-volume lookup: CUDA kernel and its plain PyTorch twin.
+"""Trilinear encoding-volume lookup: CUDA kernels and their plain PyTorch
+twins.
 
-Replaces ``zest_tpu/kernels/trilinear.py:_fwd_pallas`` (the forward
-``pallas_call`` behind ``sample_volume_zbanded``) for unwarped ray points;
-the kernel is ``csrc/trilinear.cu``. Forward only: the coordinate-
-differentiable variant and the backward come with the training slice.
+Replaces three TPU kernels of ``zest_tpu/kernels/trilinear.py``, all in
+``csrc/trilinear.cu``:
+
+- K3 ``_fwd_pallas``, the lookup (``sample_volume_zbanded``);
+- K4 ``_bwd_pallas``, its adjoint in the volume;
+- K5 ``_coords_pallas``, its gradient in the coordinates, which
+  ``sample_volume_zbanded_diff`` takes at flow-warped points.
+
+``sample_volume`` is one autograd Function: d_vol comes from K4 whenever the
+volume needs a gradient, d_ndc from K5 only when the coordinates need one
+(the t±1 and chain points; the rays' own points carry none). The twins are
+``F.grid_sample`` (through ``ops.grid_sample``) and its autograd.
 """
 from __future__ import annotations
 
@@ -22,32 +31,109 @@ def sample_volume_plain(vol, ndc):
     return grid_sample_3d(vol, ndc * 2.0 - 1.0)
 
 
-def sample_volume(vol, ndc):
-    """Trilinear sample of vol [D, Hv, Wv, 8] at ndc [R, S, 3] in [0, 1].
+def sample_volume_grads_plain(vol, ndc, g):
+    """Twin of K4 and K5: (d_vol, d_ndc) by autograd through the lookup."""
+    vol, ndc = (t.detach().requires_grad_(True) for t in (vol, ndc))
+    with torch.enable_grad():
+        out = sample_volume_plain(vol, ndc)
+    return torch.autograd.grad(out, (vol, ndc), g)
 
-    CPU tensors take the twin; CUDA tensors launch the kernel or raise.
-    """
-    if vol.device.type == "cpu":
-        return sample_volume_plain(vol, ndc)
+
+def _check(name, vol, ndc, *others):
     if vol.dim() != 4 or vol.shape[-1] != CHANNELS:
-        raise ValueError(f"sample_volume: vol must be [D, Hv, Wv, {CHANNELS}], "
+        raise ValueError(f"{name}: vol must be [D, Hv, Wv, {CHANNELS}], "
                          f"got {tuple(vol.shape)}")
     if ndc.shape[-1] != 3:
-        raise ValueError(f"sample_volume: ndc must end in 3, got "
-                         f"{tuple(ndc.shape)}")
-    _build.require_cuda_f32("sample_volume", vol, ndc)
-    if vol.data_ptr() % 16:
-        raise ValueError("sample_volume: vol must be 16-byte aligned")
+        raise ValueError(f"{name}: ndc must end in 3, got {tuple(ndc.shape)}")
+    _build.require_cuda_f32(name, vol, ndc, *others)
+    if vol.data_ptr() % 16 or any(t.data_ptr() % 16 for t in others):
+        raise ValueError(f"{name}: vol and g must be 16-byte aligned")
+
+
+def _launch_sample(vol, ndc):
+    """K3 → [..., 8]."""
     D, Hv, Wv, C = vol.shape
-    n = ndc.numel() // 3
     out = torch.empty((*ndc.shape[:-1], C), device=vol.device,
                       dtype=torch.float32)
     err = _build.library().zt_trilinear_sample(
-        vol.data_ptr(), ndc.data_ptr(), out.data_ptr(), n, D, Hv, Wv,
-        _build.stream_ptr(vol))
+        vol.data_ptr(), ndc.data_ptr(), out.data_ptr(), ndc.numel() // 3, D,
+        Hv, Wv, _build.stream_ptr(vol))
     _build.check(err, "sample_volume")
     sample_volume.launches += 1
     return out
+
+
+def volume_grad(vol_shape, ndc, g):
+    """K4: d_vol [D, Hv, Wv, 8] of the lookup at ndc [..., 3] for the output
+    gradient g [..., 8]. CUDA tensors only (the twin is
+    ``sample_volume_grads_plain``)."""
+    name = "volume_grad"
+    D, Hv, Wv, C = vol_shape
+    if g.shape != (*ndc.shape[:-1], C):
+        raise ValueError(f"{name}: g must be {(*ndc.shape[:-1], C)}, "
+                         f"got {tuple(g.shape)}")
+    d_vol = torch.zeros(vol_shape, device=g.device, dtype=torch.float32)
+    _check(name, d_vol, ndc, g)
+    err = _build.library().zt_trilinear_grad_volume(
+        g.data_ptr(), ndc.data_ptr(), d_vol.data_ptr(), ndc.numel() // 3, D,
+        Hv, Wv, _build.stream_ptr(g))
+    _build.check(err, name)
+    volume_grad.launches += 1
+    return d_vol
+
+
+volume_grad.launches = 0
+
+
+def coords_grad(vol, ndc, g):
+    """K5: d_ndc [..., 3] of the lookup of vol at ndc for the output gradient
+    g [..., 8]. CUDA tensors only (the twin is ``sample_volume_grads_plain``)."""
+    name = "coords_grad"
+    if g.shape != (*ndc.shape[:-1], vol.shape[-1]):
+        raise ValueError(f"{name}: g must be {(*ndc.shape[:-1], vol.shape[-1])}"
+                         f", got {tuple(g.shape)}")
+    _check(name, vol, ndc, g)
+    D, Hv, Wv, _ = vol.shape
+    d_ndc = torch.empty_like(ndc)
+    err = _build.library().zt_trilinear_grad_coords(
+        vol.data_ptr(), ndc.data_ptr(), g.data_ptr(), d_ndc.data_ptr(),
+        ndc.numel() // 3, D, Hv, Wv, _build.stream_ptr(vol))
+    _build.check(err, name)
+    coords_grad.launches += 1
+    return d_ndc
+
+
+coords_grad.launches = 0
+
+
+class _SampleVolume(torch.autograd.Function):
+    """K3 forward; K4 for d_vol, K5 for d_ndc, each only where needed."""
+
+    @staticmethod
+    def forward(ctx, vol, ndc):
+        ctx.save_for_backward(vol, ndc)
+        return _launch_sample(vol, ndc)
+
+    @staticmethod
+    def backward(ctx, g):
+        vol, ndc = ctx.saved_tensors
+        g = g.contiguous()
+        d_vol = volume_grad(vol.shape, ndc, g) if ctx.needs_input_grad[0] else None
+        d_ndc = coords_grad(vol, ndc, g) if ctx.needs_input_grad[1] else None
+        return d_vol, d_ndc
+
+
+def sample_volume(vol, ndc):
+    """Trilinear sample of vol [D, Hv, Wv, 8] at ndc [..., 3] in [0, 1],
+    differentiable in both.
+
+    CPU tensors take the twin; CUDA tensors launch the kernels or raise.
+    """
+    if vol.device.type == "cpu":
+        return sample_volume_plain(vol, ndc)
+    ndc = ndc.contiguous()
+    _check("sample_volume", vol, ndc)
+    return _SampleVolume.apply(vol, ndc)
 
 
 sample_volume.launches = 0

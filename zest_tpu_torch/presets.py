@@ -7,6 +7,13 @@ with the skip after layer 4, multires 10 / 4) at test size: 3 keyframes,
 the image, so the last chunk is padded. ``FLAGSHIP`` is the eval
 configuration of ``tools/bench_eval.py`` at float32: 8 keyframes plus the
 target, 4 temporal neighbours, 288x512, 128 samples, width 256.
+
+``FLAGSHIP_TRAIN`` is the training configuration of ``bench.py`` at float32:
+the flagship's topology, 600 random rays plus 512 motion-mask rays (R =
+1,112), density noise 1.0, the chain loss, decay_iteration 30, 6000 epochs of
+``STEPS_PER_EPOCH`` steps. ``SMALL_TRAIN`` is ``SMALL`` with 24 + 8 rays and
+decay_iteration 1, so that both phases of a step are reachable at small
+step numbers (the chain pass runs after step 2000).
 """
 from __future__ import annotations
 
@@ -26,6 +33,13 @@ FLAGSHIP = dict(train_sceneflow=True, use_mvs=True, use_mvs_dy=True, pad=24,
                 multires_views=4, N_samples=128, eval_chunk=16384, img_h=288,
                 img_w=512, precision=32)
 FLAGSHIP_SCENE = dict(img_h=288, img_w=512, num_frames=24, num_keyframes=8)
+_TRAIN = dict(use_motion_mask=True, with_chain_loss=True, raw_noise_std=1.0)
+SMALL_TRAIN = dict(SMALL, **_TRAIN, batch_size=24, num_extra_samples=8,
+                   decay_iteration=1, num_epochs=2)
+FLAGSHIP_TRAIN = dict(FLAGSHIP, **_TRAIN, batch_size=600,
+                      num_extra_samples=512, decay_iteration=30,
+                      num_epochs=6000)
+STEPS_PER_EPOCH = 24
 TARGET_FRAME = 3
 
 

@@ -1,10 +1,12 @@
-"""Two-field volume rendering, eval path (counterpart of ``zest_tpu.render``).
+"""Two-field volume rendering (counterpart of ``zest_tpu.render``).
 
 Field evaluation and conditioning features are injected as callables (see
 ``RenderModels``); ``system.ZestSystem`` binds them to the kernel wrappers.
 ``render_rays`` renders the static field and the dynamic field at time t and
-composites them — the val return of ``zest_tpu.render.render_rays``. The
-t±1 and chain passes belong to training and come with the training slice.
+composites them — the val return of ``zest_tpu.render.render_rays``.
+``render_rays_train`` is its training return: density noise from the step's
+draws, the t-1 / t+1 re-render of the dynamic field at flow-warped points in
+one stacked field call, the chain select and the optional chain pass.
 
 Conventions: rays [R, ...], samples S on the last axis of z-shaped tensors.
 """
@@ -19,6 +21,11 @@ from .kernels.color_gather import gather_colors
 from .models.embedding import positional_encoding
 
 
+# the maps of an eval render
+EVAL_KEYS = ("rgb_map", "depth_map", "rgb_map_ref", "depth_map_ref",
+             "rgb_map_ref_dy", "depth_map_ref_dy", "weights_map_dd")
+
+
 def _exclusive_transmittance(one_minus_alpha):
     ones = torch.ones_like(one_minus_alpha[..., :1])
     return torch.cumprod(torch.cat([ones, one_minus_alpha + 1e-10], -1),
@@ -31,11 +38,21 @@ def raw2alpha(sigma, dists):
     return alpha, alpha * _exclusive_transmittance(1.0 - alpha)
 
 
-def raw2outputs(raw, z_vals, dists, white_bkgd: bool = False):
+def _noisy(sigma, noise, raw_noise_std: float):
+    """sigma plus the step's standard normals times raw_noise_std."""
+    if noise is None or raw_noise_std <= 0.0:
+        return sigma
+    return sigma + noise * raw_noise_std
+
+
+def raw2outputs(raw, z_vals, dists, white_bkgd: bool = False, noise=None,
+                raw_noise_std: float = 0.0):
     """raw [R, S, 4] → (rgb_map [R, 3], disp_map [R], acc_map [R],
-    weights [R, S], depth_map [R], alpha [R, S])."""
+    weights [R, S], depth_map [R], alpha [R, S]); ``noise`` [R, S] standard
+    normals scaled by raw_noise_std are added to the density."""
     rgb = torch.sigmoid(raw[..., :3])
-    alpha, weights = raw2alpha(torch.relu(raw[..., 3]), dists)
+    alpha, weights = raw2alpha(torch.relu(_noisy(raw[..., 3], noise,
+                                                 raw_noise_std)), dists)
     rgb_map = torch.sum(weights[..., None] * rgb, -2)
     depth_map = torch.sum(weights * z_vals, -1)
     acc_map = torch.sum(weights, -1)
@@ -45,15 +62,17 @@ def raw2outputs(raw, z_vals, dists, white_bkgd: bool = False):
     return rgb_map, disp_map, acc_map, weights, depth_map, alpha
 
 
-def raw2outputs_blending(raw_dy, raw_rigid, raw_blend_w, z_vals, dists):
-    """Static + dynamic compositing with predicted blend weights.
+def raw2outputs_blending(raw_dy, raw_rigid, raw_blend_w, z_vals, dists,
+                         noise=None, raw_noise_std: float = 0.0):
+    """Static + dynamic compositing with predicted blend weights; the same
+    density noise goes to both fields.
 
     Returns (rgb_map, depth_map, rgb_map_fg, depth_map_fg, weights_fg,
     weights_dy); fg is the dynamic field alone."""
     rgb_dy = torch.sigmoid(raw_dy[..., :3])
     rgb_rigid = torch.sigmoid(raw_rigid[..., :3])
-    opacity_dy = torch.relu(raw_dy[..., 3])
-    opacity_rigid = torch.relu(raw_rigid[..., 3])
+    opacity_dy = torch.relu(_noisy(raw_dy[..., 3], noise, raw_noise_std))
+    opacity_rigid = torch.relu(_noisy(raw_rigid[..., 3], noise, raw_noise_std))
     alpha_dy = (1.0 - torch.exp(-opacity_dy * dists)) * raw_blend_w
     alpha_rig = (1.0 - torch.exp(-opacity_rigid * dists)) * (1.0 - raw_blend_w)
     Ts = _exclusive_transmittance((1.0 - alpha_dy) * (1.0 - alpha_rig))
@@ -66,6 +85,11 @@ def raw2outputs_blending(raw_dy, raw_rigid, raw_blend_w, z_vals, dists):
     depth_map_fg = torch.sum(weights_fg * z_vals, -1)
     rgb_map_fg = torch.sum(weights_fg[..., None] * rgb_dy, -2)
     return rgb_map, depth_map, rgb_map_fg, depth_map_fg, weights_fg, weights_dy
+
+
+def compute_2d_prob(weights_p_mix, raw_prob_ref2p):
+    """Sum over samples of w * (1 - prob) per ray, the weights detached."""
+    return torch.sum(weights_p_mix.detach() * (1.0 - raw_prob_ref2p), -1)
 
 
 def gen_dir_feature(w2c_ref, dirs_unit):
@@ -129,17 +153,53 @@ def static_field_inputs(models: RenderModels, rays, im_w2c_ref):
                         models.multires_views))
 
 
+def _dynamic_inputs(models: RenderModels, ndc, t_ch, col, views):
+    """The dynamic field's inputs at ndc [n, S, 3] and times t_ch [n, S, 1],
+    with the color features col and embedded views of those rays."""
+    return (positional_encoding(torch.cat([ndc, t_ch], -1), models.multires),
+            torch.cat([models.dynamic_vol(ndc), col], -1), views)
+
+
 def dynamic_field_inputs(models: RenderModels, rays, nb_w2c_ref,
                          ref_frame_idx):
     """The dynamic field's (embedded points and time, features, embedded
     views) at a ray batch's points at the reference time, each [R, S, ...]."""
     t_ch = torch.full_like(rays.ndc[..., :1], 1.0) * ref_frame_idx
-    return (positional_encoding(torch.cat([rays.ndc, t_ch], -1),
-                                models.multires),
-            torch.cat([models.dynamic_vol(rays.ndc),
-                       models.dynamic_col(rays.pts)], -1),
-            _embed_dirs(rays.rays_d, nb_w2c_ref, rays.pts.shape[1],
-                        models.multires_views))
+    return _dynamic_inputs(models, rays.ndc, t_ch, models.dynamic_col(rays.pts),
+                           _embed_dirs(rays.rays_d, nb_w2c_ref,
+                                       rays.pts.shape[1], models.multires_views))
+
+
+def _render_ref(models, rays, dists, im_w2c_ref, nb_w2c_ref, ref_frame_idx,
+                white_bkgd, draws, raw_noise_std):
+    """Static field, then the dynamic field at the reference time, and both
+    composited. Returns (outputs, the dynamic field's raw output, the
+    dynamic color features, the dynamic embedded views)."""
+    raw_static = models.static_fn(*static_field_inputs(models, rays,
+                                                       im_w2c_ref))
+    raw_rgba, raw_blend_w = raw_static[..., :4], raw_static[..., 4]
+    rgb_map, _, _, weights, depth_map, _ = raw2outputs(
+        raw_rgba, rays.z_vals, dists, white_bkgd, getattr(draws, "noise_static", None),
+        raw_noise_std)
+
+    col_dy = models.dynamic_col(rays.pts)
+    views_dy = _embed_dirs(rays.rays_d, nb_w2c_ref, rays.pts.shape[1],
+                           models.multires_views)
+    t_ch = torch.full_like(rays.ndc[..., :1], 1.0) * ref_frame_idx
+    raw_dy = models.dynamic_fn(*_dynamic_inputs(models, rays.ndc, t_ch, col_dy,
+                                                views_dy))
+    (rgb_map_ref, depth_map_ref, rgb_map_ref_dy, depth_map_ref_dy,
+     weights_ref_dy, weights_ref_dd) = raw2outputs_blending(
+        raw_dy[..., :4], raw_rgba, raw_blend_w, rays.z_vals, dists,
+        getattr(draws, "noise_dynamic", None), raw_noise_std)
+    out = {"rgb_map": rgb_map, "depth_map": depth_map,
+           "rgb_map_ref": rgb_map_ref, "depth_map_ref": depth_map_ref,
+           "rgb_map_ref_dy": rgb_map_ref_dy,
+           "depth_map_ref_dy": depth_map_ref_dy,
+           "weights_map_dd": torch.sum(weights_ref_dd, -1).detach(),
+           "weights": weights, "raw_blend_w": raw_blend_w,
+           "weights_ref_dy": weights_ref_dy}
+    return out, raw_dy, col_dy, views_dy
 
 
 def render_rays(models: RenderModels, rays, *, im_w2c_ref, nb_w2c_ref,
@@ -153,20 +213,77 @@ def render_rays(models: RenderModels, rays, *, im_w2c_ref, nb_w2c_ref,
     """
     cos_angle = torch.linalg.norm(rays.rays_d, dim=-1, keepdim=True)
     dists = geometry.depth2dist(rays.z_vals, cos_angle)
+    out, _, _, _ = _render_ref(models, rays, dists, im_w2c_ref, nb_w2c_ref,
+                               ref_frame_idx, white_bkgd, None, 0.0)
+    return {k: out[k] for k in EVAL_KEYS}
 
-    raw_static = models.static_fn(*static_field_inputs(models, rays,
-                                                       im_w2c_ref))
-    raw_rgba, raw_blend_w = raw_static[..., :4], raw_static[..., 4]
-    rgb_map, _, _, _, depth_map, _ = raw2outputs(raw_rgba, rays.z_vals, dists,
-                                                 white_bkgd)
 
-    raw_dy = models.dynamic_fn(*dynamic_field_inputs(models, rays, nb_w2c_ref,
-                                                     ref_frame_idx))
-    (rgb_map_ref, depth_map_ref, rgb_map_ref_dy, depth_map_ref_dy,
-     _, weights_ref_dd) = raw2outputs_blending(raw_dy[..., :4], raw_rgba,
-                                               raw_blend_w, rays.z_vals, dists)
-    return {"rgb_map": rgb_map, "depth_map": depth_map,
-            "rgb_map_ref": rgb_map_ref, "depth_map_ref": depth_map_ref,
-            "rgb_map_ref_dy": rgb_map_ref_dy,
-            "depth_map_ref_dy": depth_map_ref_dy,
-            "weights_map_dd": torch.sum(weights_ref_dd, -1)}
+def render_rays_train(models: RenderModels, rays, draws, *, im_w2c_ref,
+                      nb_w2c_ref, ref_frame_idx, num_frames, chain_bwd: bool,
+                      chain_5frames: bool, raw_noise_std: float = 0.0,
+                      white_bkgd: bool = False) -> dict:
+    """The training render of one ray batch: ``render_rays``' passes with the
+    density noise of ``draws`` (a ``sampling.Draws``), then the dynamic
+    field again at the flow-warped points of t-1 and t+1 (one field call over
+    the 2R stacked rays, the color features computed once and repeated),
+    the chain points (t-2 when ``chain_bwd``, else t+2) and, when
+    ``chain_5frames``, the dynamic field at them.
+
+    Returns the outputs ``losses.sceneflow_losses`` reads, with the keys of
+    ``zest_tpu.render.render_rays``.
+    """
+    R, S, _ = rays.pts.shape
+    cos_angle = torch.linalg.norm(rays.rays_d, dim=-1, keepdim=True)
+    dists = geometry.depth2dist(rays.z_vals, cos_angle)
+    ret, raw_ref_t, col_dy, views_dy = _render_ref(
+        models, rays, dists, im_w2c_ref, nb_w2c_ref, ref_frame_idx,
+        white_bkgd, draws, raw_noise_std)
+    raw_sf_ref2prev = raw_ref_t[..., 4:7]
+    raw_sf_ref2post = raw_ref_t[..., 7:10]
+    raw_prob_ref2prev = raw_ref_t[..., 10]
+    raw_prob_ref2post = raw_ref_t[..., 11]
+    ret.update({"raw_sf_ref2prev": raw_sf_ref2prev,
+                "raw_sf_ref2post": raw_sf_ref2post, "raw_pts_ref": rays.ndc,
+                "raw_prob_ref2prev": raw_prob_ref2prev,
+                "raw_prob_ref2post": raw_prob_ref2post})
+
+    # t-1 / t+1, stacked on the ray axis into one field call
+    dt = 1.0 / num_frames * 2.0
+    prev_ndc = rays.ndc + raw_sf_ref2prev
+    post_ndc = rays.ndc + raw_sf_ref2post
+    ones = torch.ones_like(rays.ndc[..., :1])
+    t_pp = torch.cat([ones * (ref_frame_idx - dt), ones * (ref_frame_idx + dt)])
+    raw_both = models.dynamic_fn(*_dynamic_inputs(
+        models, torch.cat([prev_ndc, post_ndc]), t_pp,
+        torch.cat([col_dy, col_dy]), torch.cat([views_dy, views_dy])))
+    raw_prev, raw_post = raw_both[:R], raw_both[R:]
+
+    rgb_map_prev_dy, _, _, weights_prev_dy, _, _ = raw2outputs(
+        raw_prev[..., :4], rays.z_vals, dists, False, draws.noise_prev,
+        raw_noise_std)
+    rgb_map_post_dy, _, _, weights_post_dy, _, _ = raw2outputs(
+        raw_post[..., :4], rays.z_vals, dists, False, draws.noise_post,
+        raw_noise_std)
+    ret.update({
+        "raw_pts_prev": prev_ndc, "raw_sf_prev2ref": raw_prev[..., 7:10],
+        "rgb_map_prev_dy": rgb_map_prev_dy,
+        "raw_pts_post": post_ndc, "raw_sf_post2ref": raw_post[..., 4:7],
+        "rgb_map_post_dy": rgb_map_post_dy,
+        "prob_map_prev": compute_2d_prob(weights_prev_dy, raw_prob_ref2prev),
+        "prob_map_post": compute_2d_prob(weights_post_dy, raw_prob_ref2post)})
+
+    # the chain: t-2 through the t-1 points' backward flow, or t+2
+    if chain_bwd:
+        pp_ndc = prev_ndc + raw_prev[..., 4:7]
+        pp_frame_idx = ref_frame_idx - 2.0 * dt
+    else:
+        pp_ndc = post_ndc + raw_post[..., 7:10]
+        pp_frame_idx = ref_frame_idx + 2.0 * dt
+    ret["raw_pts_pp"] = pp_ndc
+    if chain_5frames:
+        raw_pp = models.dynamic_fn(*_dynamic_inputs(
+            models, pp_ndc, ones * pp_frame_idx, col_dy, views_dy))
+        ret["rgb_map_pp_dy"] = raw2outputs(
+            raw_pp[..., :4], rays.z_vals, dists, False, draws.noise_pp,
+            raw_noise_std)[0]
+    return ret

@@ -1,8 +1,10 @@
-"""Ray construction for the eval path (counterpart of ``zest_tpu.sampling``).
+"""Ray construction (counterpart of ``zest_tpu.sampling``).
 
 The target view is the LAST view of the batch; NDC is taken with respect to
-the reference view 0. A stratified depth draw takes its jitter as a tensor, so
-a test can feed this package and ``zest_tpu`` the same numbers.
+the reference view 0. Every random number of a training step (pixels,
+motion-mask picks, depth jitter, density noise) is a tensor in ``Draws``, made
+by ``sample_draws`` from an explicit ``torch.Generator``, so a test can feed
+this package and ``zest_tpu`` the same numbers.
 """
 from __future__ import annotations
 
@@ -22,6 +24,70 @@ class RayBatch(NamedTuple):
     color_gt: torch.Tensor   # [R, 3] target pixel colors
     depth_gt: torch.Tensor   # [R] target depth / disparity
     t_vals: torch.Tensor     # [S] normalized sample positions
+    flow_fwd_gt: Optional[torch.Tensor] = None   # [R, 2]
+    flow_bwd_gt: Optional[torch.Tensor] = None   # [R, 2]
+    mask_fwd_gt: Optional[torch.Tensor] = None   # [R]
+    mask_bwd_gt: Optional[torch.Tensor] = None   # [R]
+
+
+class Draws(NamedTuple):
+    """The random numbers of one training step. R = len(xs) + len(motion_idx)
+    rays of S samples; a noise entry is None when ``raw_noise_std`` is 0."""
+    xs: torch.Tensor                    # [B] random pixel columns (float)
+    ys: torch.Tensor                    # [B] random pixel rows (float)
+    motion_idx: Optional[torch.Tensor]  # [E] rows of motion_coords, or None
+    jitter: torch.Tensor                # [R, S] uniform depth jitter
+    noise_static: Optional[torch.Tensor] = None    # [R, S] standard normals
+    noise_dynamic: Optional[torch.Tensor] = None
+    noise_prev: Optional[torch.Tensor] = None
+    noise_post: Optional[torch.Tensor] = None
+    noise_pp: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "Draws":
+        return Draws(*(None if t is None else t.to(device) for t in self))
+
+
+NOISE_FIELDS = ("noise_static", "noise_dynamic", "noise_prev", "noise_post",
+                "noise_pp")
+
+
+def sample_pixels_random(generator: torch.Generator, H: int, W: int,
+                         n_rays: int):
+    """Uniform random integer pixels. Returns float32 (xs, ys)."""
+    dev = generator.device
+    xs = torch.randint(0, W, (n_rays,), generator=generator, device=dev)
+    ys = torch.randint(0, H, (n_rays,), generator=generator, device=dev)
+    return xs.float(), ys.float()
+
+
+def sample_motion_pixels(motion_coords, idx):
+    """The motion-mask pixels at rows idx of motion_coords [M, 2] (row, col).
+    Returns float32 (xs, ys)."""
+    hard = motion_coords[idx.long()]
+    return hard[:, 1].float(), hard[:, 0].float()
+
+
+def sample_draws(generator: torch.Generator, cfg, H: int, W: int,
+                 motion_count: int, extra_samples: bool) -> Draws:
+    """Every random number of one training step, on ``generator``'s device:
+    ``cfg.batch_size`` random pixels, ``cfg.num_extra_samples`` motion-mask
+    picks among the first ``motion_count`` coordinates when
+    ``extra_samples`` (the step's phase), the depth jitter and, when
+    ``cfg.raw_noise_std`` > 0, the density noise of the five passes."""
+    dev = generator.device
+    xs, ys = sample_pixels_random(generator, H, W, cfg.batch_size)
+    motion_idx = None
+    n_rays = cfg.batch_size
+    if extra_samples:
+        motion_idx = torch.randint(0, max(int(motion_count), 1),
+                                   (cfg.num_extra_samples,),
+                                   generator=generator, device=dev)
+        n_rays += cfg.num_extra_samples
+    shape = (n_rays, cfg.N_samples)
+    jitter = torch.rand(shape, generator=generator, device=dev)
+    noise = [torch.randn(shape, generator=generator, device=dev)
+             if cfg.raw_noise_std > 0 else None for _ in NOISE_FIELDS]
+    return Draws(xs, ys, motion_idx, jitter, *noise)
 
 
 def sample_pixels_grid(H: int, W: int, chunk: int = -1, idx: int = 0,
@@ -55,13 +121,15 @@ def depth_candidates(near, far, n_rays: int, n_samples: int,
 
 def build_rays(xs, ys, *, images, depths, w2cs, c2ws, intrinsics, near_fars,
                n_samples: int, pad: int = 0,
-               jitter: Optional[torch.Tensor] = None) -> RayBatch:
+               jitter: Optional[torch.Tensor] = None, flow_fwd=None,
+               flow_bwd=None, mask_fwd=None, mask_bwd=None) -> RayBatch:
     """A RayBatch for pixel coords (xs, ys) of the target (last) view.
 
     Args:
         images: [V, H, W, 3] unnormalized images (for the target colors).
         depths: [H, W]; w2cs/c2ws: [V, 4, 4]; intrinsics: [V, 3, 3];
-        near_fars: [V, 2].
+        near_fars: [V, 2]; flow_* [H, W, 2] and mask_* [H, W]: the target
+        frame's optical flow and its masks, gathered when given.
     """
     V, H, W, _ = images.shape
     inv_scale = torch.tensor([W - 1, H - 1], dtype=torch.float32,
@@ -74,6 +142,10 @@ def build_rays(xs, ys, *, images, depths, w2cs, c2ws, intrinsics, near_fars,
     ndc = geometry.world_to_ndc(pts, w2cs[0], intrinsics[0], inv_scale,
                                 near=near_fars[0, 0], far=near_fars[0, 1],
                                 pad=pad)
+    flows = {}
+    if flow_fwd is not None:
+        flows = dict(flow_fwd_gt=flow_fwd[yi, xi], flow_bwd_gt=flow_bwd[yi, xi],
+                     mask_fwd_gt=mask_fwd[yi, xi], mask_bwd_gt=mask_bwd[yi, xi])
     return RayBatch(pts=pts, ndc=ndc, z_vals=z_vals, rays_d=rays_d,
                     color_gt=images[-1][yi, xi], depth_gt=depths[yi, xi],
-                    t_vals=t_vals)
+                    t_vals=t_vals, **flows)

@@ -1,17 +1,26 @@
-"""``ZestSystem``: the model stack and its full-image eval step (counterpart of
-``zest_tpu.system``, eval path only).
+"""``ZestSystem``: the model stack, its full-image eval step and its training
+step (counterpart of ``zest_tpu.system``).
 
 ``make_eval_step()(params, batch)`` builds the static and dynamic encoding
 volumes once, then renders the target view in fixed-size ray chunks with a
-plain Python loop. ``params`` is a state dict (from ``init_params`` or
+plain Python loop. ``make_train_step(optimizer)(state, batch, draws, phase)``
+builds both volumes, renders the step's rays through both fields (the t±1
+and chain passes included), takes the scene-flow loss bundle and its
+gradients, and applies Adam with global-norm clipping and a cosine learning
+rate. ``params`` is a state dict (from ``init_params`` or
 ``convert.from_jax_params``) applied with ``torch.func.functional_call``;
-``batch`` is a dataset sample as tensors on one device (``to_batch``). On a
-CUDA device every kernel of the path is the port's own: the plane-sweep warp,
-the volume lookup, the color gather and the fused field.
+``batch`` is a dataset sample as tensors on one device (``to_batch``);
+``draws`` are the step's random numbers (``sampling.sample_draws``). On a
+CUDA device every kernel of both paths is the port's own: the plane-sweep
+warp, the volume lookup, the color gather and the fused field, and on the
+training path the backward of the warp, the lookup and the field. Callers on
+the card turn TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32``) for float32 results.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -20,15 +29,13 @@ from torch import nn
 from . import render, sampling
 from .data.synthetic import IMAGENET_MEAN, IMAGENET_STD
 from .geometry import normalize_frame_idx
+from .losses import sceneflow_losses
+from .render import EVAL_KEYS
 from .kernels.fused_mlp import fused_nerf_forward
 from .kernels.trilinear import sample_volume
 from .models import MVSEncoder, NeRFField
 from .models.embedding import embedding_out_channels
 from .models.feature_net import BatchNormAct
-
-
-EVAL_KEYS = ("rgb_map", "depth_map", "rgb_map_ref", "depth_map_ref",
-             "rgb_map_ref_dy", "depth_map_ref_dy", "weights_map_dd")
 
 
 def unpreprocess(imgs):
@@ -44,8 +51,60 @@ def to_batch(sample: dict, device) -> dict:
             for k, v in sample.items()}
 
 
+class Phase(NamedTuple):
+    """The flags that change a training step's graph, from the host step."""
+    extra_samples: bool = False   # motion-mask extra rays (step < decay * 1000)
+    chain_5frames: bool = False   # the chain pass (step > decay * 2000)
+
+
+def phase_for_step(cfg, step: int) -> Phase:
+    decay = cfg.decay_iteration_clamped
+    return Phase(
+        extra_samples=bool(cfg.use_motion_mask and step < decay * 1000),
+        chain_5frames=bool(cfg.with_chain_loss and step > decay * 1000 * 2))
+
+
+class TrainState(NamedTuple):
+    params: dict                  # name -> tensor, the state dict's layout
+    opt_state: dict               # "mu", "nu": dicts like params; "count": int
+    step: int
+
+
+class Optimizer:
+    """Global-norm clip at 1.0, then Adam (0.9, 0.999, eps 1e-8) at the
+    learning rate ``lr_fn(count)`` of the updates already made: optax's
+    ``chain(clip_by_global_norm(1.0), adam(schedule))`` written out."""
+    B1, B2, EPS, MAX_NORM = 0.9, 0.999, 1e-8, 1.0
+
+    def __init__(self, lr_fn):
+        self.lr_fn = lr_fn
+
+    def init(self, params: dict) -> dict:
+        return {"mu": {k: torch.zeros_like(v) for k, v in params.items()},
+                "nu": {k: torch.zeros_like(v) for k, v in params.items()},
+                "count": 0}
+
+    def update(self, grads: dict, opt_state: dict, params: dict):
+        """Returns (new params, new optimizer state)."""
+        b1, b2 = self.B1, self.B2
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        keep = g_norm < self.MAX_NORM
+        count = opt_state["count"] + 1
+        lr = self.lr_fn(opt_state["count"])
+        c1, c2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+        mu, nu, new = {}, {}, {}
+        for k, p in params.items():
+            # optax divides by the norm only when it reaches MAX_NORM
+            g = torch.where(keep, grads[k], grads[k] / g_norm * self.MAX_NORM)
+            mu[k] = (1.0 - b1) * g + b1 * opt_state["mu"][k]
+            nu[k] = (1.0 - b2) * g * g + b2 * opt_state["nu"][k]
+            new[k] = p - lr * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.EPS))
+        return new, {"mu": mu, "nu": nu, "count": count}
+
+
 def _check_supported(cfg) -> None:
-    """The port covers the two-field, two-volume, float32 eval path."""
+    """The port covers the two-field, two-volume, float32 eval and
+    scene-flow training paths."""
     unsupported = {
         "train_sceneflow=False": not cfg.train_sceneflow,
         "use_mvs=False": not cfg.use_mvs,
@@ -54,6 +113,11 @@ def _check_supported(cfg) -> None:
         "train_video": cfg.train_video,
         "use_color_volume": cfg.use_color_volume,
         f"precision={cfg.precision}": cfg.precision != 32 or cfg.bf16,
+        f"patch_size={cfg.patch_size}": cfg.patch_size > 0,
+        f"gan_type={cfg.gan_type!r}": cfg.gan_type is not None,
+        "with_depth_loss_reg": cfg.with_depth_loss_reg,
+        "with_depth_smoothness": cfg.with_depth_smoothness,
+        "with_distortion_loss": cfg.with_distortion_loss,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -61,7 +125,8 @@ def _check_supported(cfg) -> None:
 
 
 class ZestSystem(nn.Module):
-    """Builds the fields and encoders for a config; exposes the eval step."""
+    """Builds the fields and encoders for a config; exposes the eval step
+    (its forward) and the training step."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -171,8 +236,8 @@ class ZestSystem(nn.Module):
                     white_bkgd=self.cfg.white_bkgd)
 
     def forward(self, batch):
-        """Full-image eval of the batch's target view -> dict of [H, W, ...],
-        rendered in chunks of ``eval_chunk`` rays."""
+        """The full-image eval of the batch's target view -> dict of
+        [H, W, ...], rendered in chunks of ``eval_chunk`` rays."""
         _, H, W, _ = batch["images"].shape
         models = self.render_models(batch)
         imgs_un = unpreprocess(batch["images"])
@@ -191,3 +256,107 @@ class ZestSystem(nn.Module):
                 return torch.func.functional_call(self, params, (batch,))
 
         return eval_step
+
+    # ------------------------------------------------------------------
+    def make_optimizer(self, steps_per_epoch: int) -> Optimizer:
+        """Adam (0.9, 0.999) after a global-norm clip at 1.0, its learning
+        rate cosine-annealed per epoch from ``lrate`` down to 1e-7."""
+        cfg = self.cfg
+        eps_min = 1e-7
+
+        def lr_fn(count: int) -> float:
+            epoch = min(count // max(steps_per_epoch, 1), cfg.num_epochs)
+            return eps_min + (cfg.lrate - eps_min) * 0.5 * (
+                1.0 + math.cos(math.pi * epoch / cfg.num_epochs))
+
+        return Optimizer(lr_fn)
+
+    def train_rays(self, batch, draws: sampling.Draws, phase: Phase):
+        """The step's rays: the random pixels, plus the motion-mask pixels in
+        the extra-samples phase, with the draws' depth jitter."""
+        cfg = self.cfg
+        xs, ys = draws.xs, draws.ys
+        if phase.extra_samples:
+            hx, hy = sampling.sample_motion_pixels(batch["motion_coords"],
+                                                   draws.motion_idx)
+            xs, ys = torch.cat([xs, hx]), torch.cat([ys, hy])
+        return sampling.build_rays(
+            xs, ys, images=unpreprocess(batch["images"]),
+            depths=batch["depths"], w2cs=batch["w2cs"], c2ws=batch["c2ws"],
+            intrinsics=batch["intrinsics"], near_fars=batch["near_fars"],
+            n_samples=cfg.N_samples, pad=cfg.pad, jitter=draws.jitter,
+            flow_fwd=batch["flow_fwd"], flow_bwd=batch["flow_bwd"],
+            mask_fwd=batch["mask_fwd"], mask_bwd=batch["mask_bwd"])
+
+    def forward_train(self, batch, draws: sampling.Draws, phase: Phase,
+                      step: int):
+        """One training forward: both volumes, the step's rays and the
+        training render. Returns (results, rays)."""
+        models = self.render_models(batch)
+        rays = self.train_rays(batch, draws, phase)
+        results = render.render_rays_train(
+            models, rays, draws, **self.render_kwargs(batch),
+            num_frames=batch["total_frames"],
+            # the two-frame chain alternates every step, t-2 first
+            chain_bwd=step % 2 == 0, chain_5frames=phase.chain_5frames,
+            raw_noise_std=self.cfg.raw_noise_std)
+        return results, rays
+
+    def compute_losses(self, results, rays, batch, step: int, phase: Phase):
+        """The scene-flow loss bundle → (train_loss, logs), with the logs of
+        ``zest_tpu.system.ZestSystem.compute_losses``."""
+        _, H, W, _ = batch["images"].shape
+        total, logs = sceneflow_losses(
+            self.cfg, results, rays, step=step, frame_t=batch["time"],
+            total_frames=batch["total_frames"], H=H, W=W,
+            focal=batch["intrinsics"][-1, 0, 0], fnb_w2cs=batch["fnb_w2cs"],
+            chain_bwd=step % 2 == 0, chain_5frames=phase.chain_5frames)
+        logs["sceneflow_loss"] = total
+        logs["train_loss"] = total
+        mse = torch.mean((results["rgb_map"] - rays.color_gt) ** 2)
+        logs["train_PSNR"] = -10.0 * torch.log10(mse)
+        return total, logs
+
+    def loss_and_grads(self, params: dict, batch, draws: sampling.Draws,
+                       phase: Phase, step: int):
+        """(train_loss, logs, grads) of one step at ``params``; grads has
+        params' keys. The logs are detached."""
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad():
+            total, logs = torch.func.functional_call(
+                _TrainLoss(self), {f"system.{k}": v for k, v in leaves.items()},
+                (batch, draws, phase, step))
+            grads = torch.autograd.grad(total, list(leaves.values()),
+                                        allow_unused=True)
+        grads = {k: torch.zeros_like(v) if g is None else g
+                 for (k, v), g in zip(leaves.items(), grads)}
+        return total.detach(), {k: v.detach() for k, v in logs.items()}, grads
+
+    def make_train_step(self, optimizer: Optimizer):
+        """Returns train_step(state, batch, draws, phase) → (new state,
+        logs): one step's loss and gradients at state.params, then the
+        optimizer's update."""
+
+        def train_step(state: TrainState, batch, draws: sampling.Draws,
+                       phase: Phase):
+            _, logs, grads = self.loss_and_grads(state.params, batch, draws,
+                                                 phase, state.step)
+            with torch.no_grad():
+                params, opt_state = optimizer.update(grads, state.opt_state,
+                                                     state.params)
+            return TrainState(params, opt_state, state.step + 1), logs
+
+        return train_step
+
+
+class _TrainLoss(nn.Module):
+    """A training step's (loss, logs) as a module's forward, so that
+    ``functional_call`` binds the step's parameters (keys ``system.*``)."""
+
+    def __init__(self, system: ZestSystem):
+        super().__init__()
+        self.system = system
+
+    def forward(self, batch, draws: sampling.Draws, phase: Phase, step: int):
+        results, rays = self.system.forward_train(batch, draws, phase, step)
+        return self.system.compute_losses(results, rays, batch, step, phase)

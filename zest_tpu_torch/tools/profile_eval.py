@@ -47,9 +47,9 @@ GROUPS = (("fused_nerf", "K6 fused field"),
 OTHER = "other elementwise / copies"
 
 
-def group_of(kernel_name: str) -> str:
+def group_of(kernel_name: str, groups=GROUPS) -> str:
     name = kernel_name.lower()
-    return next((label for key, label in GROUPS if key in name), OTHER)
+    return next((label for key, label in groups if key in name), OTHER)
 
 
 def busy_union_us(intervals) -> float:
