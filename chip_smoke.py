@@ -33,7 +33,18 @@ sm_90a), then:
 8. runs the flagship training step (``presets.FLAGSHIP_TRAIN``: R = 1,112
    rays) with every launch counter reset first, asserts the exact launches
    of every kernel per step in both phases, checks the logs and that the
-   parameters moved, and times a window of steps: train_rays_per_sec.
+   parameters moved, and times a window of steps: train_rays_per_sec;
+9. at 16-bit precision (``presets.FLAGSHIP_TRAIN_16``, ``bench.py``'s own
+   configuration): holds the row gather K9 (forward bitwise, its
+   scatter-add backward to one bf16 rounding step) at the flagship step's
+   own t±1 points, and the bf16-operand modes of the field kernels K6 and K7
+   at the flagship's eval chunk and training passes, against their twins;
+10. runs the small eval and training step at 16 bits on CUDA and on the CPU
+    (each quantity within twice the CPU's own 16-vs-32 difference);
+11. runs the flagship eval and training step at 16 bits, as phases 5 and 8
+    do, asserting the launches (K9 forward and backward once per step-0
+    step and twice per chain step, K5 never) and timing s/image and
+    train_rays_per_sec beside the float32 ones.
 
 The second-to-last line of stdout is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -57,7 +68,13 @@ SEED = 0
 # one H100 SXM: HBM rate and float32 peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12     # bf16 operands, float32 sums (tensor cores)
 TRAIN_STEPS = 5              # timed flagship training steps, after warm-up
+# bf16-operand field kernels against their twins: both round the same
+# operands, but a float32 sum taken in another order can flip one bf16
+# rounding of an activation, a change of 2^-8 of that operand
+BF16_FIELD_TOL = 1e-3        # K6: of max(1, |output|)
+BF16_FIELD_GRAD_TOL = 2.0 ** -8   # K7: of each input's and each leaf's largest
 
 
 def log(msg: str) -> None:
@@ -138,7 +155,8 @@ def image_pixels(xy, H, W) -> int:
 
 def counters():
     """Every kernel wrapper of the port, by the name its count is read as."""
-    from zest_tpu_torch.kernels import color_gather, fused_mlp, plane_sweep, trilinear
+    from zest_tpu_torch.kernels import (color_gather, dma_gather, fused_mlp,
+                                        plane_sweep, trilinear)
     return {"homo_warp_cm": plane_sweep.homo_warp_cm,
             "homo_warp_cm_grad": plane_sweep.homo_warp_cm_grad,
             "sample_volume": trilinear.sample_volume,
@@ -146,7 +164,9 @@ def counters():
             "coords_grad": trilinear.coords_grad,
             "gather_colors": color_gather.gather_colors,
             "fused_nerf_forward": fused_mlp.fused_nerf_forward,
-            "fused_nerf_backward": fused_mlp.fused_nerf_backward}
+            "fused_nerf_backward": fused_mlp.fused_nerf_backward,
+            "gather_rows": dma_gather.gather_rows,
+            "scatter_rows": dma_gather.scatter_rows}
 
 
 def reset_counters() -> None:
@@ -166,10 +186,13 @@ class Rows:
         self.rows = {}
 
     def check(self, name, source, replaces, counter, kern, plain, library,
-              tol, iters, moved_bytes, flops, relative=False):
+              tol, iters, moved_bytes, flops, relative=False, flops_bf16=0,
+              paths=("eval", "train")):
         """kern and plain return a tensor or a tuple of them. Forward outputs
         are held to tol x max(1, |plain|); gradients (relative=True) to tol x
-        the largest |plain| of each output."""
+        the largest |plain| of each output. flops count float32 operations,
+        flops_bf16 those on bf16 operands; paths names the runs whose
+        launches the row reports (eval first)."""
         with torch.no_grad():
             out, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -186,7 +209,8 @@ class Rows:
             ms = cuda_ms(kern, iters)
             plain_ms = cuda_ms(plain, iters)
             lib_ms = cuda_ms(library, iters) if library is not None else None
-        bound_ms = 1e3 * max(moved_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+        bound_ms = 1e3 * max(moved_bytes / HBM_BYTES_PER_S,
+                             flops / F32_FLOP_PER_S + flops_bf16 / BF16_FLOP_PER_S)
         log(f"[kernel] {name}: shapes {[tuple(a.shape) for a in outs]} "
             f"max_abs_err {err:.3e} (tol {tol:g}) kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, library "
@@ -197,31 +221,35 @@ class Rows:
         row = self.rows.setdefault(name, dict(
             name=name, route="cuda", source=source, replaces=replaces,
             counter=counter, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-            bytes=0, flops=0, library_ms=0.0 if library is not None else None))
+            bytes=0, flops=0, flops_bf16=0, paths=paths,
+            library_ms=0.0 if library is not None else None))
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
         row["plain_ms"] += plain_ms
         row["bytes"] += moved_bytes
         row["flops"] += flops
+        row["flops_bf16"] += flops_bf16
         if lib_ms is not None:
             row["library_ms"] += lib_ms
         del out, ref, outs, refs
 
-    def finish(self, eval_launches: dict, train_launches: dict) -> list:
-        """The rows with their launches: on the eval path for the kernels
-        it runs (the forward ones), on the training step for the others;
-        ``train_launches`` is every kernel's count per training step."""
+    def finish(self, launches: dict) -> list:
+        """The rows with their launches: per eval image for the kernels the
+        eval path runs (the forward ones), per training step (step-0 phase)
+        for the others; ``train_launches`` is every kernel's count per
+        training step. ``launches`` maps each path name to its counts."""
         rows = []
         for r in self.rows.values():
             b_ms = 1e3 * r["bytes"] / HBM_BYTES_PER_S
-            o_ms = 1e3 * r["flops"] / F32_FLOP_PER_S
+            o_ms = 1e3 * (r["flops"] / F32_FLOP_PER_S
+                          + r["flops_bf16"] / BF16_FLOP_PER_S)
             c = r["counter"]
-            path = "eval" if eval_launches[c] else "train"
+            eval_path, train_path = r["paths"]
+            path = eval_path if launches[eval_path][c] else train_path
             rows.append(dict(
                 name=r["name"], route=r["route"], source=r["source"],
-                replaces=r["replaces"],
-                launches=(eval_launches if path == "eval" else train_launches)[c],
-                path=path, train_launches=train_launches[c],
+                replaces=r["replaces"], launches=launches[path][c],
+                path=path, train_launches=launches[train_path][c],
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=max(b_ms, o_ms),
                 bound_by="bytes" if b_ms >= o_ms else "operations",
@@ -229,10 +257,116 @@ class Rows:
         return rows
 
 
-def field_macs(field) -> int:
-    """Multiply-adds per point of a field: one per weight."""
-    return sum(m.weight.numel() for m in field.modules()
+def field_ops(field, n: int, passes: int) -> tuple:
+    """(float32, bf16-operand) operations of `passes` products per weight on
+    n points: one multiply-add per weight and point in each product; in the
+    bf16-operand mode only the heads keep float32 operands."""
+    macs = sum(m.weight.numel() for m in field.modules()
                if isinstance(m, torch.nn.Linear))
+    if not field.bf16:
+        return 2 * passes * n * macs, 0
+    heads = [field.alpha_linear, field.rgb_linear]
+    heads += [field.w_linear] if field.static else [field.sf_linear,
+                                                    field.prob_linear]
+    head = sum(m.weight.numel() for m in heads)
+    return 2 * passes * n * head, 2 * passes * n * (macs - head)
+
+
+def chunk_inputs(system, batch):
+    """The first chunk's rays of the flagship eval and both fields' inputs on
+    them, as ``render_rays`` builds them ([16384, 128, ch])."""
+    from zest_tpu_torch import render
+    with torch.no_grad():
+        models = system.render_models(batch)
+        rays = system.chunk_rays(batch, 0)
+        kw = system.render_kwargs(batch)
+        return rays, {
+            "static": render.static_field_inputs(models, rays, kw["im_w2c_ref"]),
+            "dynamic": render.dynamic_field_inputs(models, rays, kw["nb_w2c_ref"],
+                                                   kw["ref_frame_idx"])}
+
+
+def step_inputs(system, batch, cfg, gen):
+    """The flagship training step's step-0 rays (drawn from gen), the
+    stacked t±1 points and the three field passes' inputs (field, inputs)
+    by label, as ``render_rays_train`` builds them."""
+    from zest_tpu_torch import render, sampling
+    from zest_tpu_torch.kernels import fused_mlp
+    from zest_tpu_torch.system import phase_for_step
+    phase = phase_for_step(cfg, 0)
+    draws = sampling.sample_draws(gen, cfg, cfg.img_h, cfg.img_w,
+                                  int(batch["motion_count"]), phase.extra_samples)
+    with torch.no_grad():
+        models = system.render_models(batch)
+        rays = system.train_rays(batch, draws, phase)
+        kw = system.render_kwargs(batch)
+        st_in = render.static_field_inputs(models, rays, kw["im_w2c_ref"])
+        dy_in = render.dynamic_field_inputs(models, rays, kw["nb_w2c_ref"],
+                                            kw["ref_frame_idx"])
+        raw_dy = fused_mlp.fused_nerf_forward(system.nerf_dynamic, *dy_in)
+        warped = torch.cat([rays.ndc + raw_dy[..., 4:7],
+                            rays.ndc + raw_dy[..., 7:10]]).contiguous()
+        dt = 2.0 / batch["total_frames"]
+        ones = torch.ones_like(rays.ndc[..., :1])
+        t_pp = torch.cat([ones * (kw["ref_frame_idx"] - dt),
+                          ones * (kw["ref_frame_idx"] + dt)])
+        col = dy_in[1][..., 8:]
+        pp_in = render._dynamic_inputs(models, warped, t_pp,
+                                       torch.cat([col, col]),
+                                       torch.cat([dy_in[2], dy_in[2]]),
+                                       warped=True)
+    return rays, warped, {"static": (system.nerf_static, st_in),
+                          "dynamic": (system.nerf_dynamic, dy_in),
+                          "t-1 / t+1": (system.nerf_dynamic, pp_in)}
+
+
+def check_field_forward(rows, name, system, field_inputs, tol, paths):
+    """K6 on both fields' chunk inputs; the twin is the field module itself;
+    no single library call computes a field."""
+    from zest_tpu_torch.kernels.fused_mlp import fused_nerf_forward
+    for kind, inputs in field_inputs.items():
+        field = getattr(system, f"nerf_{kind}")
+        n = inputs[0].numel() // inputs[0].shape[-1]
+        f32_ops, bf16_ops = field_ops(field, n, 1)
+        rows.check(name, "zest_tpu_torch/csrc/fused_mlp.cu",
+                   "zest_tpu/kernels/fused_mlp.py:376", "fused_nerf_forward",
+                   functools.partial(fused_nerf_forward, field, *inputs),
+                   functools.partial(field, *inputs), None, tol, 3,
+                   nbytes(*inputs) + 4 * n * field.out_ch
+                   + 4 * sum(p.numel() for p in field.parameters()),
+                   f32_ops, flops_bf16=bf16_ops, paths=paths)
+
+
+def check_field_backward(rows, name, passes, gen, tol, paths):
+    """K7 on the step's field passes against autograd through the twin, with
+    a random output gradient; d_pack is held leaf by leaf, each weight and
+    bias to tol of its own largest element."""
+    from zest_tpu_torch.kernels import fused_mlp
+
+    def leafwise(field, offsets, grads):
+        d_pts, d_feats, d_views, d_pack = grads
+        return (d_pts, d_feats, d_views,
+                *(t for _, t in fused_mlp.pack_leaves(field, d_pack, offsets)))
+
+    for label, (field, inputs) in passes.items():
+        flat = [t.reshape(-1, t.shape[-1]).contiguous() for t in inputs]
+        n = flat[0].shape[0]
+        g = torch.randn((n, field.out_ch), generator=gen, device=flat[0].device)
+        with torch.no_grad():
+            pack, offsets = fused_mlp.pack_weights(field)
+        f32_ops, bf16_ops = field_ops(field, n, 3)
+        log(f"[backward] {name} {label}: {n} points")
+        rows.check(name, "zest_tpu_torch/csrc/fused_mlp.cu",
+                   "zest_tpu/kernels/fused_mlp.py:398", "fused_nerf_backward",
+                   lambda: leafwise(field, offsets, fused_mlp.fused_nerf_backward(
+                       field, *flat, g, pack, offsets)),
+                   lambda: leafwise(field, offsets,
+                                    fused_mlp.fused_nerf_backward_plain(
+                                        field, *flat, g)),
+                   None, tol, 2,
+                   2 * nbytes(*flat) + nbytes(g) + 2 * nbytes(pack), f32_ops,
+                   relative=True, flops_bf16=bf16_ops, paths=paths)
+        field.zero_grad(set_to_none=True)
 
 
 def forward_kernels(rows, dev, cfg, system, batch):
@@ -240,10 +374,9 @@ def forward_kernels(rows, dev, cfg, system, batch):
     inputs of the flagship eval, at the shapes the main path gives it."""
     import torch.nn.functional as F
 
-    from zest_tpu_torch import geometry, render
+    from zest_tpu_torch import geometry
     from zest_tpu_torch.kernels.color_gather import (gather_colors,
                                                      gather_colors_plain)
-    from zest_tpu_torch.kernels.fused_mlp import fused_nerf_forward
     from zest_tpu_torch.kernels.plane_sweep import homo_warp_cm, homo_warp_cm_plain
     from zest_tpu_torch.kernels.trilinear import sample_volume, sample_volume_plain
     from zest_tpu_torch.models.mvsnet import depth_plane_values
@@ -255,14 +388,7 @@ def forward_kernels(rows, dev, cfg, system, batch):
     h, w = H // 4, W // 4
     imgs_un = unpreprocess(batch["images"])
     depths = depth_plane_values(batch["near_fars"][0, 0], batch["near_fars"][0, 1])
-    with torch.no_grad():
-        models = system.render_models(batch)
-        rays = system.chunk_rays(batch, 0)
-        kw = system.render_kwargs(batch)
-        field_inputs = {
-            "static": render.static_field_inputs(models, rays, kw["im_w2c_ref"]),
-            "dynamic": render.dynamic_field_inputs(models, rays, kw["nb_w2c_ref"],
-                                                   kw["ref_frame_idx"])}
+    rays, field_inputs = chunk_inputs(system, batch)
 
     # K1: source view 1 (32 features + 3 RGB) over the padded frustum
     src = torch.randn((h, w, 35), generator=gen, device=dev)
@@ -315,18 +441,9 @@ def forward_kernels(rows, dev, cfg, system, batch):
                1e-5, 20, 12 * image_pixels(xy, H, W) + nbytes(xy)
                + 12 * xy.shape[0] * xy.shape[1], 24 * xy.shape[0] * xy.shape[1])
 
-    # K6: both fields on the chunk's inputs as render_rays builds them
-    # ([16384, 128, ch]); the twin is the field module itself; no single
-    # library call computes a field
-    for kind, inputs in field_inputs.items():
-        field = getattr(system, f"nerf_{kind}")
-        n = inputs[0].numel() // inputs[0].shape[-1]
-        rows.check("fused_nerf", "zest_tpu_torch/csrc/fused_mlp.cu",
-                   "zest_tpu/kernels/fused_mlp.py:376", "fused_nerf_forward",
-                   functools.partial(fused_nerf_forward, field, *inputs),
-                   functools.partial(field, *inputs), None, 1e-4, 3,
-                   nbytes(*inputs) + 4 * n * field.out_ch
-                   + 4 * field_macs(field), 2 * n * field_macs(field))
+    # K6: both fields on the chunk's inputs
+    check_field_forward(rows, "fused_nerf", system, field_inputs, 1e-4,
+                        ("eval", "train"))
 
 
 def small_slice(dev):
@@ -356,9 +473,9 @@ def small_slice(dev):
         raise AssertionError("small slice renders a constant image")
 
 
-def flagship(cfg, system, batch, params):
-    """Phase 5: the flagship eval step with every launch counter reset
-    first."""
+def flagship(cfg, system, batch, params, tag="flagship"):
+    """Phases 5 and 11: the flagship eval step with every launch counter
+    reset first. Returns (launches, median s/image)."""
     from zest_tpu_torch.system import EVAL_KEYS
     step = system.make_eval_step()
     torch.cuda.reset_peak_memory_stats()
@@ -374,7 +491,7 @@ def flagship(cfg, system, batch, params):
     expected = dict.fromkeys(launches, 0)
     expected.update(homo_warp_cm=n_src, sample_volume=2 * n_chunks,
                     gather_colors=2 * n_chunks, fused_nerf_forward=2 * n_chunks)
-    log(f"[flagship] first run {first:.2f} s, launches {launches}")
+    log(f"[{tag}] first run {first:.2f} s, launches {launches}")
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
     for k in EVAL_KEYS:
@@ -382,7 +499,7 @@ def flagship(cfg, system, batch, params):
         if v.shape[:2] != (H, W) or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"flagship {k}: shape {tuple(v.shape)} or "
                                  f"non-finite values")
-        log(f"[flagship] {k}: shape {tuple(v.shape)} mean {float(v.mean()):.4f}"
+        log(f"[{tag}] {k}: shape {tuple(v.shape)} mean {float(v.mean()):.4f}"
             f" std {float(v.std()):.4f}")
     if float(maps["rgb_map_ref"].std()) <= 0.0:
         raise AssertionError("flagship rgb_map_ref is constant")
@@ -396,11 +513,11 @@ def flagship(cfg, system, batch, params):
         maps = step(params, b2)
         prev = float(maps["rgb_map_ref"][0, 0, 0])    # waits for the device
         times.append(time.perf_counter() - t0)
-    log(f"[flagship] s/image over {len(times)} runs: "
+    log(f"[{tag}] s/image over {len(times)} runs: "
         + ", ".join(f"{t:.3f}" for t in times)
         + f" (median {float(np.median(times)):.3f}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, float(np.median(times))
 
 
 def backward_kernels(rows, dev, cfg, system, batch):
@@ -409,72 +526,26 @@ def backward_kernels(rows, dev, cfg, system, batch):
     the three field passes' inputs and a random output gradient."""
     import torch.nn.functional as F
 
-    from zest_tpu_torch import render, sampling
-    from zest_tpu_torch.kernels import fused_mlp, plane_sweep, trilinear
+    from zest_tpu_torch.kernels import plane_sweep, trilinear
     from zest_tpu_torch.models.mvsnet import depth_plane_values
     from zest_tpu_torch.ops.homography import homography_grid
-    from zest_tpu_torch.system import phase_for_step
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    H, W = cfg.img_h, cfg.img_w
-    phase = phase_for_step(cfg, 0)
-    draws = sampling.sample_draws(gen, cfg, H, W, int(batch["motion_count"]),
-                                  phase.extra_samples)
     near_far = batch["near_fars"][0]
+    rays, warped, passes = step_inputs(system, batch, cfg, gen)
     with torch.no_grad():
         static_vol, _, _ = system.enc_static(batch["images"][:-1],
                                              batch["proj_mats"][:-1], near_far,
                                              pad=cfg.pad)
         dyn_vol, _, _ = system.enc_dy(batch["nb_imgs"], batch["nb_proj_mats"],
                                       near_far, pad=cfg.pad)
-        models = system.render_models(batch)
-        rays = system.train_rays(batch, draws, phase)
-        kw = system.render_kwargs(batch)
-        st_in = render.static_field_inputs(models, rays, kw["im_w2c_ref"])
-        dy_in = render.dynamic_field_inputs(models, rays, kw["nb_w2c_ref"],
-                                            kw["ref_frame_idx"])
-        raw_dy = fused_mlp.fused_nerf_forward(system.nerf_dynamic, *dy_in)
-        warped = torch.cat([rays.ndc + raw_dy[..., 4:7],
-                            rays.ndc + raw_dy[..., 7:10]]).contiguous()
-        dt = 2.0 / batch["total_frames"]
-        ones = torch.ones_like(rays.ndc[..., :1])
-        t_pp = torch.cat([ones * (kw["ref_frame_idx"] - dt),
-                          ones * (kw["ref_frame_idx"] + dt)])
-        col = dy_in[1][..., 8:]
-        pp_in = render._dynamic_inputs(models, warped, t_pp,
-                                       torch.cat([col, col]),
-                                       torch.cat([dy_in[2], dy_in[2]]))
     R, S = rays.ndc.shape[:2]
     log(f"[backward] R = {R} rays of {S} samples; volumes "
         f"{tuple(static_vol.shape)}, {tuple(dyn_vol.shape)}")
 
-    # K7: the field backward on the three passes of a step; d_pack is held
-    # leaf by leaf, each weight and bias to 1e-4 of its own largest element
-    def leafwise(field, offsets, grads):
-        d_pts, d_feats, d_views, d_pack = grads
-        return (d_pts, d_feats, d_views,
-                *(t for _, t in fused_mlp.pack_leaves(field, d_pack, offsets)))
-
-    for label, field, inputs in (("static", system.nerf_static, st_in),
-                                 ("dynamic", system.nerf_dynamic, dy_in),
-                                 ("t-1 / t+1", system.nerf_dynamic, pp_in)):
-        flat = [t.reshape(-1, t.shape[-1]).contiguous() for t in inputs]
-        n = flat[0].shape[0]
-        g = torch.randn((n, field.out_ch), generator=gen, device=dev)
-        with torch.no_grad():
-            pack, offsets = fused_mlp.pack_weights(field)
-        log(f"[backward] field {label}: {n} points")
-        rows.check("fused_nerf_backward", "zest_tpu_torch/csrc/fused_mlp.cu",
-                   "zest_tpu/kernels/fused_mlp.py:398", "fused_nerf_backward",
-                   lambda: leafwise(field, offsets, fused_mlp.fused_nerf_backward(
-                       field, *flat, g, pack, offsets)),
-                   lambda: leafwise(field, offsets,
-                                    fused_mlp.fused_nerf_backward_plain(
-                                        field, *flat, g)),
-                   None, 1e-4, 2,
-                   2 * nbytes(*flat) + nbytes(g) + 2 * nbytes(pack),
-                   6 * n * field_macs(field), relative=True)
-        field.zero_grad(set_to_none=True)
+    # K7: the field backward on the three passes of a step
+    check_field_backward(rows, "fused_nerf_backward", passes, gen, 1e-4,
+                         ("eval", "train"))
 
     # K4 (d_vol) on the three lookups of a step, K5 (d_ndc) on the warped one;
     # the library call is F.grid_sample's backward on the same layout. Bytes:
@@ -526,7 +597,7 @@ def backward_kernels(rows, dev, cfg, system, batch):
                    g_lib, src_nchw, grid_flat, 0, 0, True, [True, False]),
                1e-5, 5, nbytes(g, grid) + nbytes(src), 8 * g.numel(),
                relative=True)
-    del static_vol, dyn_vol, models, rays, st_in, dy_in, pp_in, warped, g
+    del static_vol, dyn_vol, rays, passes, warped, g
     torch.cuda.empty_cache()
 
 
@@ -590,9 +661,10 @@ def small_train(dev):
         _compare_train(f"step {step} {tuple(phase)}", *runs)
 
 
-def flagship_train(cfg, system, batch, params):
-    """Phase 8: the flagship training step: exact launches per step in both
-    phases, finite logs, moved parameters, then a timed window of steps."""
+def flagship_train(cfg, system, batch, params, tag="train"):
+    """Phases 8 and 11: the flagship training step: exact launches per step
+    in both phases, finite logs, moved parameters, then a timed window of
+    steps. Returns (the step-0 phase's launches, train rays/s)."""
     from zest_tpu_torch import presets, sampling
     from zest_tpu_torch.system import TrainState, phase_for_step
     dev = batch["images"].device
@@ -614,10 +686,10 @@ def flagship_train(cfg, system, batch, params):
     chain_step = cfg.decay_iteration_clamped * 2000 + 1
     phase_c = phase_for_step(cfg, chain_step)
     launches = {}
-    for tag, state, phase, extra in (("step 0", state0, phase0, 0),
-                                     (f"step {chain_step}",
-                                      state0._replace(step=chain_step),
-                                      phase_c, 1)):
+    for step_tag, state, phase, extra in (("step 0", state0, phase0, 0),
+                                          (f"step {chain_step}",
+                                           state0._replace(step=chain_step),
+                                           phase_c, 1)):
         reset_counters()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -629,23 +701,31 @@ def flagship_train(cfg, system, batch, params):
                         sample_volume=3 + extra, volume_grad=3 + extra,
                         coords_grad=1 + extra, gather_colors=2,
                         fused_nerf_forward=3 + extra,
-                        fused_nerf_backward=3 + extra)
-        log(f"[train] {tag} {tuple(phase)}: first run {first:.2f} s, "
+                        fused_nerf_backward=3 + extra, gather_rows=0,
+                        scatter_rows=0)
+        if system.bf16:
+            # the warped lookups (t±1, the chain) are row gathers
+            expected.update(sample_volume=2, volume_grad=2, coords_grad=0,
+                            gather_rows=1 + extra, scatter_rows=1 + extra)
+        log(f"[{tag}] {step_tag} {tuple(phase)}: first run {first:.2f} s, "
             f"launches {got}")
         if got != expected:
-            raise AssertionError(f"{tag}: launches {got}, expected {expected}")
+            raise AssertionError(f"{tag} {step_tag}: launches {got}, "
+                                 f"expected {expected}")
         bad = [k for k, v in logs.items() if not bool(torch.isfinite(v))]
         if bad:
-            raise AssertionError(f"{tag}: non-finite logs {bad}")
-        log(f"[train] {tag} logs: " + ", ".join(
+            raise AssertionError(f"{tag} {step_tag}: non-finite logs {bad}")
+        log(f"[{tag}] {step_tag} logs: " + ", ".join(
             f"{k} {float(v):.5g}" for k, v in logs.items()))
         moved = sum(int(bool((new.params[k] != state.params[k]).any()))
                     for k in params)
-        log(f"[train] {tag}: {moved} of {len(params)} parameter tensors moved")
+        log(f"[{tag}] {step_tag}: {moved} of {len(params)} parameter tensors "
+            f"moved")
         if moved < len(params) // 2:
-            raise AssertionError(f"{tag}: only {moved} parameter tensors moved")
-        launches[tag] = got
-        if tag == "step 0":
+            raise AssertionError(f"{tag} {step_tag}: only {moved} parameter "
+                                 f"tensors moved")
+        launches[step_tag] = got
+        if step_tag == "step 0":
             state1 = new
 
     torch.cuda.reset_peak_memory_stats()
@@ -656,11 +736,140 @@ def flagship_train(cfg, system, batch, params):
         state, logs = run(state, phase0)
     loss = float(logs["train_loss"])                  # waits for the device
     dt = time.perf_counter() - t0
-    log(f"[train] {TRAIN_STEPS} steps in {dt:.3f} s ({1e3 * dt / TRAIN_STEPS:.1f}"
+    log(f"[{tag}] {TRAIN_STEPS} steps in {dt:.3f} s ({1e3 * dt / TRAIN_STEPS:.1f}"
         f" ms/step), loss {loss:.5g}; train_rays_per_sec "
         f"{n_rays * TRAIN_STEPS / dt:.1f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches["step 0"]
+    return launches["step 0"], n_rays * TRAIN_STEPS / dt
+
+
+def bf16_kernels(rows, dev, cfg, system, batch):
+    """Phase 9: the bf16-operand modes of K6 (both fields on the first chunk
+    of the 16-bit flagship eval) and K7 (the three field passes of its
+    step-0 training step), and K9 forward and backward at that step's t±1
+    points in its bf16 dynamic volume, each against its twin."""
+    from zest_tpu_torch.kernels import dma_gather
+    from zest_tpu_torch.ops.grid_sample import trilinear_row_taps
+
+    paths = ("eval16", "train16")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    check_field_forward(rows, "fused_nerf_bf16", system,
+                        chunk_inputs(system, batch)[1], BF16_FIELD_TOL, paths)
+
+    _, warped, passes = step_inputs(system, batch, cfg, gen)
+    with torch.no_grad():
+        dyn_vol, _, _ = system.enc_dy(batch["nb_imgs"], batch["nb_proj_mats"],
+                                      batch["near_fars"][0], pad=cfg.pad)
+    check_field_backward(rows, "fused_nerf_backward_bf16", passes, gen,
+                         BF16_FIELD_GRAD_TOL, paths)
+
+    # K9 at the t±1 points: 8 corner rows each of the bf16 dynamic volume.
+    # Bytes: the distinct rows the indices touch (16 each), the indices, the
+    # output; the backward reads g and the indices and writes the table
+    D, Hv, Wv, C = dyn_vol.shape
+    tab = dyn_vol.to(torch.bfloat16).reshape(-1, C)
+    idx = trilinear_row_taps(warped * 2.0 - 1.0, D, Hv, Wv)[0].contiguous()
+    idx_flat = idx.reshape(-1)
+    touched = int(torch.unique(idx_flat).numel())
+    g = torch.randn((*idx.shape, C), generator=gen, device=dev).to(torch.bfloat16)
+    log(f"[bf16] row gather: {idx.numel()} rows of {tab.shape[0]} "
+        f"({touched} distinct), {tab.element_size() * C} bytes each")
+    rows.check("row_gather", "zest_tpu_torch/csrc/row_gather.cu",
+               "zest_tpu/kernels/dma_gather.py:69", "gather_rows",
+               lambda: dma_gather.gather_rows(tab, idx),
+               lambda: dma_gather.take_rows_plain(tab, idx),
+               lambda: torch.index_select(tab, 0, idx_flat), 0.0, 20,
+               16 * touched + nbytes(idx, g), 0, paths=paths)
+    acc = torch.zeros((tab.shape[0], C), device=dev)
+    g32 = g.reshape(-1, C).float()
+    # atomics add in another order than index_add_, and both round the
+    # float32 sum to bf16 once: one bf16 rounding step of the largest
+    rows.check("row_gather_backward", "zest_tpu_torch/csrc/row_gather.cu",
+               "zest_tpu/kernels/dma_gather.py:107", "scatter_rows",
+               lambda: dma_gather.scatter_rows(g, idx, tab.shape[0]),
+               lambda: dma_gather.scatter_rows_plain(g, idx, tab.shape[0]),
+               lambda: acc.index_add_(0, idx_flat, g32), 2.0 ** -8, 5,
+               nbytes(g, idx, tab), g.numel(), relative=True, paths=paths)
+    del dyn_vol, passes, warped, tab, idx, g, acc
+    torch.cuda.empty_cache()
+
+
+def small_16(dev):
+    """Phase 10: the small eval and training step at 16 bits on CUDA
+    against the CPU. bf16 rounds in other places in cuDNN than on the CPU,
+    so each quantity is held to twice the CPU's own difference between its
+    16- and 32-bit runs (the eval maps and the logs; the gradients leaf by
+    leaf for the fields, module by module for the encoders, whose leaves
+    are bf16 noise), plus one bf16 rounding step (2^-8) of the value (maps
+    and logs) or 1e-3 of the module's largest gradient."""
+    from zest_tpu_torch import presets, sampling
+    from zest_tpu_torch.system import EVAL_KEYS, phase_for_step
+
+    def build(preset, on):
+        return presets.build(preset, presets.SMALL_SCENE, on, SEED)
+
+    maps = {}
+    for key, preset, on in (("cuda", presets.SMALL_16, dev),
+                            ("cpu", presets.SMALL_16, "cpu"),
+                            ("cpu32", presets.SMALL, "cpu")):
+        _, system, batch, params = build(preset, on)
+        maps[key] = {k: v.cpu() for k, v in
+                     system.make_eval_step()(params, batch).items()}
+    for k in EVAL_KEYS:
+        err = float((maps["cuda"][k] - maps["cpu"][k]).abs().max())
+        spread = float((maps["cpu"][k] - maps["cpu32"][k]).abs().max())
+        ok = err <= 2 * spread + 2.0 ** -8 * float(maps["cpu"][k].abs().max())
+        log(f"[small-16] {k}: max_abs_err {err:.3e}, CPU 16-vs-32 {spread:.3e}"
+            f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"small 16-bit eval {k}: CUDA and CPU differ "
+                                 f"by {err}")
+
+    cfg = build(presets.SMALL_TRAIN_16, "cpu")[0]
+    chain_step = cfg.decay_iteration_clamped * 2000 + 1
+    for step in (0, chain_step):
+        phase = phase_for_step(cfg, step)
+        runs = {}
+        for key, preset, on in (("cuda", presets.SMALL_TRAIN_16, dev),
+                                ("cpu", presets.SMALL_TRAIN_16, "cpu"),
+                                ("cpu32", presets.SMALL_TRAIN, "cpu")):
+            _, system, batch, params = build(preset, on)
+            draws = sampling.sample_draws(
+                torch.Generator().manual_seed(SEED + step), cfg, cfg.img_h,
+                cfg.img_w, int(batch["motion_count"]), phase.extra_samples)
+            _, logs, grads = system.loss_and_grads(
+                params, batch, draws.to(on) if key == "cuda" else draws, phase,
+                step)
+            runs[key] = ({k: float(v) for k, v in logs.items()},
+                         {k: v.cpu() for k, v in grads.items()})
+        (logs_c, grads_c), (logs, grads), (logs32, grads32) = (
+            runs["cuda"], runs["cpu"], runs["cpu32"])
+        for k, v in logs.items():
+            if not abs(logs_c[k] - v) <= 2 * abs(v - logs32[k]) + 2.0 ** -8 * abs(v):
+                raise AssertionError(f"small 16-bit step {step} log {k}: CUDA "
+                                     f"{logs_c[k]} CPU {v} (32-bit {logs32[k]})")
+        if logs["train_loss"] == logs32["train_loss"]:
+            raise AssertionError("the 16-bit step's loss equals the 32-bit one")
+        scale, spread_m = {}, {}
+        for k, v in grads.items():
+            m = k.split(".")[0]
+            scale[m] = max(scale.get(m, 0.0), float(v.abs().max()))
+            spread_m[m] = max(spread_m.get(m, 0.0),
+                              float((v - grads32[k]).abs().max()))
+        worst = 0.0
+        for k, v in grads.items():
+            m = k.split(".")[0]
+            err = float((grads_c[k] - v).abs().max())
+            spread = (spread_m[m] if m.startswith("enc_")
+                      else float((v - grads32[k]).abs().max()))
+            limit = 2 * spread + 1e-3 * scale[m]
+            worst = max(worst, err / limit)
+            if err > limit:
+                raise AssertionError(f"small 16-bit step {step} grad {k}: "
+                                     f"differs by {err}, limit {limit}")
+        log(f"[small-16] step {step}: loss {logs['train_loss']:.6f} (CUDA "
+            f"{logs_c['train_loss']:.6f}, 32-bit {logs32['train_loss']:.6f}); "
+            f"worst gradient difference {worst:.2f} of its limit")
 
 
 def main() -> int:
@@ -678,11 +887,26 @@ def main() -> int:
     rows = Rows()
     forward_kernels(rows, dev, cfg, system, batch)
     small_slice(dev)
-    eval_launches = flagship(cfg, system, batch, params)
+    eval_launches, s_image = flagship(cfg, system, batch, params)
     backward_kernels(rows, dev, cfg, system, batch)
     small_train(dev)
-    train_launches = flagship_train(cfg, system, batch, params)
-    results = rows.finish(eval_launches, train_launches)
+    train_launches, rays_s = flagship_train(cfg, system, batch, params)
+    del system, params
+    torch.cuda.empty_cache()
+
+    cfg16, system16, batch16, params16 = presets.build(
+        presets.FLAGSHIP_TRAIN_16, presets.FLAGSHIP_SCENE, dev, SEED)
+    bf16_kernels(rows, dev, cfg16, system16, batch16)
+    small_16(dev)
+    eval16, s_image16 = flagship(cfg16, system16, batch16, params16,
+                                 "flagship-16")
+    train16, rays_s16 = flagship_train(cfg16, system16, batch16, params16,
+                                       "train-16")
+    log(f"[summary] flagship eval s/image: float32 {s_image:.3f}, precision "
+        f"16 {s_image16:.3f}; train_rays_per_sec: float32 {rays_s:.1f}, "
+        f"precision 16 {rays_s16:.1f}")
+    results = rows.finish({"eval": eval_launches, "train": train_launches,
+                           "eval16": eval16, "train16": train16})
     for r in results:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never launched on the main path")

@@ -113,7 +113,7 @@ def test_init_params_covers_the_state_dict():
 
 
 @pytest.mark.parametrize("change", [dict(train_sceneflow=False),
-                                    dict(precision=16),
+                                    dict(use_color_volume=True),
                                     dict(use_mvs_dy=False),
                                     dict(patch_size=8),
                                     dict(gan_type="basic"),

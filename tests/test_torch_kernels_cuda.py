@@ -17,13 +17,22 @@ order than F.grid_sample, and K7 (field) sums the weight gradients over the
 points in tiles and chunks: each is held to 1e-5 (the gathers) or 1e-4 (the
 field) of its output's scale, never bit for bit; K7's weight gradient leaf
 by leaf, each weight and each bias to 1e-4 of its own largest element.
+
+The row gather K9 copies rows: bitwise equal to ``tab[idx]``. Its
+scatter-add adds in float32 with atomics, in another order than
+``index_add_``, and both round the sum to the table's type once: a float32
+table to 1e-6 of the largest sum, a bf16 one to one bf16 rounding step
+(2^-8) of it. The bf16-operand field kernels round the same operands as
+their twin, but a float32 sum in another order can flip one bf16 rounding
+of an activation (2^-8 of that operand): K6 to 1e-3 of the output scale, K7
+to 2^-8 of each input's and each leaf's largest gradient.
 """
 import numpy as np
 import pytest
 import torch
 
 from zest_tpu_torch.kernels.color_gather import gather_colors, gather_colors_plain
-from zest_tpu_torch.kernels import fused_mlp, plane_sweep, trilinear
+from zest_tpu_torch.kernels import dma_gather, fused_mlp, plane_sweep, trilinear
 from zest_tpu_torch.kernels.fused_mlp import fused_nerf_forward
 from zest_tpu_torch.kernels.plane_sweep import homo_warp_cm, homo_warp_cm_plain
 from zest_tpu_torch.kernels.trilinear import sample_volume, sample_volume_plain
@@ -268,3 +277,75 @@ def test_train_step_on_cuda_matches_cpu(dev):
     for k, v in grads.items():
         err = float((grads_c[k].cpu() - v).abs().max())
         assert err <= 1e-4 * scale[k.split(".")[0]], (k, err)
+
+
+@pytest.mark.parametrize("dtype,cw", [(torch.float32, 8), (torch.bfloat16, 8),
+                                      (torch.float32, 4), (torch.bfloat16, 16)])
+def test_row_gather_kernels_match_twins(dev, dtype, cw):
+    """K9 and its scatter-add on a table with duplicate indices (100 rows,
+    3,000 indices) and a count that fills no block evenly."""
+    g = _gen(dev, 11)
+    tab = torch.randn((100, cw), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 100, (3, 1001), generator=g, device=dev,
+                        dtype=torch.int32)
+    cot = torch.randn((3, 1001, cw), generator=g, device=dev).to(dtype)
+    launches = (dma_gather.gather_rows.launches, dma_gather.scatter_rows.launches)
+    t_ = tab.clone().requires_grad_(True)
+    out = dma_gather.take_rows(t_, idx)
+    out.backward(cot)
+    assert (dma_gather.gather_rows.launches, dma_gather.scatter_rows.launches) \
+        == (launches[0] + 1, launches[1] + 1)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(out, tab[idx.long()])
+    ref = dma_gather.scatter_rows_plain(cot, idx, 100)
+    assert t_.grad.dtype == dtype
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    assert _rel_err(t_.grad.float(), ref.float()) <= tol
+
+
+def test_row_gather_rejects_what_the_kernel_cannot_take(dev):
+    idx = torch.zeros((5,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):          # a row of 12 bytes
+        dma_gather.gather_rows(torch.zeros((4, 3), device=dev), idx)
+    with pytest.raises(TypeError):
+        dma_gather.gather_rows(torch.zeros((4, 4), device=dev), idx.long())
+    with pytest.raises(TypeError):
+        dma_gather.gather_rows(torch.zeros((4, 4), device=dev).half(), idx)
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_bf16_field_kernels_match_twin(dev, width, static, monkeypatch):
+    """The bf16-operand modes of K6 and K7 against the bf16 twin: forward,
+    d_pts, d_feats, d_views and every weight and bias (chunks of 384 points,
+    so the weight gradients add over three chunks)."""
+    monkeypatch.setattr(fused_mlp, "CHUNK_ROWS", 384)
+    P, F = (63, 40) if static else (84, 24)
+    torch.manual_seed(12)
+    field = NeRFField(8, width, P, 27, F, static=static, bf16=True).to(dev)
+    g = _gen(dev, 13)
+    n = 1000
+    pts, feats, views = (torch.randn((n, c), generator=g, device=dev)
+                         for c in (P, F, 27))
+    cot = torch.randn((n, field.out_ch), generator=g, device=dev)
+    with torch.no_grad():
+        out = fused_nerf_forward(field, pts, feats, views)
+        ref = field(pts, feats, views)
+    assert _max_err(out, ref) <= 1e-3 * max(1.0, float(ref.abs().max()))
+    ins = [t.clone().requires_grad_(True) for t in (pts, feats, views)]
+    before = fused_mlp.fused_nerf_backward.launches
+    field.zero_grad()
+    (fused_nerf_forward(field, *ins) * cot).sum().backward()
+    assert fused_mlp.fused_nerf_backward.launches == before + 1
+    _, offsets = fused_mlp.pack_weights(field)
+    got = [t.grad for t in ins] + [fused_mlp.pack_grads(field)]
+    ref = fused_mlp.fused_nerf_backward_plain(field, pts, feats, views, cot)
+    for name, a, b in zip(("d_pts", "d_feats", "d_views"), got, ref):
+        assert _rel_err(a, b) <= 2.0 ** -8, name
+    for (name, a), (_, b) in zip(fused_mlp.pack_leaves(field, got[3], offsets),
+                                 fused_mlp.pack_leaves(field, ref[3], offsets)):
+        assert _rel_err(a, b) <= 2.0 ** -8, name
+    # the mode really rounds: the float32 kernel gives another output
+    field.bf16 = False
+    with torch.no_grad():
+        assert _max_err(fused_nerf_forward(field, pts, feats, views), out) > 0.0

@@ -1,9 +1,9 @@
-"""The port's profiling script: its interval and grouping arithmetic, and its
-refusal to run without a CUDA device."""
+"""The port's profiling scripts: their interval and grouping arithmetic,
+their refusal to run without a CUDA device, and their --precision flag."""
 import pytest
 import torch
 
-from zest_tpu_torch.tools import profile_eval
+from zest_tpu_torch.tools import profile_eval, profile_train
 
 
 @pytest.mark.parametrize("intervals,busy", [
@@ -35,3 +35,23 @@ def test_kernel_groups(name, group):
 def test_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert profile_eval.main() == 2
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void row_gather_kernel(uint4 const*, int const*)", "K9 row gather"),
+    ("void row_scatter_add_kernel<__nv_bfloat16>(uint4 const*)",
+     "K9 row gather backward (scatter-add)"),
+    ("round_pack_kernel(float*, RParts)", "K6 / K7 bf16 weight rounding"),
+    ("void fused_nerf_bwd_kernel<256, true>(float const*)",
+     "K7 field backward, pass 1"),
+    ("void fused_nerf_kernel<256, true>(float const*)", "K6 fused field"),
+])
+def test_train_kernel_groups(name, group):
+    assert profile_eval.group_of(name, profile_train.GROUPS) == group
+
+
+@pytest.mark.parametrize("tool", [profile_eval, profile_train])
+def test_tools_refuse_without_cuda_at_either_precision(tool, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main(["--precision", "16"]) == 2
+    assert tool.main() == 2

@@ -1,9 +1,10 @@
 """The port's configuration: the fields of ``zest_tpu.config.ZestConfig`` that
 the eval and the training step read, with the same names and defaults.
 
-Standard library only. Fields the port does not support yet (``net_type``
-other than v0, ``train_video``, ``use_color_volume``, 16-bit precision,
-patches, GAN, the depth and distortion regularizers) are kept so that
+Standard library only. ``precision`` 16 (or ``bf16``) selects the 16-bit
+path of ``system.ZestSystem``. Fields the port does not support yet
+(``net_type`` other than v0, ``train_video``, ``use_color_volume``, patches,
+GAN, the depth and distortion regularizers) are kept so that
 ``system.ZestSystem`` can refuse them by name.
 """
 from __future__ import annotations

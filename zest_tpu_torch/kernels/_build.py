@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All sources in ``zest_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for
-``sm_90a`` into ONE shared library with a plain C interface, loaded with
+Every source in ``zest_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` for
+``sm_90a`` to an object file, all at once in parallel processes, and the
+objects link into ONE shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes). The
 library lands in ``build/zest_tpu_torch/`` at the repository root, named by
 a hash of the sources and flags: an edited source rebuilds, an unchanged one
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zest_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
@@ -35,23 +36,29 @@ SIGNATURES = {
     # images, xy, out, V, N, H, W, stream
     "zt_color_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     # pts, feats, views, wpack, offsets(host int*), out,
-    # n, P, F, V, width, depth, skip, n_extra, stream
+    # n, P, F, V, width, depth, skip, n_extra, wround, pack_len, stream
     "zt_fused_nerf_forward": [_P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # n, chunk, P, F, V, width, depth, skip, n_extra, floats (host long long*)
-    "zt_fused_nerf_backward_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _P],
+    # n, chunk, P, F, V, width, depth, skip, n_extra, bf16, pack_len,
+    # floats (host long long*)
+    "zt_fused_nerf_backward_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _L, _P],
     # pts, feats, views, g, wpack, offsets (host int*), scratch, scratch_len,
     # chunk, d_pts, d_feats, d_views, d_pack,
-    # n, P, F, V, width, depth, skip, n_extra, stream
+    # n, P, F, V, width, depth, skip, n_extra, bf16, pack_len, stream
     "zt_fused_nerf_backward": [_P, _P, _P, _P, _P, _P, _P, _L, _I,
                                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _P],
+                               _I, _I, _L, _P],
     # g, ndc, d_vol, n_points, D, Hv, Wv, stream
     "zt_trilinear_grad_volume": [_P, _P, _P, _I, _I, _I, _I, _P],
     # vol, ndc, g, d_ndc, n_points, D, Hv, Wv, stream
     "zt_trilinear_grad_coords": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # g, grid, d_src, D, h, w, C, Hp, Wp, stream
     "zt_plane_sweep_warp_backward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # tab, idx, out, n, m, row_bytes, stream
+    "zt_row_gather": [_P, _P, _P, _L, _L, _I, _P],
+    # g, idx, acc, n, m, cw, elem_bytes, stream
+    "zt_row_scatter_add": [_P, _P, _P, _L, _L, _I, _I, _P],
 }
 
 _lib = None
@@ -83,17 +90,29 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build to a private name, then rename: a concurrent build never loads a
-    # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    log = proc.stderr + proc.stdout
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(s.name, log) for s, p, log in zip(srcs, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name}:\n{log}" for name, log in failed))
+        # link to a private name, then rename: a concurrent build never
+        # loads a half-written library
+        lib = Path(tmp) / out.name
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(lib), *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(lib, out)
+    log = "".join(logs) + proc.stderr + proc.stdout
     out.with_suffix(".log").write_text(log)
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
                       ptxas=log)

@@ -9,6 +9,11 @@ field runs inside them. ``fused_nerf_forward`` is an autograd Function over
 of every Linear's ``weight.T`` and bias, so the packed weight gradient of K7
 reaches each Linear. The twin is the port's ``models.nerf.NeRFField`` itself
 and its autograd.
+
+A field built with ``bf16=True`` runs the kernels' bf16-operand mode
+(``zest_tpu``'s ``approx=True``): the kernels round the conditioning, trunk,
+feature and views products' operands to bf16 and keep float32 sums, float32
+biases and float32 heads, as the twin's ``bf16`` mode does.
 """
 from __future__ import annotations
 
@@ -110,12 +115,15 @@ def _launch_forward(field, pts, feats, views, pack, offsets):
     """K6 on [n, ch] contiguous inputs → [n, out_ch]."""
     n, P = pts.shape
     out = torch.empty((n, field.out_ch), device=pts.device, dtype=torch.float32)
+    # the bf16 mode's rounded copy of the pack
+    wround = torch.empty_like(pack) if field.bf16 else None
     err = _build.library().zt_fused_nerf_forward(
         pts.data_ptr(), feats.data_ptr(), views.data_ptr(), pack.data_ptr(),
         (ctypes.c_int * _N_SLOTS)(*offsets), out.data_ptr(), n, P,
         field.in_ch_feat, field.in_ch_views, field.width,
         len(field.pts_linears), field.skips[0] if field.skips else -2,
-        1 if field.static else 2, _build.stream_ptr(pts))
+        1 if field.static else 2, None if wround is None else wround.data_ptr(),
+        pack.numel(), _build.stream_ptr(pts))
     _build.check(err, "fused_nerf_forward")
     fused_nerf_forward.launches += 1
     return out
@@ -196,7 +204,8 @@ def fused_nerf_backward(field, pts, feats, views, g, pack, offsets):
     _build.require_cuda_f32(name, pts, feats, views, g, pack)
     lib = _build.library()
     shape = (P, F, V, field.width, len(field.pts_linears),
-             field.skips[0] if field.skips else -2, 1 if field.static else 2)
+             field.skips[0] if field.skips else -2, 1 if field.static else 2,
+             int(field.bf16), pack.numel())
     floats = ctypes.c_longlong()
     _build.check(lib.zt_fused_nerf_backward_scratch(
         n, CHUNK_ROWS, *shape, ctypes.byref(floats)), name)

@@ -7,6 +7,14 @@ Reference behaviour kept on purpose:
   to the variance only.
 - D = 128 depth planes, linear in [near, far].
 - the variance divides by the per-voxel count of in-bounds views.
+
+At 16-bit precision (``dtype=torch.bfloat16``) the images, the features and
+the cost volume's sums are bf16, with ``zest_tpu``'s type promotions: the
+static volume's in-bounds mask is float32, so its count and variance come
+out float32, and the dynamic volume's identity mask keeps them bf16. The
+plane-sweep kernel reads and writes float32, so a bf16 source is widened
+before it and its output rounded back, as ``zest_tpu`` does around its
+kernel. The encoding volume returns as float32.
 """
 from __future__ import annotations
 
@@ -71,7 +79,8 @@ def build_cost_volume(imgs, feats, proj_mats, depth_values, pad: int = 0,
             # the first two sources carry their RGB through the same warp
             src = feats[i] if i > 2 else torch.cat([feats[i], small_hwc[i]], -1)
             grid = homography_grid(proj_mats[i], depth_values, (h, w), pad=pad)
-            warped = homo_warp_cm(src.contiguous(), grid)       # [D, C(+3), Px]
+            warped = homo_warp_cm(src.float().contiguous(), grid) \
+                .to(src.dtype)                                  # [D, C(+3), Px]
             warped_feat = warped[:, :C]
             if i <= 2:
                 warped_rgb.append(warped[:, C:])
@@ -90,18 +99,21 @@ def build_cost_volume(imgs, feats, proj_mats, depth_values, pad: int = 0,
 
 class MVSEncoder(nn.Module):
     """imgs [V, H, W, 3] + proj_mats [V, 3, 4] + near_far [2] →
-    (volume [D, h+2p, w+2p, 8] channels-last, feats [V, h, w, 32], depths [D])."""
+    (volume [D, h+2p, w+2p, 8] channels-last float32, feats [V, h, w, 32] in
+    ``dtype``, depths [D])."""
 
-    def __init__(self, identity_src_warp: bool = False):
+    def __init__(self, identity_src_warp: bool = False, dtype=torch.float32):
         super().__init__()
         self.identity_src_warp = identity_src_warp
-        self.feature = FeatureNet()
-        self.cost_reg_2 = CostRegNet(9 + 32)
+        self.dtype = dtype
+        self.feature = FeatureNet(dtype)
+        self.cost_reg_2 = CostRegNet(9 + 32, dtype)
 
     def forward(self, imgs, proj_mats, near_far, pad: int = 0):
         feats = self.feature(imgs.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         depth_values = depth_plane_values(near_far[0], near_far[1])
-        cost = build_cost_volume(imgs, feats, proj_mats, depth_values, pad=pad,
+        cost = build_cost_volume(imgs.to(self.dtype), feats, proj_mats,
+                                 depth_values, pad=pad,
                                  identity_src_warp=self.identity_src_warp)
         vol = self.cost_reg_2(cost.permute(3, 0, 1, 2)[None])[0]
-        return vol.permute(1, 2, 3, 0).contiguous(), feats, depth_values
+        return vol.permute(1, 2, 3, 0).float().contiguous(), feats, depth_values

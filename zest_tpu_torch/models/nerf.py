@@ -9,6 +9,14 @@ reads [pts, h]. Output layout (last axis):
 Submodule names follow the reference state-dict layout (``pts_linears.0``,
 ``views_linears.0``, ...). This module is also the plain twin of the fused
 field kernel (``kernels.fused_mlp``).
+
+``bf16=True`` is the field at 16-bit precision, as ``zest_tpu``'s fused
+kernel computes it with ``approx=True`` (``kernels/fused_mlp.py:115-215``,
+``264-346``): the conditioning ``pts_bias``, the trunk, ``feature_linear``
+and ``views_linears`` take bf16-rounded operands (inputs and weights; in the
+backward the output gradient too) with float32 sums and a float32 bias; the
+alpha, rgb, blend, flow and probability heads keep float32 operands. The
+parameters stay float32.
 """
 from __future__ import annotations
 
@@ -16,6 +24,29 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+
+def round_bf16(t):
+    """t rounded to the nearest bf16 value (ties to even), in t's type."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+class _BF16Linear(torch.autograd.Function):
+    """x @ W^T + b with x and W rounded to bf16, the sums in float32; the
+    backward rounds the output gradient and reuses the rounded operands."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        xr, wr = round_bf16(x), round_bf16(weight)
+        ctx.save_for_backward(xr, wr)
+        return xr @ wr.T + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        xr, wr = ctx.saved_tensors
+        gr = round_bf16(g)
+        d_w = gr.reshape(-1, gr.shape[-1]).T @ xr.reshape(-1, xr.shape[-1])
+        return gr @ wr, d_w, g.reshape(-1, g.shape[-1]).sum(0)
 
 
 def trunk_layer_dims(depth: int, width: int, in_ch: int, skips: Sequence[int]):
@@ -34,8 +65,10 @@ class NeRFField(nn.Module):
 
     def __init__(self, depth: int = 8, width: int = 256, in_ch_pts: int = 63,
                  in_ch_views: int = 27, in_ch_feat: int = 8,
-                 skips: Sequence[int] = (4,), static: bool = True):
+                 skips: Sequence[int] = (4,), static: bool = True,
+                 bf16: bool = False):
         super().__init__()
+        self.bf16 = bf16
         self.depth, self.width = depth, width
         self.in_ch_pts, self.in_ch_views, self.in_ch_feat = \
             in_ch_pts, in_ch_views, in_ch_feat
@@ -63,10 +96,11 @@ class NeRFField(nn.Module):
     def forward(self, pts, feats, views):
         """pts [..., in_ch_pts], feats [..., in_ch_feat], views [...,
         in_ch_views] → raw outputs [..., out_ch]."""
-        bias = self.pts_bias(feats)
+        mm = self._bf16_product if self.bf16 else (lambda lin, x: lin(x))
+        bias = mm(self.pts_bias, feats)
         h = pts
         for i, layer in enumerate(self.pts_linears):
-            h = torch.relu(layer(h) * bias)
+            h = torch.relu(mm(layer, h) * bias)
             if i in self.skips:
                 h = torch.cat([pts, h], -1)
         if self.static:
@@ -75,7 +109,11 @@ class NeRFField(nn.Module):
             extras = [torch.tanh(self.sf_linear(h)),
                       torch.sigmoid(self.prob_linear(h))]
         alpha = self.alpha_linear(h)
-        feature = self.feature_linear(h)
-        hv = torch.relu(self.views_linears[0](torch.cat([feature, views], -1)))
+        feature = mm(self.feature_linear, h)
+        hv = torch.relu(mm(self.views_linears[0], torch.cat([feature, views], -1)))
         rgb = self.rgb_linear(hv)
         return torch.cat([rgb, alpha] + extras, -1)
+
+    @staticmethod
+    def _bf16_product(lin, x):
+        return _BF16Linear.apply(x, lin.weight, lin.bias)

@@ -14,6 +14,10 @@ the flagship's topology, 600 random rays plus 512 motion-mask rays (R =
 ``STEPS_PER_EPOCH`` steps. ``SMALL_TRAIN`` is ``SMALL`` with 24 + 8 rays and
 decay_iteration 1, so that both phases of a step are reachable at small
 step numbers (the chain pass runs after step 2000).
+
+``FLAGSHIP_16`` and ``FLAGSHIP_TRAIN_16`` are the same configurations at
+``precision=16``, exactly as ``tools/bench_eval.py`` and ``bench.py`` run
+them; ``SMALL_16`` and ``SMALL_TRAIN_16`` are the small ones at 16 bits.
 """
 from __future__ import annotations
 
@@ -39,6 +43,10 @@ SMALL_TRAIN = dict(SMALL, **_TRAIN, batch_size=24, num_extra_samples=8,
 FLAGSHIP_TRAIN = dict(FLAGSHIP, **_TRAIN, batch_size=600,
                       num_extra_samples=512, decay_iteration=30,
                       num_epochs=6000)
+SMALL_16 = dict(SMALL, precision=16)
+SMALL_TRAIN_16 = dict(SMALL_TRAIN, precision=16)
+FLAGSHIP_16 = dict(FLAGSHIP, precision=16)
+FLAGSHIP_TRAIN_16 = dict(FLAGSHIP_TRAIN, precision=16)
 STEPS_PER_EPOCH = 24
 TARGET_FRAME = 3
 

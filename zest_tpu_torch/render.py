@@ -12,7 +12,7 @@ Conventions: rays [R, ...], samples S on the last axis of z-shaped tensors.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -135,6 +135,8 @@ class RenderModels(NamedTuple):
     dynamic_col: Callable     # (pts_world) -> [R, S, 16]
     multires: int = 10
     multires_views: int = 4
+    # the lookup at flow-warped points (t±1, the chain); None: dynamic_vol
+    dynamic_vol_warped: Optional[Callable] = None
 
 
 def _embed_dirs(rays_d, w2c_ref, n_samples, multires_views):
@@ -153,11 +155,16 @@ def static_field_inputs(models: RenderModels, rays, im_w2c_ref):
                         models.multires_views))
 
 
-def _dynamic_inputs(models: RenderModels, ndc, t_ch, col, views):
+def _dynamic_inputs(models: RenderModels, ndc, t_ch, col, views,
+                    warped: bool = False):
     """The dynamic field's inputs at ndc [n, S, 3] and times t_ch [n, S, 1],
-    with the color features col and embedded views of those rays."""
+    with the color features col and embedded views of those rays; ``warped``
+    points take ``dynamic_vol_warped`` where it is given."""
+    lookup = models.dynamic_vol
+    if warped and models.dynamic_vol_warped is not None:
+        lookup = models.dynamic_vol_warped
     return (positional_encoding(torch.cat([ndc, t_ch], -1), models.multires),
-            torch.cat([models.dynamic_vol(ndc), col], -1), views)
+            torch.cat([lookup(ndc), col], -1), views)
 
 
 def dynamic_field_inputs(models: RenderModels, rays, nb_w2c_ref,
@@ -255,7 +262,8 @@ def render_rays_train(models: RenderModels, rays, draws, *, im_w2c_ref,
     t_pp = torch.cat([ones * (ref_frame_idx - dt), ones * (ref_frame_idx + dt)])
     raw_both = models.dynamic_fn(*_dynamic_inputs(
         models, torch.cat([prev_ndc, post_ndc]), t_pp,
-        torch.cat([col_dy, col_dy]), torch.cat([views_dy, views_dy])))
+        torch.cat([col_dy, col_dy]), torch.cat([views_dy, views_dy]),
+        warped=True))
     raw_prev, raw_post = raw_both[:R], raw_both[R:]
 
     rgb_map_prev_dy, _, _, weights_prev_dy, _, _ = raw2outputs(
@@ -282,7 +290,7 @@ def render_rays_train(models: RenderModels, rays, draws, *, im_w2c_ref,
     ret["raw_pts_pp"] = pp_ndc
     if chain_5frames:
         raw_pp = models.dynamic_fn(*_dynamic_inputs(
-            models, pp_ndc, ones * pp_frame_idx, col_dy, views_dy))
+            models, pp_ndc, ones * pp_frame_idx, col_dy, views_dy, warped=True))
         ret["rgb_map_pp_dy"] = raw2outputs(
             raw_pp[..., :4], rays.z_vals, dists, False, draws.noise_pp,
             raw_noise_std)[0]

@@ -16,6 +16,13 @@ warp, the volume lookup, the color gather and the fused field, and on the
 training path the backward of the warp, the lookup and the field. Callers on
 the card turn TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``) for float32 results.
+
+``cfg.precision == 16`` (or ``cfg.bf16``) is ``zest_tpu``'s 16-bit path: bf16
+encoders (convolutions, BatchNorm application, cost volume), the fields'
+bf16-operand mode, the unwarped volume lookups and the color gather on
+bf16-rounded volumes and images, and the flow-warped lookups (t±1, the
+chain) as a row gather of a bf16 volume (``ops.grid_sample.
+grid_sample_3d_rows``). Parameters and the encoding volumes stay float32.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ from .kernels.trilinear import sample_volume
 from .models import MVSEncoder, NeRFField
 from .models.embedding import embedding_out_channels
 from .models.feature_net import BatchNormAct
+from .models.nerf import round_bf16
+from .ops.grid_sample import grid_sample_3d_rows
 
 
 def unpreprocess(imgs):
@@ -103,8 +112,8 @@ class Optimizer:
 
 
 def _check_supported(cfg) -> None:
-    """The port covers the two-field, two-volume, float32 eval and
-    scene-flow training paths."""
+    """The port covers the two-field, two-volume eval and scene-flow
+    training paths, at 32- and 16-bit precision."""
     unsupported = {
         "train_sceneflow=False": not cfg.train_sceneflow,
         "use_mvs=False": not cfg.use_mvs,
@@ -112,7 +121,7 @@ def _check_supported(cfg) -> None:
         f"net_type={cfg.net_type!r}": cfg.net_type != "v0",
         "train_video": cfg.train_video,
         "use_color_volume": cfg.use_color_volume,
-        f"precision={cfg.precision}": cfg.precision != 32 or cfg.bf16,
+        f"precision={cfg.precision}": cfg.precision not in (16, 32),
         f"patch_size={cfg.patch_size}": cfg.patch_size > 0,
         f"gan_type={cfg.gan_type!r}": cfg.gan_type is not None,
         "with_depth_loss_reg": cfg.with_depth_loss_reg,
@@ -132,19 +141,21 @@ class ZestSystem(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
+        self.bf16 = cfg.precision == 16 or cfg.bf16
+        enc_dtype = torch.bfloat16 if self.bf16 else torch.float32
         multires = cfg.multires if cfg.pts_embedder else 0
         multires_views = cfg.multires_views if cfg.dir_embedder else 0
         in_ch_views = embedding_out_channels(cfg.dir_dim, multires_views)
         self.nerf_static = NeRFField(
             cfg.netdepth, cfg.netwidth, embedding_out_channels(cfg.pts_dim, multires),
-            in_ch_views, cfg.feat_dim, static=True)
+            in_ch_views, cfg.feat_dim, static=True, bf16=self.bf16)
         self.nerf_dynamic = NeRFField(
             cfg.netdepth, cfg.netwidth,
             embedding_out_channels(cfg.pts_dim + 1, multires), in_ch_views,
-            cfg.feat_dim_dy, static=False)
-        self.enc_static = MVSEncoder()
+            cfg.feat_dim_dy, static=False, bf16=self.bf16)
+        self.enc_static = MVSEncoder(dtype=enc_dtype)
         # the neighbour proj_mats of the dynamic volume are identity
-        self.enc_dy = MVSEncoder(identity_src_warp=True)
+        self.enc_dy = MVSEncoder(identity_src_warp=True, dtype=enc_dtype)
         self.multires, self.multires_views = multires, multires_views
 
     def init_params(self, generator: torch.Generator) -> dict:
@@ -181,7 +192,14 @@ class ZestSystem(nn.Module):
     # ------------------------------------------------------------------
     def render_models(self, batch) -> render.RenderModels:
         """Builds the static and the dynamic encoding volume and binds them,
-        the fields and the kernels into the callables ``render_rays`` takes."""
+        the fields and the kernels into the callables ``render_rays`` takes.
+
+        At 16-bit precision the unwarped lookups read the volume rounded to
+        bf16 (each call rounds it, and its gradient, again), the color gather
+        reads bf16-rounded images, and the warped lookups take
+        ``grid_sample_3d_rows`` on the volume cast to bf16. The rounding is
+        ``zest_tpu``'s; the float32 weights of its MXU-formed interpolations
+        stay float32 here."""
         cfg = self.cfg
         near_far = batch["near_fars"][0]
         static_vol, _, _ = self.enc_static(batch["images"][:-1],
@@ -191,13 +209,24 @@ class ZestSystem(nn.Module):
                                     near_far, pad=cfg.pad)
         src_imgs = unpreprocess(batch["images"][:-1])
         nb_imgs_un = unpreprocess(batch["nb_imgs"])
+        dynamic_vol_warped = None
+        if self.bf16:
+            src_imgs, nb_imgs_un = round_bf16(src_imgs), round_bf16(nb_imgs_un)
+            vol_of = round_bf16
+
+            def dynamic_vol_warped(ndc):
+                return grid_sample_3d_rows(dyn_vol.to(torch.bfloat16),
+                                           ndc * 2.0 - 1.0)
+        else:
+            def vol_of(vol):
+                return vol
 
         def static_feats(pts_world, ndc):
             # poses cut to the source views, as the reference indexes them
             col = render.build_color_features(pts_world, src_imgs,
                                               batch["w2cs"][:-1],
                                               batch["intrinsics"][:-1])
-            return torch.cat([sample_volume(static_vol, ndc), col], -1)
+            return torch.cat([sample_volume(vol_of(static_vol), ndc), col], -1)
 
         return render.RenderModels(
             static_fn=lambda p, f, v: fused_nerf_forward(self.nerf_static,
@@ -205,10 +234,11 @@ class ZestSystem(nn.Module):
             dynamic_fn=lambda p, f, v: fused_nerf_forward(self.nerf_dynamic,
                                                           p, f, v),
             static_feats=static_feats,
-            dynamic_vol=lambda ndc: sample_volume(dyn_vol, ndc),
+            dynamic_vol=lambda ndc: sample_volume(vol_of(dyn_vol), ndc),
             dynamic_col=lambda pts: render.build_color_features(
                 pts, nb_imgs_un, batch["nb_w2cs"], batch["nb_intr"]),
-            multires=self.multires, multires_views=self.multires_views)
+            multires=self.multires, multires_views=self.multires_views,
+            dynamic_vol_warped=dynamic_vol_warped)
 
     def _chunk(self, H, W) -> int:
         return min(self.cfg.eval_chunk or self.cfg.chunk, H * W)

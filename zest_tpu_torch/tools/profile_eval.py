@@ -1,9 +1,9 @@
 """Where the flagship eval step's time goes on one CUDA card.
 
-    python -m zest_tpu_torch.tools.profile_eval
+    python -m zest_tpu_torch.tools.profile_eval [--precision {32,16}]
 
-Runs the flagship preset (``zest_tpu_torch.presets.FLAGSHIP``, seeded
-weights) and prints:
+Runs the flagship preset (``zest_tpu_torch.presets.FLAGSHIP``, or
+``FLAGSHIP_16`` with ``--precision 16``; seeded weights) and prints:
 
 1. the encoder / render split over ``REPS`` unprofiled images after one
    warm-up: ``encode`` is ``ZestSystem.render_models`` (both encoders) alone,
@@ -18,6 +18,7 @@ TF32 is off, as in ``chip_smoke.py``.
 """
 from __future__ import annotations
 
+import argparse
 import statistics
 import sys
 import time
@@ -67,15 +68,20 @@ def busy_union_us(intervals) -> float:
     return busy
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device", file=sys.stderr)
         return 2
+    parser = argparse.ArgumentParser(prog="profile_eval")
+    parser.add_argument("--precision", type=int, choices=(32, 16), default=32)
+    args = parser.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    _, system, batch, params = presets.build(presets.FLAGSHIP,
-                                             presets.FLAGSHIP_SCENE, dev)
+    preset = presets.FLAGSHIP_16 if args.precision == 16 else presets.FLAGSHIP
+    _, system, batch, params = presets.build(preset, presets.FLAGSHIP_SCENE,
+                                             dev)
+    print(f"precision {args.precision}")
     step = system.make_eval_step()
     totals = []
     with torch.no_grad():
@@ -120,4 +126,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,9 +1,10 @@
 """Where the flagship training step's time goes on one CUDA card.
 
-    python -m zest_tpu_torch.tools.profile_train
+    python -m zest_tpu_torch.tools.profile_train [--precision {32,16}]
 
-Runs ``zest_tpu_torch.presets.FLAGSHIP_TRAIN`` (seeded weights, the step-0
-phase: 600 random plus 512 motion-mask rays, no chain pass) and prints:
+Runs ``zest_tpu_torch.presets.FLAGSHIP_TRAIN`` (``FLAGSHIP_TRAIN_16`` with
+``--precision 16``; seeded weights, the step-0 phase: 600 random plus 512
+motion-mask rays, no chain pass) and prints:
 
 1. the wall time of ``REPS`` unprofiled steps after one warm-up (host clock
    around each step, ended by reading its loss) and train rays/s;
@@ -17,6 +18,7 @@ TF32 is off, as in ``chip_smoke.py``.
 """
 from __future__ import annotations
 
+import argparse
 import statistics
 import sys
 import time
@@ -33,6 +35,9 @@ REPS = 3
 _LIB = "cuDNN conv / deconv + batch norm"
 # (substring of the kernel symbol, group label), first match wins
 GROUPS = (("transpose_pack", "K7 field backward, weight transpose"),
+          ("round_pack", "K6 / K7 bf16 weight rounding"),
+          ("row_gather", "K9 row gather"),
+          ("row_scatter", "K9 row gather backward (scatter-add)"),
           ("fused_nerf_bwd", "K7 field backward, pass 1"),
           ("wgrad_kernel", "K7 field backward, pass 2 (weights)"),
           ("fused_nerf", "K6 fused field"),
@@ -50,15 +55,21 @@ GROUPS = (("transpose_pack", "K7 field backward, weight transpose"),
           ("reduce", "reductions (losses, norms, optimizer)"))
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
+    parser = argparse.ArgumentParser(prog="profile_train")
+    parser.add_argument("--precision", type=int, choices=(32, 16), default=32)
+    args = parser.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg, system, batch, params = presets.build(presets.FLAGSHIP_TRAIN,
-                                               presets.FLAGSHIP_SCENE, dev)
+    preset = (presets.FLAGSHIP_TRAIN_16 if args.precision == 16
+              else presets.FLAGSHIP_TRAIN)
+    cfg, system, batch, params = presets.build(preset, presets.FLAGSHIP_SCENE,
+                                               dev)
+    print(f"precision {args.precision}")
     opt = system.make_optimizer(presets.STEPS_PER_EPOCH)
     step_fn = system.make_train_step(opt)
     phase = phase_for_step(cfg, 0)
@@ -114,4 +125,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
