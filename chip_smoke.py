@@ -36,9 +36,13 @@ sm_90a), then:
    parameters moved, and times a window of steps: train_rays_per_sec;
 9. at 16-bit precision (``presets.FLAGSHIP_TRAIN_16``, ``bench.py``'s own
    configuration): holds the row gather K9 (forward bitwise, its
-   scatter-add backward to one bf16 rounding step) at the flagship step's
-   own t±1 points, and the bf16-operand modes of the field kernels K6 and K7
-   at the flagship's eval chunk and training passes, against their twins;
+   scatter-add backward to one bf16 rounding step, on a random cotangent
+   and on the main path's own, whose out-of-volume corners carry zero
+   rows) at the flagship step's own t±1 points, and the bf16-operand modes
+   of the field kernels K6 and K7 at the flagship's eval chunk and training
+   passes, against their twins; K9's backward is timed against the same
+   work by the library (zeros, ``index_add_``, one rounding) and, on a line
+   of its own, its bare launch against bare ``index_add_``;
 10. runs the small eval and training step at 16 bits on CUDA and on the CPU
     (each quantity within twice the CPU's own 16-vs-32 difference);
 11. runs the flagship eval and training step at 16 bits, as phases 5 and 8
@@ -185,14 +189,12 @@ class Rows:
     def __init__(self):
         self.rows = {}
 
-    def check(self, name, source, replaces, counter, kern, plain, library,
-              tol, iters, moved_bytes, flops, relative=False, flops_bf16=0,
-              paths=("eval", "train")):
-        """kern and plain return a tensor or a tuple of them. Forward outputs
-        are held to tol x max(1, |plain|); gradients (relative=True) to tol x
-        the largest |plain| of each output. flops count float32 operations,
-        flops_bf16 those on bf16 operands; paths names the runs whose
-        launches the row reports (eval first)."""
+    def verify(self, name, kern, plain, tol, relative=False) -> tuple:
+        """Hold kern() to plain() (each a tensor or a tuple of them):
+        forward outputs to tol x max(1, |plain|), gradients (relative=True)
+        to tol x the largest |plain| of each output. Raises on a
+        disagreement or a non-finite value; returns (the largest error, the
+        output shapes)."""
         with torch.no_grad():
             out, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -205,19 +207,31 @@ class Rows:
             limit = tol * (max(scale, 1e-30) if relative else max(1.0, scale))
             ok = ok and bool(torch.isfinite(a).all()) and e <= limit
             err = max(err, e)
+        if not ok:
+            log(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol:g}) -> FAIL")
+            raise AssertionError(f"{name} disagrees with its twin: {err}")
+        if name in self.rows:
+            self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"],
+                                                 err)
+        return err, [tuple(a.shape) for a in outs]
+
+    def check(self, name, source, replaces, counter, kern, plain, library,
+              tol, iters, moved_bytes, flops, relative=False, flops_bf16=0,
+              paths=("eval", "train")):
+        """``verify``, then time kern, plain and library; flops count
+        float32 operations, flops_bf16 those on bf16 operands; paths names
+        the runs whose launches the row reports (eval first)."""
+        err, shapes = self.verify(name, kern, plain, tol, relative)
         with torch.no_grad():
             ms = cuda_ms(kern, iters)
             plain_ms = cuda_ms(plain, iters)
             lib_ms = cuda_ms(library, iters) if library is not None else None
         bound_ms = 1e3 * max(moved_bytes / HBM_BYTES_PER_S,
                              flops / F32_FLOP_PER_S + flops_bf16 / BF16_FLOP_PER_S)
-        log(f"[kernel] {name}: shapes {[tuple(a.shape) for a in outs]} "
-            f"max_abs_err {err:.3e} (tol {tol:g}) kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
-            f"{bound_ms:.3f} ms -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its twin: {err}")
+        log(f"[kernel] {name}: shapes {shapes} max_abs_err {err:.3e} "
+            f"(tol {tol:g}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"library {'-' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
+            f"{bound_ms:.3f} ms -> ok")
         row = self.rows.setdefault(name, dict(
             name=name, route="cuda", source=source, replaces=replaces,
             counter=counter, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
@@ -231,7 +245,6 @@ class Rows:
         row["flops_bf16"] += flops_bf16
         if lib_ms is not None:
             row["library_ms"] += lib_ms
-        del out, ref, outs, refs
 
     def finish(self, launches: dict) -> list:
         """The rows with their launches: per eval image for the kernels the
@@ -578,12 +591,17 @@ def backward_kernels(rows, dev, cfg, system, batch):
                        32 * volume_cells(ndc, vol.shape[:3]) + nbytes(ndc, g)
                        + 12 * n, 8 * 40 * n, relative=True)
 
-    # K2: d_src of source view 1 over the 128 planes
+    # K2: d_src of source view 1 over the 128 planes. Bytes: g at the items
+    # with a tap inside the source (no other g reaches d_src), the grid, and
+    # d_src written once
     h, w = cfg.img_h // 4, cfg.img_w // 4
     depths = depth_plane_values(near_far[0], near_far[1])
     grid = homography_grid(batch["proj_mats"][1], depths, (h, w), pad=cfg.pad)
     D, Hp, Wp, _ = grid.shape
     C = 35
+    items = int(plane_sweep.inside_items(grid, (h, w)).sum())
+    log(f"[backward] warp: {items} of {D * Hp * Wp} (plane, pixel) items have "
+        f"a tap inside the source")
     src = torch.randn((h, w, C), generator=gen, device=dev)
     g = torch.randn((D, C, Hp * Wp), generator=gen, device=dev)
     src_nchw = src.permute(2, 0, 1)[None].contiguous()
@@ -595,7 +613,7 @@ def backward_kernels(rows, dev, cfg, system, batch):
                lambda: plane_sweep.homo_warp_cm_grad_plain(src, grid, g),
                lambda: torch.ops.aten.grid_sampler_2d_backward(
                    g_lib, src_nchw, grid_flat, 0, 0, True, [True, False]),
-               1e-5, 5, nbytes(g, grid) + nbytes(src), 8 * g.numel(),
+               1e-5, 5, 4 * C * items + nbytes(grid, src), 8 * C * items,
                relative=True)
     del static_vol, dyn_vol, rays, passes, warped, g
     torch.cuda.empty_cache()
@@ -768,7 +786,8 @@ def bf16_kernels(rows, dev, cfg, system, batch):
     # output; the backward reads g and the indices and writes the table
     D, Hv, Wv, C = dyn_vol.shape
     tab = dyn_vol.to(torch.bfloat16).reshape(-1, C)
-    idx = trilinear_row_taps(warped * 2.0 - 1.0, D, Hv, Wv)[0].contiguous()
+    idx, wts = trilinear_row_taps(warped * 2.0 - 1.0, D, Hv, Wv)
+    idx = idx.contiguous()
     idx_flat = idx.reshape(-1)
     touched = int(torch.unique(idx_flat).numel())
     g = torch.randn((*idx.shape, C), generator=gen, device=dev).to(torch.bfloat16)
@@ -780,17 +799,43 @@ def bf16_kernels(rows, dev, cfg, system, batch):
                lambda: dma_gather.take_rows_plain(tab, idx),
                lambda: torch.index_select(tab, 0, idx_flat), 0.0, 20,
                16 * touched + nbytes(idx, g), 0, paths=paths)
-    acc = torch.zeros((tab.shape[0], C), device=dev)
+    # the library side does the same work: a zero float32 table, the
+    # scatter, one rounding to bf16 (g32 is made outside the timed call).
+    # Atomics add in another order than index_add_, and both round the
+    # float32 sum once: one bf16 rounding step of the largest
+    m = tab.shape[0]
     g32 = g.reshape(-1, C).float()
-    # atomics add in another order than index_add_, and both round the
-    # float32 sum to bf16 once: one bf16 rounding step of the largest
     rows.check("row_gather_backward", "zest_tpu_torch/csrc/row_gather.cu",
                "zest_tpu/kernels/dma_gather.py:107", "scatter_rows",
-               lambda: dma_gather.scatter_rows(g, idx, tab.shape[0]),
-               lambda: dma_gather.scatter_rows_plain(g, idx, tab.shape[0]),
-               lambda: acc.index_add_(0, idx_flat, g32), 2.0 ** -8, 5,
+               lambda: dma_gather.scatter_rows(g, idx, m),
+               lambda: dma_gather.scatter_rows_plain(g, idx, m),
+               lambda: torch.zeros((m, C), device=dev).index_add_(
+                   0, idx_flat, g32).to(torch.bfloat16), 2.0 ** -8, 5,
                nbytes(g, idx, tab), g.numel(), relative=True, paths=paths)
-    del dyn_vol, passes, warped, tab, idx, g, acc
+    acc = torch.zeros((m, C), device=dev)
+    bare_ms = cuda_ms(lambda: dma_gather.scatter_add_rows(acc, g, idx), 5)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, idx_flat, g32), 5)
+    log(f"[bf16] row scatter-add launch alone: kernel {bare_ms:.3f} ms, "
+        f"index_add_ {lib_ms:.3f} ms (into a zeroed float32 table)")
+
+    # the main path's own row cotangent: w * grad of the combine, so a corner
+    # outside the volume carries a zero row onto a clamped edge row
+    grad = torch.randn((*wts.shape[:-1], C), generator=gen, device=dev)
+    g_path = (wts[..., None] * grad[..., None, :]).to(torch.bfloat16)
+    zero = float((g_path == 0).all(-1).float().mean())
+    err, _ = rows.verify("row_gather_backward",
+                         lambda: dma_gather.scatter_rows(g_path, idx, m),
+                         lambda: dma_gather.scatter_rows_plain(g_path, idx, m),
+                         2.0 ** -8, relative=True)
+    g_path32 = g_path.reshape(-1, C).float()
+    path_ms = cuda_ms(lambda: dma_gather.scatter_rows(g_path, idx, m), 5)
+    lib_path_ms = cuda_ms(lambda: torch.zeros((m, C), device=dev).index_add_(
+        0, idx_flat, g_path32).to(torch.bfloat16), 5)
+    log(f"[bf16] row scatter-add on the main path's cotangent ({zero:.1%} zero "
+        f"rows): max_abs_err {err:.3e} (tol 2^-8 of the largest), kernel "
+        f"{path_ms:.3f} ms, zeros + index_add_ + round {lib_path_ms:.3f} ms")
+    del dyn_vol, passes, warped, tab, idx, g, g32, acc, wts, grad, g_path
+    del g_path32
     torch.cuda.empty_cache()
 
 

@@ -22,7 +22,8 @@ The row gather K9 copies rows: bitwise equal to ``tab[idx]``. Its
 scatter-add adds in float32 with atomics, in another order than
 ``index_add_``, and both round the sum to the table's type once: a float32
 table to 1e-6 of the largest sum, a bf16 one to one bf16 rounding step
-(2^-8) of it. The bf16-operand field kernels round the same operands as
+(2^-8) of it; on integer-valued gradients, whose float32 sums are exact in
+any order, bit for bit. The bf16-operand field kernels round the same operands as
 their twin, but a float32 sum in another order can flip one bf16 rounding
 of an activation (2^-8 of that operand): K6 to 1e-3 of the output scale, K7
 to 2^-8 of each input's and each leaf's largest gradient.
@@ -189,6 +190,82 @@ def test_warp_backward_kernel_wide_footprint(dev):
     assert _rel_err(out, ref) <= 1e-5
 
 
+def _flagship_warp_grid(dev):
+    """The flagship's K2 grid: 128 planes, pad 24, a 72x128 source, the
+    synthetic scene's source view 1."""
+    from zest_tpu_torch import presets
+    from zest_tpu_torch.data.synthetic import SyntheticDataset
+    from zest_tpu_torch.models.mvsnet import depth_plane_values
+    from zest_tpu_torch.system import to_batch
+    batch = to_batch(SyntheticDataset(**presets.FLAGSHIP_SCENE)
+                     [presets.TARGET_FRAME], dev)
+    near, far = batch["near_fars"][0]
+    grid = homography_grid(batch["proj_mats"][1], depth_plane_values(near, far),
+                           (72, 128), pad=24).contiguous()
+    assert grid.shape == (128, 120, 176, 2)
+    return grid
+
+
+def test_warp_backward_kernel_flagship_shape(dev):
+    """K2 at the flagship's shape: a 72x128 source of 35 channels, 128
+    planes, pad 24, the grid of the synthetic scene's source view 1."""
+    grid = _flagship_warp_grid(dev)
+    g = _gen(dev, 14)
+    src = torch.randn((72, 128, 35), generator=g, device=dev)
+    cot = torch.randn((128, 35, 120 * 176), generator=g, device=dev)
+    out = plane_sweep.homo_warp_cm_grad(cot, grid, (72, 128))
+    ref = plane_sweep.homo_warp_cm_grad_plain(src, grid, cot)
+    assert _rel_err(out, ref) <= 1e-5
+
+
+def test_warp_backward_kernel_reads_only_inside_items(dev):
+    """K2 at the flagship's shape reads g only at ``inside_items``, the
+    items chip_smoke counts in K2's bound: with noise in g at every other
+    item, the kernel still agrees with the twin on the clean g (1e-5
+    relative: its float32 atomics add in a varying order)."""
+    grid = _flagship_warp_grid(dev)
+    inside = plane_sweep.inside_items(grid, (72, 128)).reshape(128, 1, -1)
+    assert 0 < int(inside.sum()) < inside.numel()
+    g = _gen(dev, 20)
+    src = torch.randn((72, 128, 35), generator=g, device=dev)
+    cot = torch.randn((128, 35, 120 * 176), generator=g, device=dev)
+    noise = 1e3 * torch.randn(cot.shape, generator=g, device=dev)
+    out = plane_sweep.homo_warp_cm_grad(torch.where(inside, cot, noise), grid,
+                                        (72, 128))
+    ref = plane_sweep.homo_warp_cm_grad_plain(src, grid, cot)
+    assert _rel_err(out, ref) <= 1e-5
+
+
+def _warp_backward_case(dev, seed, grid):
+    g = _gen(dev, seed)
+    src = torch.randn((12, 40, 35), generator=g, device=dev)
+    cot = torch.randn((grid.shape[0], 35, grid.shape[1] * grid.shape[2]),
+                      generator=g, device=dev)
+    return (plane_sweep.homo_warp_cm_grad(cot, grid, (12, 40)),
+            plane_sweep.homo_warp_cm_grad_plain(src, grid, cot))
+
+
+def test_warp_backward_kernel_one_patch(dev):
+    """Every tap of every plane and pixel falls in one 2x2 source patch (x
+    in (5, 6), y in (3, 4)): the most contended atomics."""
+    g = _gen(dev, 15)
+    xy = torch.rand((9, 20, 48, 2), generator=g, device=dev) * 0.98 + 0.01
+    xy += torch.tensor([5.0, 3.0], device=dev)
+    grid = (xy / torch.tensor([39 / 2, 11 / 2], device=dev) - 1.0).contiguous()
+    out, ref = _warp_backward_case(dev, 16, grid)
+    assert int((out.abs().sum(-1) > 0).sum()) == 4
+    assert _rel_err(out, ref) <= 1e-5
+
+
+def test_warp_backward_kernel_all_outside(dev):
+    """Every tap falls outside the source: d_src is exactly zero."""
+    g = _gen(dev, 17)
+    grid = torch.rand((9, 20, 48, 2), generator=g, device=dev) * 2.0 - 1.0
+    grid[..., 0] = grid[..., 0].abs() + 1.1        # right of the last column
+    out, ref = _warp_backward_case(dev, 18, grid.contiguous())
+    assert torch.equal(out, torch.zeros_like(out)) and torch.equal(out, ref)
+
+
 @pytest.mark.parametrize("n_points", [300 * 7, 1, 12345])
 def test_volume_backward_kernels_match_autograd(dev, n_points):
     """K4 (d_vol) and K5 (d_ndc) against F.grid_sample's autograd, with
@@ -301,6 +378,34 @@ def test_row_gather_kernels_match_twins(dev, dtype, cw):
     assert t_.grad.dtype == dtype
     tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
     assert _rel_err(t_.grad.float(), ref.float()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["one_index", "zero_rows", "single_row",
+                                  "ragged"])
+def test_row_scatter_add_edge_cases(dev, dtype, case):
+    """K9's scatter-add against its twin: every index equal, a gradient
+    with all-zero rows (which the kernel skips), one row, and a count that
+    fills no block evenly. The gradients are small integers, so every
+    float32 sum is exact in any order of the atomics and kernel and twin
+    agree bit for bit."""
+    g = _gen(dev, 19)
+    m, shape = {"one_index": (10, (5, 999)), "zero_rows": (100, (3, 1001)),
+                "single_row": (1, (1,)), "ragged": (5000, (7, 513))}[case]
+    idx = torch.randint(0, m, shape, generator=g, device=dev, dtype=torch.int32)
+    if case == "one_index":
+        idx.fill_(3)
+    cot = torch.randint(-4, 5, (*shape, 8), generator=g, device=dev).to(dtype)
+    if case == "zero_rows":
+        cot[:, ::2] = 0
+    before = dma_gather.scatter_rows.launches
+    out = dma_gather.scatter_rows(cot, idx, m)
+    assert dma_gather.scatter_rows.launches == before + 1
+    ref = dma_gather.scatter_rows_plain(cot, idx, m)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (m, 8)
+    assert torch.equal(out, ref)
+    assert float(ref.float().abs().max()) > 0.0
 
 
 def test_row_gather_rejects_what_the_kernel_cannot_take(dev):

@@ -70,10 +70,11 @@ struct Taps2 {
   bool vx0, vx1, vy0, vy1;
 };
 
-__device__ __forceinline__ Taps2 taps_at(const float* grid, long long idx, int h,
-                                         int w) {
-  const float x = zt::clamp_far(zt::unnormalize(grid[2 * idx], w), w);
-  const float y = zt::clamp_far(zt::unnormalize(grid[2 * idx + 1], h), h);
+__device__ __forceinline__ Taps2 taps_at(const float2* grid, long long idx,
+                                         int h, int w) {
+  const float2 v = __ldg(grid + idx);
+  const float x = zt::clamp_far(zt::unnormalize(v.x, w), w);
+  const float y = zt::clamp_far(zt::unnormalize(v.y, h), h);
   const float x0f = floorf(x), y0f = floorf(y);
   Taps2 t;
   t.x0 = static_cast<int>(x0f);
@@ -92,105 +93,125 @@ __device__ __forceinline__ Taps2 taps_at(const float* grid, long long idx, int h
 //
 // Replaces zest_tpu/kernels/plane_sweep.py:_pallas_warp_bwd (pallas_call at
 // :261), which accumulates transposed band matmuls into one resident block
-// over the sequential grid of planes. Here a block takes one padded output
-// row over kBwdPlanes planes. It first finds the bounding box of the source
-// pixels its taps reach; where that box times a group of channels fits in
-// shared memory, it scatters into a shared accumulator with shared-memory
-// atomics and then adds the box to d_src with one global atomic per nonzero
-// entry; otherwise it adds every tap to d_src directly. With the flagship's
-// small baseline a row's taps over 16 planes fall on a few source rows, so
-// the global atomics drop by roughly the number of taps per source pixel.
-// What bounds it on an H100: reading g (D * C * Hp * Wp floats, 378 MB per
-// source view at the flagship) once; d_src is 1.3 MB.
+// over the sequential grid of planes. On the card the design rests on how
+// little a pixel's taps move from plane to plane: a plane sweep's planes
+// differ only in depth, so across all D planes an output pixel's source
+// position shifts by the baseline's disparity range (at most ~3 source
+// pixels for the flagship's views, where 97 % of consecutive planes keep
+// the same top-left tap). So one thread owns one output pixel and a group of
+// up to kBwdGroup channels, walks kBwdPlanes planes, and sums g times each
+// of the 4 tap weights in registers for as long as the top-left tap stays
+// where it is; when it moves, and at the end, it adds the 4 x group sums to
+// d_src with global atomics (the taps inside the source, nonzero sums only).
+// Neighbouring lanes own neighbouring pixels: each g load is one coalesced
+// line per warp, and each atomic lands on neighbouring source pixels. A
+// plane where no tap of the pixel is inside the source reads no g at all
+// (about 55 % of the padded frustum at the flagship), and planes are taken
+// in pairs so that both planes' loads are in flight together. Blocks of
+// the same pixels and planes but another channel group launch next to each
+// other and read the grid from L2. Any grid is exact; only the number of
+// atomics depends on how far the taps move.
+// What bounds it on an H100: reading g at the (plane, pixel) items that have
+// a tap inside the source (D * C * Hp * Wp floats at most, 378 MB per source
+// view at the flagship) and the grid once; d_src is 1.3 MB.
 constexpr int kBwdThreads = 256;
-constexpr int kBwdPlanes = 16;
-constexpr int kBwdSmem = 12000;      // floats of the shared accumulator (< 48 KB)
+constexpr int kBwdPlanes = 32;       // planes one thread walks
+constexpr int kBwdGroup = 8;         // most channels one thread carries
+constexpr int kNoTap = -(1 << 20);   // a tap origin no grid value gives
+
+struct WarpBwdAcc {
+  float s[4][kBwdGroup];             // tap (a, b) = (dy, dx) at s[2a + b]
+  int x0, y0;                        // the top-left tap the sums belong to
+};
+
+// Adds the sums to d_src at the taps inside the source, and clears them.
+__device__ __forceinline__ void flush_taps(WarpBwdAcc& acc, float* d_src,
+                                           int c0, int nc, int h, int w) {
+  const long long plane = static_cast<long long>(h) * w;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int y = acc.y0 + a, x = acc.x0 + b;
+      const bool inside = y >= 0 && y < h && x >= 0 && x < w;
+      float* dst = d_src + static_cast<long long>(c0) * plane +
+                   static_cast<long long>(y) * w + x;
+#pragma unroll
+      for (int j = 0; j < kBwdGroup; ++j) {
+        const float v = acc.s[2 * a + b][j];
+        if (inside && j < nc && v != 0.f) atomicAdd(dst + j * plane, v);
+        acc.s[2 * a + b][j] = 0.f;
+      }
+    }
+  }
+}
+
+// One plane's contribution: g values gv of the group at taps t.
+__device__ __forceinline__ void add_plane(WarpBwdAcc& acc, const Taps2& t,
+                                          const float (&gv)[kBwdGroup],
+                                          float* d_src, int c0, int nc, int h,
+                                          int w) {
+  if (t.x0 != acc.x0 || t.y0 != acc.y0) {
+    flush_taps(acc, d_src, c0, nc, h, w);
+    acc.x0 = t.x0;
+    acc.y0 = t.y0;
+  }
+  const float wx[2] = {1.f - t.fx, t.fx}, wy[2] = {1.f - t.fy, t.fy};
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const float wt = wy[a] * wx[b];
+#pragma unroll
+      for (int j = 0; j < kBwdGroup; ++j)
+        acc.s[2 * a + b][j] = fmaf(gv[j], wt, acc.s[2 * a + b][j]);
+    }
+  }
+}
+
+__device__ __forceinline__ bool any_inside(const Taps2& t) {
+  return (t.vx0 || t.vx1) && (t.vy0 || t.vy1);
+}
+
+// the group's g values of one (plane, pixel) item, zero past the group
+__device__ __forceinline__ void load_group(const float* gp, long long P, int nc,
+                                           float (&gv)[kBwdGroup]) {
+#pragma unroll
+  for (int j = 0; j < kBwdGroup; ++j) gv[j] = j < nc ? __ldcs(gp + j * P) : 0.f;
+}
 
 __global__ void __launch_bounds__(kBwdThreads)
 plane_sweep_warp_bwd_kernel(const float* __restrict__ g,
-                            const float* __restrict__ grid,
+                            const float2* __restrict__ grid,
                             float* __restrict__ d_src, int D, int h, int w,
-                            int C, int Hp, int Wp) {
-  __shared__ float acc[kBwdSmem];
-  __shared__ int box[4];               // x min, x max, y min, y max
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x;
-  const int d0 = blockIdx.y * kBwdPlanes;
-  const int d1 = d0 + kBwdPlanes < D ? d0 + kBwdPlanes : D;
-  const long long P = static_cast<long long>(Hp) * Wp;
-  const long long plane = static_cast<long long>(h) * w;
-  if (tid == 0) {
-    box[0] = w; box[1] = -1; box[2] = h; box[3] = -1;
-  }
-  __syncthreads();
-  int xmn = w, xmx = -1, ymn = h, ymx = -1;
-  for (int d = d0; d < d1; ++d) {
-    for (int px = tid; px < Wp; px += kBwdThreads) {
-      const Taps2 t = taps_at(grid, d * P + static_cast<long long>(row) * Wp + px,
-                              h, w);
-      if ((t.vx0 || t.vx1) && (t.vy0 || t.vy1)) {
-        xmn = min(xmn, t.vx0 ? t.x0 : t.x0 + 1);
-        xmx = max(xmx, t.vx1 ? t.x0 + 1 : t.x0);
-        ymn = min(ymn, t.vy0 ? t.y0 : t.y0 + 1);
-        ymx = max(ymx, t.vy1 ? t.y0 + 1 : t.y0);
-      }
-    }
-  }
-  if (xmx >= 0) {
-    atomicMin(&box[0], xmn); atomicMax(&box[1], xmx);
-    atomicMin(&box[2], ymn); atomicMax(&box[3], ymx);
-  }
-  __syncthreads();
-  const int bx0 = box[0], by0 = box[2];
-  const int bw = box[1] - bx0 + 1, bh = box[3] - by0 + 1;
-  if (bw <= 0 || bh <= 0) return;     // no tap of this block is inside
-  const int area = bw * bh;
-  const int group = kBwdSmem / area;  // channels per shared pass
-  const int step = group > 0 ? group : C;
-  for (int c0 = 0; c0 < C; c0 += step) {
-    const int c1 = c0 + step < C ? c0 + step : C;
-    if (group > 0) {
-      for (int k = tid; k < (c1 - c0) * area; k += kBwdThreads) acc[k] = 0.f;
-      __syncthreads();
-    }
-    for (int d = d0; d < d1; ++d) {
-      for (int px = tid; px < Wp; px += kBwdThreads) {
-        const long long o = static_cast<long long>(row) * Wp + px;
-        const Taps2 t = taps_at(grid, d * P + o, h, w);
-        const int xs[2] = {t.x0, t.x0 + 1}, ys[2] = {t.y0, t.y0 + 1};
-        const bool vx[2] = {t.vx0, t.vx1}, vy[2] = {t.vy0, t.vy1};
-        const float wx[2] = {1.f - t.fx, t.fx}, wy[2] = {1.f - t.fy, t.fy};
-        for (int c = c0; c < c1; ++c) {
-          const float gv = __ldg(g + (static_cast<long long>(d) * C + c) * P + o);
-          if (gv == 0.f) continue;
+                            int C, int P, int group) {
+  const int c0 = blockIdx.x * group;
+  const int nc = min(group, C - c0);
+  const int p = blockIdx.y * kBwdThreads + threadIdx.x;
+  if (p >= P || nc <= 0) return;
+  const int d0 = blockIdx.z * kBwdPlanes;
+  const int d1 = min(d0 + kBwdPlanes, D);
+  WarpBwdAcc acc;
 #pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            if (!vy[a]) continue;
+  for (int t = 0; t < 4; ++t) {
 #pragma unroll
-            for (int b = 0; b < 2; ++b) {
-              if (!vx[b]) continue;
-              const float v = gv * (wy[a] * wx[b]);
-              if (group > 0)
-                atomicAdd(&acc[(c - c0) * area + (ys[a] - by0) * bw + xs[b] - bx0], v);
-              else
-                atomicAdd(d_src + c * plane + static_cast<long long>(ys[a]) * w + xs[b], v);
-            }
-          }
-        }
-      }
-    }
-    if (group > 0) {
-      __syncthreads();
-      for (int k = tid; k < (c1 - c0) * area; k += kBwdThreads) {
-        const float v = acc[k];
-        if (v == 0.f) continue;
-        const int c = c0 + k / area, r = k % area;
-        atomicAdd(d_src + c * plane + static_cast<long long>(by0 + r / bw) * w +
-                      bx0 + r % bw, v);
-      }
-      __syncthreads();
-    }
+    for (int j = 0; j < kBwdGroup; ++j) acc.s[t][j] = 0.f;
   }
+  acc.x0 = acc.y0 = kNoTap;
+  for (int d = d0; d < d1; d += 2) {
+    const bool two = d + 1 < d1;
+    const long long item = static_cast<long long>(d) * P + p;
+    const Taps2 ta = taps_at(grid, item, h, w);
+    const Taps2 tb = taps_at(grid, two ? item + P : item, h, w);
+    const bool ina = any_inside(ta), inb = two && any_inside(tb);
+    const float* gp = g + (static_cast<long long>(d) * C + c0) * P + p;
+    float ga[kBwdGroup], gb[kBwdGroup];
+    load_group(gp, P, ina ? nc : 0, ga);
+    load_group(gp + static_cast<long long>(C) * P, P, inb ? nc : 0, gb);
+    if (ina) add_plane(acc, ta, ga, d_src, c0, nc, h, w);
+    if (inb) add_plane(acc, tb, gb, d_src, c0, nc, h, w);
+  }
+  flush_taps(acc, d_src, c0, nc, h, w);
 }
 
 }  // namespace
@@ -211,11 +232,16 @@ ZT_API int zt_plane_sweep_warp(const float* src, const float* grid, float* out,
 ZT_API int zt_plane_sweep_warp_backward(const float* g, const float* grid,
                                         float* d_src, int D, int h, int w,
                                         int C, int Hp, int Wp, void* stream) {
-  if (D > 0 && Hp > 0 && Wp > 0) {
-    const dim3 blocks(Hp, (D + kBwdPlanes - 1) / kBwdPlanes);
+  if (D > 0 && Hp > 0 && Wp > 0 && C > 0) {
+    const int P = Hp * Wp;
+    // as few channel groups as kBwdGroup allows, balanced
+    const int groups = (C + kBwdGroup - 1) / kBwdGroup;
+    const int group = (C + groups - 1) / groups;
+    const dim3 blocks(groups, zt::blocks_for(P, kBwdThreads),
+                      (D + kBwdPlanes - 1) / kBwdPlanes);
     plane_sweep_warp_bwd_kernel<<<blocks, kBwdThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
-        g, grid, d_src, D, h, w, C, Hp, Wp);
+        g, reinterpret_cast<const float2*>(grid), d_src, D, h, w, C, P, group);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -77,22 +77,34 @@ def scatter_rows(g, idx, m: int):
     """K9's adjoint: the rows of g [..., CW] added at idx [...] into a zero
     [m, CW] table in float32, returned in g's type. CUDA tensors only (the
     twin is ``scatter_rows_plain``)."""
+    acc = torch.zeros((m, g.shape[-1]), dtype=torch.float32, device=g.device)
+    scatter_add_rows(acc, g, idx)
+    return acc.to(g.dtype)
+
+
+scatter_rows.launches = 0
+
+
+def scatter_add_rows(acc, g, idx):
+    """The scatter-add kernel alone: acc [m, CW] float32 += the rows of g
+    [..., CW] at idx [...], in place; counted in ``scatter_rows.launches``."""
     name = "scatter_rows"
     if g.shape[:-1] != idx.shape:
         raise ValueError(f"{name}: g must be [*idx.shape, CW], got "
                          f"{tuple(g.shape)} for idx {tuple(idx.shape)}")
     _check(name, g, idx)
     cw = g.shape[-1]
-    acc = torch.zeros((m, cw), dtype=torch.float32, device=g.device)
+    if (acc.dtype != torch.float32 or acc.dim() != 2 or acc.shape[1] != cw
+            or acc.device != g.device or not acc.is_contiguous()
+            or acc.data_ptr() % 16):
+        raise ValueError(f"{name}: acc must be a contiguous, 16-byte aligned "
+                         f"float32 [m, {cw}] table on {g.device}")
     err = _build.library().zt_row_scatter_add(
-        g.data_ptr(), idx.data_ptr(), acc.data_ptr(), idx.numel(), m, cw,
-        g.element_size(), _build.stream_ptr(g))
+        g.data_ptr(), idx.data_ptr(), acc.data_ptr(), idx.numel(),
+        acc.shape[0], cw, g.element_size(), _build.stream_ptr(g))
     _build.check(err, name)
     scatter_rows.launches += 1
-    return acc.to(g.dtype)
-
-
-scatter_rows.launches = 0
+    return acc
 
 
 class _TakeRows(torch.autograd.Function):

@@ -6,7 +6,8 @@ adjoint in the source features); both kernels are in ``csrc/plane_sweep.cu``.
 They take the grid that ``ops.homography.homography_grid`` computed, so
 kernel and twin sample the same coordinates. ``homo_warp_cm`` is an autograd
 Function: d_src comes from K2, and the grid carries no gradient, as in the
-TPU kernel's custom VJP.
+TPU kernel's custom VJP. ``inside_items`` names the (plane, pixel) items
+whose g K2 reads: those with a tap inside the source.
 """
 from __future__ import annotations
 
@@ -32,6 +33,19 @@ def homo_warp_cm_grad_plain(src, grid, g):
     with torch.enable_grad():
         out = homo_warp_cm_plain(src, grid.detach())
     return torch.autograd.grad(out, src, g)[0]
+
+
+def inside_items(grid, src_hw):
+    """[D, Hp, Wp] bool: the items of grid [D, Hp, Wp, 2] with at least one
+    bilinear tap inside an (h, w) source (align_corners=True). Every other
+    item's output gradient has weight 0 on every source pixel, so K2 does
+    not read it (its ``any_inside`` in ``csrc/plane_sweep.cu``). The bytes
+    K2 must read, the count behind its bound in ``chip_smoke.py``; a card
+    test puts noise in g at every other item."""
+    h, w = src_hw
+    x0 = torch.floor((grid[..., 0] + 1.0) / 2.0 * (w - 1))
+    y0 = torch.floor((grid[..., 1] + 1.0) / 2.0 * (h - 1))
+    return (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
 
 
 def _launch_warp(src, grid):
@@ -60,6 +74,8 @@ def homo_warp_cm_grad(g, grid, src_hw):
         raise ValueError(f"{name}: g must be [{D}, C, {Hp * Wp}], got "
                          f"{tuple(g.shape)}")
     _build.require_cuda_f32(name, g, grid)
+    if grid.data_ptr() % 8:
+        raise ValueError(f"{name}: grid must be 8-byte aligned")
     C = g.shape[1]
     d_src = torch.zeros((C, h, w), device=g.device, dtype=torch.float32)
     err = _build.library().zt_plane_sweep_warp_backward(

@@ -7,7 +7,9 @@ Runs ``zest_tpu_torch.presets.FLAGSHIP_TRAIN`` (``FLAGSHIP_TRAIN_16`` with
 motion-mask rays, no chain pass) and prints:
 
 1. the wall time of ``REPS`` unprofiled steps after one warm-up (host clock
-   around each step, ended by reading its loss) and train rays/s;
+   around each step, ended by reading its loss), their range, and train
+   rays/s at their median (single steps spread by about 5 %, hence 15 of
+   them; to compare two trees, run them in turns on one card);
 2. one step under ``torch.profiler``: the kernel launches, their summed
    device time, the union of their intervals (busy time) and the idle share
    ``1 - busy / unprofiled wall``, where the wall is the median step;
@@ -31,7 +33,7 @@ from zest_tpu_torch import presets, sampling
 from zest_tpu_torch.system import TrainState, phase_for_step
 from zest_tpu_torch.tools.profile_eval import busy_union_us, group_of
 
-REPS = 3
+REPS = 15
 _LIB = "cuDNN conv / deconv + batch norm"
 # (substring of the kernel symbol, group label), first match wins
 GROUPS = (("transpose_pack", "K7 field backward, weight transpose"),
@@ -96,7 +98,8 @@ def main(argv=()) -> int:
             walls.append(ms)
     wall = statistics.median(walls)
     print(f"unprofiled wall per step (median of {REPS}): {wall:.1f} ms, "
-          f"train rays/s {n_rays / wall * 1e3:.1f}")
+          f"train rays/s {n_rays / wall * 1e3:.1f} (steps {min(walls):.1f} to "
+          f"{max(walls):.1f} ms)")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
