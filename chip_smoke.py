@@ -39,8 +39,11 @@ sm_90a), then:
    scatter-add backward to one bf16 rounding step, on a random cotangent
    and on the main path's own, whose out-of-volume corners carry zero
    rows) at the flagship step's own t±1 points, and the bf16-operand modes
-   of the field kernels K6 and K7 at the flagship's eval chunk and training
-   passes, against their twins; K9's backward is timed against the same
+   of the field kernels K6 (the tensor-core kernel: its SASS must hold
+   HMMA; its TFLOP/s beside one bf16 ``torch.matmul`` of a trunk layer's
+   shape, timed only; its bf16 weight pack bit for bit) at the flagship's
+   eval chunk and training passes, and K7 at the training passes, against
+   their twins; K9's backward is timed against the same
    work by the library (zeros, ``index_add_``, one rounding) and, on a line
    of its own, its bare launch against bare ``index_add_``;
 10. runs the small eval and training step at 16 bits on CUDA and on the CPU
@@ -105,6 +108,10 @@ def build() -> None:
     for line in _build.build_info.get("ptxas", "").splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log("[build] " + line.strip())
+    smem = _build.library().zt_fused_nerf_forward_tc_smem
+    log(f"[build] fused_nerf_tc_kernel<256> dynamic shared memory per block: "
+        f"static field {smem(256, 63, 40, 27)} bytes, dynamic field "
+        f"{smem(256, 84, 24, 27)} bytes (one block per SM)")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -333,7 +340,8 @@ def step_inputs(system, batch, cfg, gen):
                           "t-1 / t+1": (system.nerf_dynamic, pp_in)}
 
 
-def check_field_forward(rows, name, system, field_inputs, tol, paths):
+def check_field_forward(rows, name, system, field_inputs, tol, paths,
+                        source="zest_tpu_torch/csrc/fused_mlp.cu"):
     """K6 on both fields' chunk inputs; the twin is the field module itself;
     no single library call computes a field."""
     from zest_tpu_torch.kernels.fused_mlp import fused_nerf_forward
@@ -341,7 +349,7 @@ def check_field_forward(rows, name, system, field_inputs, tol, paths):
         field = getattr(system, f"nerf_{kind}")
         n = inputs[0].numel() // inputs[0].shape[-1]
         f32_ops, bf16_ops = field_ops(field, n, 1)
-        rows.check(name, "zest_tpu_torch/csrc/fused_mlp.cu",
+        rows.check(name, source,
                    "zest_tpu/kernels/fused_mlp.py:376", "fused_nerf_forward",
                    functools.partial(fused_nerf_forward, field, *inputs),
                    functools.partial(field, *inputs), None, tol, 3,
@@ -761,20 +769,85 @@ def flagship_train(cfg, system, batch, params, tag="train"):
     return launches["step 0"], n_rays * TRAIN_STEPS / dt
 
 
+def sass_has_mma(symbol: str) -> dict:
+    """Disassemble the built kernel library (``cuobjdump -sass``) and count
+    the tensor-core instructions (HMMA / HGMMA) of every function whose name
+    holds ``symbol``: {mangled name: count}."""
+    import shutil
+    from pathlib import Path
+
+    from zest_tpu_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise AssertionError("cuobjdump not found: cannot check for HMMA")
+    sass = subprocess.run([tool, "-sass", _build.build_info["path"]],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split(None, 1)[0]
+        if symbol in fn:
+            counts[fn] = sum(1 for line in part.splitlines()
+                             if "HMMA" in line or "HGMMA" in line)
+    return counts
+
+
 def bf16_kernels(rows, dev, cfg, system, batch):
     """Phase 9: the bf16-operand modes of K6 (both fields on the first chunk
-    of the 16-bit flagship eval) and K7 (the three field passes of its
-    step-0 training step), and K9 forward and backward at that step's t±1
-    points in its bf16 dynamic volume, each against its twin."""
-    from zest_tpu_torch.kernels import dma_gather
+    of the 16-bit flagship eval and the three field passes of its step-0
+    training step; its bf16 weight pack) and K7 (those three passes), and K9
+    forward and backward at that step's t±1 points in its bf16 dynamic
+    volume, each against its twin."""
+    from zest_tpu_torch.kernels import dma_gather, fused_mlp
     from zest_tpu_torch.ops.grid_sample import trilinear_row_taps
 
     paths = ("eval16", "train16")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    check_field_forward(rows, "fused_nerf_bf16", system,
-                        chunk_inputs(system, batch)[1], BF16_FIELD_TOL, paths)
+    # K6's bf16 mode is the tensor-core kernel: its SASS must hold mma
+    mma = sass_has_mma("fused_nerf_tc_kernel")
+    log(f"[bf16] tensor-core instructions (HMMA / HGMMA) per instantiation "
+        f"of fused_nerf_tc_kernel: {sorted(mma.values())}")
+    if len(mma) != 3 or min(mma.values()) == 0:
+        raise AssertionError(f"fused_nerf_tc_kernel without HMMA: {mma}")
+    field_inputs = chunk_inputs(system, batch)[1]
+    check_field_forward(rows, "fused_nerf_bf16", system, field_inputs,
+                        BF16_FIELD_TOL, paths,
+                        "zest_tpu_torch/csrc/fused_mlp_tc.cu")
+    row = rows.rows["fused_nerf_bf16"]
+    n = field_inputs["static"][0].numel() // field_inputs["static"][0].shape[-1]
+    a = torch.randn((n, 256), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((256, 256), generator=gen, device=dev).to(torch.bfloat16)
+    mm_ms = cuda_ms(lambda: torch.matmul(a, b), 5)
+    log(f"[bf16] K6 bf16 on the chunk: {row['ms']:.3f} ms, "
+        f"{row['flops_bf16'] / row['ms'] / 1e9:.1f} TFLOP/s of bf16 products;"
+        f" yardstick torch.matmul bf16 [{n}, 256] @ [256, 256] (a trunk "
+        f"layer): {mm_ms:.3f} ms, {2 * n * 256 * 256 / mm_ms / 1e9:.1f} "
+        f"TFLOP/s (timed only)")
+    del a, b, field_inputs
 
     _, warped, passes = step_inputs(system, batch, cfg, gen)
+    # K6 bf16 on the step's three field passes too (held, not timed: the
+    # row's time is the eval chunk's), and its bf16 weight pack, made on the
+    # card, against the pack's twin bit for bit
+    for label, (field, inputs) in passes.items():
+        err, shapes = rows.verify(
+            "fused_nerf_bf16",
+            functools.partial(fused_mlp.fused_nerf_forward, field, *inputs),
+            functools.partial(field, *inputs), BF16_FIELD_TOL)
+        log(f"[bf16] K6 bf16 on the training pass {label}: shapes {shapes} "
+            f"max_abs_err {err:.3e} (tol {BF16_FIELD_TOL:g}) -> ok")
+    for kind in ("static", "dynamic"):
+        field = getattr(system, f"nerf_{kind}")
+        with torch.no_grad():
+            pack, offsets = fused_mlp.pack_weights(field)
+            wb = fused_mlp.pack_bf16(field, pack, offsets)
+            same = torch.equal(wb, fused_mlp.pack_bf16_plain(field, pack,
+                                                             offsets)[0])
+        if not same:
+            raise AssertionError(f"K6's bf16 pack of the {kind} field "
+                                 f"differs from its twin")
+        log(f"[bf16] K6's bf16 weight pack, {kind} field: {wb.numel()} "
+            f"elements, equal to its twin")
     with torch.no_grad():
         dyn_vol, _, _ = system.enc_dy(batch["nb_imgs"], batch["nb_proj_mats"],
                                       batch["near_fars"][0], pad=cfg.pad)

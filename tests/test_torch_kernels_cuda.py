@@ -26,7 +26,11 @@ table to 1e-6 of the largest sum, a bf16 one to one bf16 rounding step
 any order, bit for bit. The bf16-operand field kernels round the same operands as
 their twin, but a float32 sum in another order can flip one bf16 rounding
 of an activation (2^-8 of that operand): K6 to 1e-3 of the output scale, K7
-to 2^-8 of each input's and each leaf's largest gradient.
+to 2^-8 of each input's and each leaf's largest gradient. K6's bf16 mode is
+the tensor-core kernel (``csrc/fused_mlp_tc.cu``), held to the same 1e-3 at
+every width, both field layouts (P / F = 63 / 40 and 84 / 24, K dims that
+are no multiple of 16) and ragged point counts around its 64-point tile;
+its bf16 weight pack, made on the card, equals its twin bit for bit.
 """
 import numpy as np
 import pytest
@@ -116,6 +120,78 @@ def test_fused_kernel_matches_twin(dev, width, static):
     assert fused_nerf_forward.launches == before + 1
     assert out.shape == (n, 5 if static else 12)
     assert _max_err(out, ref) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def _spy_forward_entries(monkeypatch):
+    """Count the calls of K6's two C entry points (SIMT float32, bf16 on the
+    tensor cores)."""
+    from zest_tpu_torch.kernels import _build
+    lib, calls = _build.library(), {}
+    for name in ("zt_fused_nerf_forward", "zt_fused_nerf_forward_tc"):
+        def spy(*args, _fn=getattr(lib, name), _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args)
+        monkeypatch.setattr(lib, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_bf16_field_forward_on_tensor_cores(dev, width, static, n,
+                                            monkeypatch):
+    """K6's bf16 mode takes the tensor-core kernel at every width and holds
+    the bf16 twin to 1e-3 of max(1, |out|) at ragged point counts."""
+    calls = _spy_forward_entries(monkeypatch)
+    P, F = (63, 40) if static else (84, 24)
+    torch.manual_seed(21)
+    field = NeRFField(8, width, P, 27, F, static=static, bf16=True).to(dev)
+    g = _gen(dev, 22)
+    pts, feats, views = (torch.randn((n, c), generator=g, device=dev)
+                         for c in (P, F, 27))
+    before = fused_nerf_forward.launches
+    with torch.no_grad():
+        out = fused_nerf_forward(field, pts, feats, views)
+        ref = field(pts, feats, views)
+    assert fused_nerf_forward.launches == before + 1
+    assert calls == {"zt_fused_nerf_forward_tc": 1}
+    assert out.shape == (n, field.out_ch)
+    assert bool(torch.isfinite(out).all())
+    assert _max_err(out, ref) <= 1e-3 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("width", [64, 256])
+def test_float32_field_keeps_the_simt_kernel(dev, width, monkeypatch):
+    calls = _spy_forward_entries(monkeypatch)
+    torch.manual_seed(23)
+    field = NeRFField(8, width, 84, 27, 24, static=False).to(dev)
+    g = _gen(dev, 24)
+    pts, feats, views = (torch.randn((300, c), generator=g, device=dev)
+                         for c in (84, 24, 27))
+    with torch.no_grad():
+        out = fused_nerf_forward(field, pts, feats, views)
+        ref = field(pts, feats, views)
+    assert calls == {"zt_fused_nerf_forward": 1}
+    assert _max_err(out, ref) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("skips", [(4,), ()])
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_bf16_pack_kernel_matches_twin(dev, width, static, skips):
+    """K6's bf16 pack, made on the card from the float32 pack, equals its
+    twin bit for bit (the same rounding of the same values)."""
+    P, F = (63, 40) if static else (84, 24)
+    torch.manual_seed(25)
+    field = NeRFField(8, width, P, 27, F, skips=skips, static=static,
+                      bf16=True).to(dev)
+    with torch.no_grad():
+        pack, offsets = fused_mlp.pack_weights(field)
+    out = fused_mlp.pack_bf16(field, pack, offsets)
+    ref = fused_mlp.pack_bf16_plain(field, pack, offsets)[0]
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert torch.equal(out, ref)
 
 
 def test_wrappers_reject_what_the_kernels_cannot_take(dev):

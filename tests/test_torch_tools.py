@@ -27,6 +27,8 @@ def test_busy_union(intervals, busy):
     ("void at::native::CatArrayBatchedCopy<float>", "torch.cat copies"),
     ("void at::native::scatter_gather_elementwise_kernel",
      profile_eval.OTHER),
+    ("(anonymous namespace)::round_pack_tc_kernel(float const*, TcParams)",
+     "K6 bf16 weight pack"),
 ])
 def test_kernel_groups(name, group):
     assert profile_eval.group_of(name) == group
@@ -42,6 +44,8 @@ def test_refuses_without_cuda(monkeypatch):
     ("void row_scatter_add_kernel<__nv_bfloat16>(uint4 const*)",
      "K9 row gather backward (scatter-add)"),
     ("round_pack_kernel(float*, RParts)", "K6 / K7 bf16 weight rounding"),
+    ("(anonymous namespace)::round_pack_tc_kernel(float const*, TcParams)",
+     "K6 / K7 bf16 weight rounding"),
     ("void fused_nerf_bwd_kernel<256, true>(float const*)",
      "K7 field backward, pass 1"),
     ("void fused_nerf_kernel<256, true>(float const*)", "K6 fused field"),
@@ -55,3 +59,10 @@ def test_tools_refuse_without_cuda_at_either_precision(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tool.main(["--precision", "16"]) == 2
     assert tool.main() == 2
+
+
+@pytest.mark.parametrize("groups", [profile_eval.GROUPS, profile_train.GROUPS])
+def test_tensor_core_field_kernel_is_k6(groups):
+    name = "void (anonymous namespace)::fused_nerf_tc_kernel<256>(float const*)"
+    assert profile_eval.group_of(name, groups) == "K6 fused field"
+

@@ -14,6 +14,9 @@
 //   rgb = hv @ Wr + br
 // Output row: [rgb(3), alpha(1), extras].
 //
+// This file's forward is the float32 mode; the bf16-operand mode of K6 runs
+// on the tensor cores, in fused_mlp_tc.cu.
+//
 // Layout: a block of 4 warps takes 32 points; each warp owns 8 of them and
 // keeps their activations h and conditioning cond (then the feature layer)
 // in shared memory, with the warp's inputs beside them. A warp only ever
@@ -34,36 +37,28 @@
 // than four) halve the weight loads per FMA, and a k loop unrolled 16 deep
 // keeps enough of them in flight to cover L2 latency (on the card: 4 -> 16
 // took a field from 12.6 to 11.3 ms on 262,144 points); at width 256 that
-// takes ~135 registers and no spills. Tensor-core (mma / wgmma) tiles are
-// later work.
+// takes ~135 registers and no spills. The float32 mode on the tensor cores
+// (3xTF32 or split bf16) is later work.
 //
-// bf16-operand mode (zest_tpu's approx=True, the 16-bit precision path): a
-// compile-time mode of the same kernels. The products of the conditioning,
-// the trunk, the feature and the views layers take bf16-rounded operands
-// with float32 sums; the alpha, rgb and extra heads keep float32 operands.
-// The weights are rounded once per call into a copy of the pack
-// (round_pack_kernel); the activations are rounded as a product loads them,
-// so every buffer stays float32 and the heads read the same h unrounded. The
-// backward rounds the same operands, the incoming output gradients
-// included (zest_tpu/kernels/fused_mlp.py:115-215, 264-346).
+// bf16-operand mode of the backward (zest_tpu's approx=True, the 16-bit
+// precision path): a compile-time mode of K7's kernels. The products of the
+// conditioning, the trunk, the feature and the views layers take
+// bf16-rounded operands with float32 sums; the alpha, rgb and extra heads
+// keep float32 operands. The weights are rounded once per call into a copy
+// of the pack (round_pack_kernel); the activations are rounded as a product
+// loads them, so every buffer stays float32 and the heads read the same h
+// unrounded. The backward rounds the same operands, the incoming output
+// gradients included (zest_tpu/kernels/fused_mlp.py:115-215, 264-346).
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "fused_mlp.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kRows = 8;                       // points per warp
 constexpr int kTile = kWarps * kRows;          // points per block
-constexpr int kMaxLayers = 16;
-
-// slots of the offsets table (floats into the packed weight buffer); the
-// Python wrapper (kernels/fused_mlp.py) fills the same slots
-enum Slot {
-  kWb = 0, kBb = 1, kLayer0 = 2,               // layer i: W at 2+2i, b at 3+2i
-  kWa = kLayer0 + 2 * kMaxLayers, kBa, kWf, kBf, kWv, kBv, kWr, kBr,
-  kWx1, kBx1, kWx2, kBx2, kNumSlots
-};
 
 struct Params {
   const float* w;
@@ -233,7 +228,7 @@ int round_pack(const float* w, float* wr, long long len, const int* off, int P,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int WIDTH, bool kBf16>
+template <int WIDTH>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
                   const float* __restrict__ views, Params prm,
@@ -259,7 +254,7 @@ fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ feats
 
   float acc[kRows][NC];
   zero(acc);
-  dense<NC, kBf16>(acc, fin, F, F, w + prm.off[kWb], WIDTH, lane);
+  dense<NC>(acc, fin, F, F, w + prm.off[kWb], WIDTH, lane);
   epilogue<NC, false, false>(cond, WIDTH, acc, w + prm.off[kBb], nullptr, lane);
   __syncwarp();
 
@@ -268,13 +263,13 @@ fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ feats
     const float* bi = w + prm.off[kLayer0 + 2 * i + 1];
     zero(acc);
     if (i == 0) {
-      dense<NC, kBf16>(acc, xin, P, P, Wi, WIDTH, lane);
+      dense<NC>(acc, xin, P, P, Wi, WIDTH, lane);
     } else if (i == skip + 1) {        // input is [pts, h]
-      dense<NC, kBf16>(acc, xin, P, P, Wi, WIDTH, lane);
-      dense<NC, kBf16>(acc, h, WIDTH, WIDTH, Wi + static_cast<long long>(P) * WIDTH,
+      dense<NC>(acc, xin, P, P, Wi, WIDTH, lane);
+      dense<NC>(acc, h, WIDTH, WIDTH, Wi + static_cast<long long>(P) * WIDTH,
             WIDTH, lane);
     } else {
-      dense<NC, kBf16>(acc, h, WIDTH, WIDTH, Wi, WIDTH, lane);
+      dense<NC>(acc, h, WIDTH, WIDTH, Wi, WIDTH, lane);
     }
     __syncwarp();                      // every lane has read h
     epilogue<NC, true, true>(h, WIDTH, acc, bi, cond, lane);
@@ -309,7 +304,7 @@ fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ feats
 
   // feature layer (no activation) into the cond buffer, which is free now
   zero(acc);
-  dense<NC, kBf16>(acc, h, WIDTH, WIDTH, w + prm.off[kWf], WIDTH, lane);
+  dense<NC>(acc, h, WIDTH, WIDTH, w + prm.off[kWf], WIDTH, lane);
   epilogue<NC, false, false>(cond, WIDTH, acc, w + prm.off[kBf], nullptr, lane);
   __syncwarp();
 
@@ -317,8 +312,8 @@ fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ feats
   float accv[kRows][NCV];
   zero(accv);
   const float* Wv = w + prm.off[kWv];
-  dense<NCV, kBf16>(accv, cond, WIDTH, WIDTH, Wv, WIDTH / 2, lane);
-  dense<NCV, kBf16>(accv, vin, V, V, Wv + static_cast<long long>(WIDTH) * (WIDTH / 2),
+  dense<NCV>(accv, cond, WIDTH, WIDTH, Wv, WIDTH / 2, lane);
+  dense<NCV>(accv, vin, V, V, Wv + static_cast<long long>(WIDTH) * (WIDTH / 2),
         WIDTH / 2, lane);
   __syncwarp();
   epilogue<NCV, false, true>(h, WIDTH, accv, w + prm.off[kBv], nullptr, lane);
@@ -958,30 +953,19 @@ int launch_bwd(const float* pts, const float* feats, const float* views,
   return 0;
 }
 
-template <int WIDTH, bool kBf16>
+template <int WIDTH>
 int launch(const float* pts, const float* feats, const float* views,
            const Params& prm, float* out, long long n, int P, int F, int V,
            int depth, int skip, int n_extra, cudaStream_t stream) {
   const size_t smem = sizeof(float) * kTile * (2 * WIDTH + P + F + V);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_nerf_kernel<WIDTH, kBf16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      fused_nerf_kernel<WIDTH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned int blocks = static_cast<unsigned int>((n + kTile - 1) / kTile);
-  fused_nerf_kernel<WIDTH, kBf16><<<blocks, kWarps * 32, smem, stream>>>(
+  fused_nerf_kernel<WIDTH><<<blocks, kWarps * 32, smem, stream>>>(
       pts, feats, views, prm, out, n, P, F, V, depth, skip, n_extra);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int WIDTH>
-int launch_mode(bool bf16, const float* pts, const float* feats,
-                const float* views, const Params& prm, float* out, long long n,
-                int P, int F, int V, int depth, int skip, int n_extra,
-                cudaStream_t stream) {
-  return bf16 ? launch<WIDTH, true>(pts, feats, views, prm, out, n, P, F, V,
-                                    depth, skip, n_extra, stream)
-              : launch<WIDTH, false>(pts, feats, views, prm, out, n, P, F, V,
-                                     depth, skip, n_extra, stream);
 }
 
 template <int WIDTH>
@@ -1009,14 +993,12 @@ inline long long rounded_len(bool bf16, long long pack_len) {
 
 }  // namespace
 
-// wround: nullptr for the float32 mode; for the bf16-operand mode a buffer
-// of pack_len floats that receives the rounded pack
+// K6 in its float32 mode (the bf16-operand mode: fused_mlp_tc.cu)
 ZT_API int zt_fused_nerf_forward(const float* pts, const float* feats,
                                  const float* views, const float* wpack,
                                  const int* offsets, float* out, int n, int P,
                                  int F, int V, int width, int depth, int skip,
-                                 int n_extra, float* wround,
-                                 long long pack_len, void* stream) {
+                                 int n_extra, void* stream) {
   if (depth < 1 || depth > kMaxLayers || n_extra < 1 || n_extra > 2)
     return cudaErrorInvalidValue;
   if (n <= 0) return static_cast<int>(cudaGetLastError());
@@ -1024,23 +1006,16 @@ ZT_API int zt_fused_nerf_forward(const float* pts, const float* feats,
   prm.w = wpack;
   for (int s = 0; s < kNumSlots; ++s) prm.off[s] = offsets[s];
   auto st = static_cast<cudaStream_t>(stream);
-  const bool bf16 = wround != nullptr;
-  if (bf16) {
-    if (int err = round_pack(wpack, wround, pack_len, prm.off, P, F, V, width,
-                             depth, skip, st))
-      return err;
-    prm.w = wround;
-  }
   switch (width) {
     case 64:
-      return launch_mode<64>(bf16, pts, feats, views, prm, out, n, P, F, V,
-                             depth, skip, n_extra, st);
+      return launch<64>(pts, feats, views, prm, out, n, P, F, V, depth, skip,
+                        n_extra, st);
     case 128:
-      return launch_mode<128>(bf16, pts, feats, views, prm, out, n, P, F, V,
-                              depth, skip, n_extra, st);
+      return launch<128>(pts, feats, views, prm, out, n, P, F, V, depth, skip,
+                         n_extra, st);
     case 256:
-      return launch_mode<256>(bf16, pts, feats, views, prm, out, n, P, F, V,
-                              depth, skip, n_extra, st);
+      return launch<256>(pts, feats, views, prm, out, n, P, F, V, depth, skip,
+                         n_extra, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,0 +1,17 @@
+// The fused field's float32 weight pack: the slots of its offsets table
+// (floats into the pack), shared by fused_mlp.cu (K6 float32, K7) and
+// fused_mlp_tc.cu (K6 bf16, which reads the biases and the heads from it).
+// The Python wrapper (kernels/fused_mlp.py) fills the same slots.
+#pragma once
+
+namespace {
+
+constexpr int kMaxLayers = 16;
+
+enum Slot {
+  kWb = 0, kBb = 1, kLayer0 = 2,               // layer i: W at 2+2i, b at 3+2i
+  kWa = kLayer0 + 2 * kMaxLayers, kBa, kWf, kBf, kWv, kBv, kWr, kBr,
+  kWx1, kBx1, kWx2, kBx2, kNumSlots
+};
+
+}  // namespace

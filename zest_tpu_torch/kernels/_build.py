@@ -36,9 +36,19 @@ SIGNATURES = {
     # images, xy, out, V, N, H, W, stream
     "zt_color_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     # pts, feats, views, wpack, offsets(host int*), out,
-    # n, P, F, V, width, depth, skip, n_extra, wround, pack_len, stream
+    # n, P, F, V, width, depth, skip, n_extra, stream
     "zt_fused_nerf_forward": [_P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # wpack, offsets(host int*), wbf16, P, F, V, width, depth, skip, stream
+    "zt_fused_nerf_pack_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # P, F, V, width, depth, skip -> elements of the bf16 pack
+    "zt_fused_nerf_pack_tc_len": [_I, _I, _I, _I, _I, _I],
+    # pts, feats, views, wpack, offsets(host int*), wbf16, out,
+    # n, P, F, V, width, depth, skip, n_extra, stream
+    "zt_fused_nerf_forward_tc": [_P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # width, P, F, V -> bytes of dynamic shared memory per block
+    "zt_fused_nerf_forward_tc_smem": [_I, _I, _I, _I],
     # n, chunk, P, F, V, width, depth, skip, n_extra, bf16, pack_len,
     # floats (host long long*)
     "zt_fused_nerf_backward_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,

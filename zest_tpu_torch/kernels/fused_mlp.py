@@ -3,8 +3,9 @@ PyTorch twins.
 
 Replaces ``zest_tpu/kernels/fused_mlp.py:_fwd_pallas`` (K6, the forward
 ``pallas_call`` behind ``fused_nerf_apply``) and ``_bwd_pallas`` (K7, its
-custom VJP); both kernels are in ``csrc/fused_mlp.cu``. Every product of the
-field runs inside them. ``fused_nerf_forward`` is an autograd Function over
+custom VJP): both in ``csrc/fused_mlp.cu``, except K6's bf16-operand mode,
+which runs on the tensor cores in ``csrc/fused_mlp_tc.cu``. Every product of
+the field runs inside them. ``fused_nerf_forward`` is an autograd Function over
 (pts, feats, views, pack): ``pack_weights`` is a differentiable ``torch.cat``
 of every Linear's ``weight.T`` and bias, so the packed weight gradient of K7
 reaches each Linear. The twin is the port's ``models.nerf.NeRFField`` itself
@@ -13,7 +14,10 @@ and its autograd.
 A field built with ``bf16=True`` runs the kernels' bf16-operand mode
 (``zest_tpu``'s ``approx=True``): the kernels round the conditioning, trunk,
 feature and views products' operands to bf16 and keep float32 sums, float32
-biases and float32 heads, as the twin's ``bf16`` mode does.
+biases and float32 heads, as the twin's ``bf16`` mode does. The forward's
+bf16 weights are made from the float32 pack on the card by one launch on
+every call (``pack_bf16``); the autograd Function saves the float32 pack for
+K7.
 """
 from __future__ import annotations
 
@@ -24,10 +28,10 @@ import torch
 from . import _build
 
 WIDTHS = (64, 128, 256)          # kernel instantiations
-MAX_LAYERS = 16                  # kMaxLayers in csrc/fused_mlp.cu
+MAX_LAYERS = 16                  # kMaxLayers in csrc/fused_mlp.cuh
 MAX_NARROW = 96                  # 32 * kNarrow: widest pts / feats / views
 SMEM_LIMIT = 232448              # bytes of shared memory a block may opt into
-# offsets-table slots, as the Slot enum in csrc/fused_mlp.cu numbers them
+# offsets-table slots, as the Slot enum in csrc/fused_mlp.cuh numbers them
 _WB, _LAYER0 = 0, 2
 _WA = _LAYER0 + 2 * MAX_LAYERS
 _WF, _WV, _WR, _WX1, _WX2 = _WA + 2, _WA + 4, _WA + 6, _WA + 8, _WA + 10
@@ -93,6 +97,70 @@ def pack_leaves(field, pack, offsets):
     return leaves
 
 
+def bf16_layout(field):
+    """The bf16-operand matrices in the order K6's tensor-core kernel runs
+    them: [(Linear, K parts)], each part a width of the Linear's input whose
+    columns are zero padded to a multiple of 16 (the mma depth): the
+    conditioning, the trunk (the layer after a skip reads [pts, h]), the
+    feature layer and the views layer ([feature, views])."""
+    P, V, W = field.in_ch_pts, field.in_ch_views, field.width
+    mats = [(field.pts_bias, [field.in_ch_feat])]
+    mats += [(lin, [P] if i == 0 else [P, W] if i - 1 in field.skips else [W])
+             for i, lin in enumerate(field.pts_linears)]
+    return mats + [(field.feature_linear, [W]),
+                   (field.views_linears[0], [W, V])]
+
+
+def _pad16(k):
+    return -(-k // 16) * 16
+
+
+@torch.no_grad()
+def pack_bf16_plain(field, pack, offsets):
+    """Twin of the bf16 pack kernel (``round_pack_tc_kernel``): every matrix
+    of ``bf16_layout``, read from the float32 ``pack`` (``pack_weights``'
+    layout), as ``nn.Linear`` stores it, [out][in] (K-contiguous, the B
+    operand of ``mma .row.col``), rounded to bf16, each K part zero padded
+    to a multiple of 16, the matrices back to back. Returns (pack, offsets):
+    a flat bf16 tensor on the pack's device and each matrix's first
+    element."""
+    weights = {id(lin): pack[offsets[slot]:offsets[slot] + lin.weight.numel()]
+               .view(lin.in_features, lin.out_features).T
+               for slot, lin in _slots(field)}
+    parts, moff, cur = [], [], 0
+    for lin, widths in bf16_layout(field):
+        w = weights[id(lin)].to(torch.bfloat16)
+        mat = torch.cat([torch.nn.functional.pad(c, (0, _pad16(c.shape[1])
+                                                     - c.shape[1]))
+                         for c in torch.split(w, widths, dim=1)], 1)
+        moff.append(cur)
+        parts.append(mat.reshape(-1))
+        cur += mat.numel()
+    return torch.cat(parts), moff
+
+
+def _geometry(field):
+    return (field.in_ch_pts, field.in_ch_feat, field.in_ch_views, field.width,
+            len(field.pts_linears), field.skips[0] if field.skips else -2)
+
+
+def pack_bf16(field, pack, offsets):
+    """K6's bf16 pack from the float32 ``pack`` (``pack_weights``): a flat
+    bf16 tensor in ``pack_bf16_plain``'s layout. CPU tensors take the twin;
+    CUDA tensors launch ``round_pack_tc_kernel`` (one launch) or raise."""
+    if pack.device.type == "cpu":
+        return pack_bf16_plain(field, pack, offsets)[0]
+    lib = _build.library()
+    length = lib.zt_fused_nerf_pack_tc_len(*_geometry(field))
+    if length < 0:
+        raise ValueError(f"pack_bf16: no bf16 pack for {_geometry(field)}")
+    wb = torch.empty(length, device=pack.device, dtype=torch.bfloat16)
+    _build.check(lib.zt_fused_nerf_pack_tc(
+        pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets), wb.data_ptr(),
+        *_geometry(field), _build.stream_ptr(pack)), "pack_bf16")
+    return wb
+
+
 def _check(name, field, pts, feats, views, extra_smem=0):
     P, F, V = field.in_ch_pts, field.in_ch_feat, field.in_ch_views
     if field.width not in WIDTHS:
@@ -112,18 +180,21 @@ def _check(name, field, pts, feats, views, extra_smem=0):
 
 
 def _launch_forward(field, pts, feats, views, pack, offsets):
-    """K6 on [n, ch] contiguous inputs → [n, out_ch]."""
-    n, P = pts.shape
+    """K6 on [n, ch] contiguous inputs → [n, out_ch]: the SIMT kernel at
+    float32, the tensor-core kernel in the bf16-operand mode."""
+    n = pts.shape[0]
     out = torch.empty((n, field.out_ch), device=pts.device, dtype=torch.float32)
-    # the bf16 mode's rounded copy of the pack
-    wround = torch.empty_like(pack) if field.bf16 else None
-    err = _build.library().zt_fused_nerf_forward(
-        pts.data_ptr(), feats.data_ptr(), views.data_ptr(), pack.data_ptr(),
-        (ctypes.c_int * _N_SLOTS)(*offsets), out.data_ptr(), n, P,
-        field.in_ch_feat, field.in_ch_views, field.width,
-        len(field.pts_linears), field.skips[0] if field.skips else -2,
-        1 if field.static else 2, None if wround is None else wround.data_ptr(),
-        pack.numel(), _build.stream_ptr(pts))
+    lib = _build.library()
+    inputs = (pts.data_ptr(), feats.data_ptr(), views.data_ptr(),
+              pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets))
+    shape = (n, *_geometry(field), 1 if field.static else 2,
+             _build.stream_ptr(pts))
+    if field.bf16:
+        wb = pack_bf16(field, pack, offsets)
+        err = lib.zt_fused_nerf_forward_tc(*inputs, wb.data_ptr(),
+                                           out.data_ptr(), *shape)
+    else:
+        err = lib.zt_fused_nerf_forward(*inputs, out.data_ptr(), *shape)
     _build.check(err, "fused_nerf_forward")
     fused_nerf_forward.launches += 1
     return out
