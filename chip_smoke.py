@@ -42,8 +42,12 @@ sm_90a), then:
    of the field kernels K6 (the tensor-core kernel: its SASS must hold
    HMMA; its TFLOP/s beside one bf16 ``torch.matmul`` of a trunk layer's
    shape, timed only; its bf16 weight pack bit for bit) at the flagship's
-   eval chunk and training passes, and K7 at the training passes, against
-   their twins; K9's backward is timed against the same
+   eval chunk and training passes, and K7 (the tensor-core passes 1 and 2,
+   whose SASS must hold HMMA; its TFLOP/s; its backward weight pack bit for
+   bit; pass 1's recomputed output rows bit for bit equal to K6's; held to
+   the twin's backward at the forward values it ran at, its distance to the
+   twin's autograd logged) at the training passes, against their twins;
+   K9's backward is timed against the same
    work by the library (zeros, ``index_add_``, one rounding) and, on a line
    of its own, its bare launch against bare ``index_add_``;
 10. runs the small eval and training step at 16 bits on CUDA and on the CPU
@@ -108,10 +112,13 @@ def build() -> None:
     for line in _build.build_info.get("ptxas", "").splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log("[build] " + line.strip())
-    smem = _build.library().zt_fused_nerf_forward_tc_smem
-    log(f"[build] fused_nerf_tc_kernel<256> dynamic shared memory per block: "
-        f"static field {smem(256, 63, 40, 27)} bytes, dynamic field "
-        f"{smem(256, 84, 24, 27)} bytes (one block per SM)")
+    lib = _build.library()
+    for kernel, smem in (("fused_nerf_tc_kernel", lib.zt_fused_nerf_forward_tc_smem),
+                         ("fused_nerf_bwd_tc_kernel",
+                          lib.zt_fused_nerf_backward_tc_smem)):
+        log(f"[build] {kernel}<256> dynamic shared memory per block: static "
+            f"field {smem(256, 63, 40, 27)} bytes, dynamic field "
+            f"{smem(256, 84, 24, 27)} bytes (one block per SM)")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -224,11 +231,14 @@ class Rows:
 
     def check(self, name, source, replaces, counter, kern, plain, library,
               tol, iters, moved_bytes, flops, relative=False, flops_bf16=0,
-              paths=("eval", "train")):
+              paths=("eval", "train"), held=None):
         """``verify``, then time kern, plain and library; flops count
         float32 operations, flops_bf16 those on bf16 operands; paths names
-        the runs whose launches the row reports (eval first)."""
-        err, shapes = self.verify(name, kern, plain, tol, relative)
+        the runs whose launches the row reports (eval first); held, if
+        given, is the (kernel, plain) pair that ``verify`` holds instead
+        of (kern, plain)."""
+        err, shapes = self.verify(name, *(held or (kern, plain)), tol,
+                                  relative)
         with torch.no_grad():
             ms = cuda_ms(kern, iters)
             plain_ms = cuda_ms(plain, iters)
@@ -306,40 +316,6 @@ def chunk_inputs(system, batch):
                                                    kw["ref_frame_idx"])}
 
 
-def step_inputs(system, batch, cfg, gen):
-    """The flagship training step's step-0 rays (drawn from gen), the
-    stacked t±1 points and the three field passes' inputs (field, inputs)
-    by label, as ``render_rays_train`` builds them."""
-    from zest_tpu_torch import render, sampling
-    from zest_tpu_torch.kernels import fused_mlp
-    from zest_tpu_torch.system import phase_for_step
-    phase = phase_for_step(cfg, 0)
-    draws = sampling.sample_draws(gen, cfg, cfg.img_h, cfg.img_w,
-                                  int(batch["motion_count"]), phase.extra_samples)
-    with torch.no_grad():
-        models = system.render_models(batch)
-        rays = system.train_rays(batch, draws, phase)
-        kw = system.render_kwargs(batch)
-        st_in = render.static_field_inputs(models, rays, kw["im_w2c_ref"])
-        dy_in = render.dynamic_field_inputs(models, rays, kw["nb_w2c_ref"],
-                                            kw["ref_frame_idx"])
-        raw_dy = fused_mlp.fused_nerf_forward(system.nerf_dynamic, *dy_in)
-        warped = torch.cat([rays.ndc + raw_dy[..., 4:7],
-                            rays.ndc + raw_dy[..., 7:10]]).contiguous()
-        dt = 2.0 / batch["total_frames"]
-        ones = torch.ones_like(rays.ndc[..., :1])
-        t_pp = torch.cat([ones * (kw["ref_frame_idx"] - dt),
-                          ones * (kw["ref_frame_idx"] + dt)])
-        col = dy_in[1][..., 8:]
-        pp_in = render._dynamic_inputs(models, warped, t_pp,
-                                       torch.cat([col, col]),
-                                       torch.cat([dy_in[2], dy_in[2]]),
-                                       warped=True)
-    return rays, warped, {"static": (system.nerf_static, st_in),
-                          "dynamic": (system.nerf_dynamic, dy_in),
-                          "t-1 / t+1": (system.nerf_dynamic, pp_in)}
-
-
 def check_field_forward(rows, name, system, field_inputs, tol, paths,
                         source="zest_tpu_torch/csrc/fused_mlp.cu"):
     """K6 on both fields' chunk inputs; the twin is the field module itself;
@@ -358,16 +334,31 @@ def check_field_forward(rows, name, system, field_inputs, tol, paths,
                    f32_ops, flops_bf16=bf16_ops, paths=paths)
 
 
-def check_field_backward(rows, name, passes, gen, tol, paths):
+def check_field_backward(rows, name, passes, gen, tol, paths,
+                         source="zest_tpu_torch/csrc/fused_mlp.cu"):
     """K7 on the step's field passes against autograd through the twin, with
     a random output gradient; d_pack is held leaf by leaf, each weight and
-    bias to tol of its own largest element."""
+    bias to tol of its own largest element. The bf16 mode takes its gradient
+    at K6's forward, whose float32 sums are the tensor cores': it is held to
+    the twin's backward at the forward values it ran at (one chunk), and its
+    distance to the twin's autograd (where a ReLU input within rounding
+    noise of zero takes the other branch) is logged; the time is the
+    default chunks' against the twin's autograd."""
     from zest_tpu_torch.kernels import fused_mlp
 
     def leafwise(field, offsets, grads):
         d_pts, d_feats, d_views, d_pack = grads
         return (d_pts, d_feats, d_views,
                 *(t for _, t in fused_mlp.pack_leaves(field, d_pack, offsets)))
+
+    def at_its_forward(field, flat, g, pack, offsets):
+        """(K7 in one chunk keeping its forward values, the twin's backward
+        at those values), each as leafwise tensors"""
+        saved = {}
+        got = fused_mlp.fused_nerf_backward(field, *flat, g, pack, offsets,
+                                            saved=saved)
+        ref = fused_mlp.fused_nerf_backward_at_plain(field, saved, *flat, g)
+        return leafwise(field, offsets, got), leafwise(field, offsets, ref)
 
     for label, (field, inputs) in passes.items():
         flat = [t.reshape(-1, t.shape[-1]).contiguous() for t in inputs]
@@ -377,16 +368,31 @@ def check_field_backward(rows, name, passes, gen, tol, paths):
             pack, offsets = fused_mlp.pack_weights(field)
         f32_ops, bf16_ops = field_ops(field, n, 3)
         log(f"[backward] {name} {label}: {n} points")
-        rows.check(name, "zest_tpu_torch/csrc/fused_mlp.cu",
+        kern = lambda: leafwise(field, offsets, fused_mlp.fused_nerf_backward(
+            field, *flat, g, pack, offsets))
+        plain = lambda: leafwise(field, offsets,
+                                 fused_mlp.fused_nerf_backward_plain(
+                                     field, *flat, g))
+        held = None
+        if field.bf16:
+            with torch.no_grad():
+                pair = at_its_forward(field, flat, g, pack, offsets)
+            held = (lambda: pair[0], lambda: pair[1])
+            worst, flipped = 0.0, 0
+            for a, b in zip(pair[0][:3], plain()[:3]):
+                row = (a - b).abs().amax(1) / float(b.abs().max())
+                worst = max(worst, float(row.max()))
+                flipped += int((row > tol).sum())
+            log(f"[backward] {name} {label}: against the twin's autograd, "
+                f"largest error {worst:.3e} of the largest gradient; rows "
+                f"beyond {tol:g}: {flipped} (their ReLU inputs lie within "
+                f"rounding noise of zero)")
+        rows.check(name, source,
                    "zest_tpu/kernels/fused_mlp.py:398", "fused_nerf_backward",
-                   lambda: leafwise(field, offsets, fused_mlp.fused_nerf_backward(
-                       field, *flat, g, pack, offsets)),
-                   lambda: leafwise(field, offsets,
-                                    fused_mlp.fused_nerf_backward_plain(
-                                        field, *flat, g)),
-                   None, tol, 2,
+                   kern, plain, None, tol, 2,
                    2 * nbytes(*flat) + nbytes(g) + 2 * nbytes(pack), f32_ops,
-                   relative=True, flops_bf16=bf16_ops, paths=paths)
+                   relative=True, flops_bf16=bf16_ops, paths=paths, held=held)
+        del held
         field.zero_grad(set_to_none=True)
 
 
@@ -553,6 +559,7 @@ def backward_kernels(rows, dev, cfg, system, batch):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     near_far = batch["near_fars"][0]
+    from zest_tpu_torch.tools.field_grad_census import step_inputs
     rays, warped, passes = step_inputs(system, batch, cfg, gen)
     with torch.no_grad():
         static_vol, _, _ = system.enc_static(batch["images"][:-1],
@@ -803,12 +810,16 @@ def bf16_kernels(rows, dev, cfg, system, batch):
 
     paths = ("eval16", "train16")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    # K6's bf16 mode is the tensor-core kernel: its SASS must hold mma
-    mma = sass_has_mma("fused_nerf_tc_kernel")
-    log(f"[bf16] tensor-core instructions (HMMA / HGMMA) per instantiation "
-        f"of fused_nerf_tc_kernel: {sorted(mma.values())}")
-    if len(mma) != 3 or min(mma.values()) == 0:
-        raise AssertionError(f"fused_nerf_tc_kernel without HMMA: {mma}")
+    # the bf16 modes of K6 and K7 (pass 1 per width, pass 2) are the
+    # tensor-core kernels: their SASS must hold mma
+    for symbol, count in (("fused_nerf_tc_kernel", 3),
+                          ("fused_nerf_bwd_tc_kernel", 3),
+                          ("wgrad_tc_kernel", 1)):
+        mma = sass_has_mma(symbol)
+        log(f"[bf16] tensor-core instructions (HMMA / HGMMA) per "
+            f"instantiation of {symbol}: {sorted(mma.values())}")
+        if len(mma) != count or min(mma.values()) == 0:
+            raise AssertionError(f"{symbol} without HMMA: {mma}")
     field_inputs = chunk_inputs(system, batch)[1]
     check_field_forward(rows, "fused_nerf_bf16", system, field_inputs,
                         BF16_FIELD_TOL, paths,
@@ -825,10 +836,11 @@ def bf16_kernels(rows, dev, cfg, system, batch):
         f"TFLOP/s (timed only)")
     del a, b, field_inputs
 
+    from zest_tpu_torch.tools.field_grad_census import step_inputs
     _, warped, passes = step_inputs(system, batch, cfg, gen)
     # K6 bf16 on the step's three field passes too (held, not timed: the
-    # row's time is the eval chunk's), and its bf16 weight pack, made on the
-    # card, against the pack's twin bit for bit
+    # row's time is the eval chunk's), and the bf16 weight packs of K6 and
+    # K7, made on the card, against their twins bit for bit
     for label, (field, inputs) in passes.items():
         err, shapes = rows.verify(
             "fused_nerf_bf16",
@@ -838,21 +850,46 @@ def bf16_kernels(rows, dev, cfg, system, batch):
             f"max_abs_err {err:.3e} (tol {BF16_FIELD_TOL:g}) -> ok")
     for kind in ("static", "dynamic"):
         field = getattr(system, f"nerf_{kind}")
-        with torch.no_grad():
-            pack, offsets = fused_mlp.pack_weights(field)
-            wb = fused_mlp.pack_bf16(field, pack, offsets)
-            same = torch.equal(wb, fused_mlp.pack_bf16_plain(field, pack,
-                                                             offsets)[0])
-        if not same:
-            raise AssertionError(f"K6's bf16 pack of the {kind} field "
-                                 f"differs from its twin")
-        log(f"[bf16] K6's bf16 weight pack, {kind} field: {wb.numel()} "
-            f"elements, equal to its twin")
+        for kernel, make, plain in (
+                ("K6", fused_mlp.pack_bf16, fused_mlp.pack_bf16_plain),
+                ("K7", fused_mlp.pack_bf16_bwd, fused_mlp.pack_bf16_bwd_plain)):
+            with torch.no_grad():
+                pack, offsets = fused_mlp.pack_weights(field)
+                wb = make(field, pack, offsets)
+                same = torch.equal(wb, plain(field, pack, offsets)[0])
+            if not same:
+                raise AssertionError(f"{kernel}'s bf16 pack of the {kind} "
+                                     f"field differs from its twin")
+            log(f"[bf16] {kernel}'s bf16 weight pack, {kind} field: "
+                f"{wb.numel()} elements, equal to its twin")
     with torch.no_grad():
         dyn_vol, _, _ = system.enc_dy(batch["nb_imgs"], batch["nb_proj_mats"],
                                       batch["near_fars"][0], pad=cfg.pad)
     check_field_backward(rows, "fused_nerf_backward_bf16", passes, gen,
-                         BF16_FIELD_GRAD_TOL, paths)
+                         BF16_FIELD_GRAD_TOL, paths,
+                         "zest_tpu_torch/csrc/fused_mlp_tc_bwd.cu")
+    row = rows.rows["fused_nerf_backward_bf16"]
+    log(f"[bf16] K7 bf16 on the step's three passes: {row['ms']:.3f} ms, "
+        f"{row['flops_bf16'] / row['ms'] / 1e9:.1f} TFLOP/s of bf16 products;"
+        f" its twin (autograd through cuBLAS) {row['plain_ms']:.3f} ms")
+    # K7's pass 1 recomputes K6's output rows bit for bit (the same device
+    # code on the same bf16 pack)
+    for label, (field, inputs) in passes.items():
+        flat = [t.reshape(-1, t.shape[-1]).contiguous() for t in inputs]
+        g = torch.randn((flat[0].shape[0], field.out_ch), generator=gen,
+                        device=dev)
+        with torch.no_grad():
+            pack, offsets = fused_mlp.pack_weights(field)
+            out = fused_mlp.fused_nerf_forward(field, *flat)
+        again = torch.full_like(out, float("nan"))
+        fused_mlp.fused_nerf_backward(field, *flat, g, pack, offsets,
+                                      recomputed=again)
+        if not torch.equal(again, out):
+            raise AssertionError(f"K7's recomputed rows on {label} differ "
+                                 f"from K6's output")
+        log(f"[bf16] K7's recompute on the training pass {label}: "
+            f"{out.shape[0]} rows equal to K6's output bit for bit")
+        del g, out, again
 
     # K9 at the t±1 points: 8 corner rows each of the bf16 dynamic volume.
     # Bytes: the distinct rows the indices touch (16 each), the indices, the

@@ -13,6 +13,34 @@ matrices back to back in ``bf16_layout``'s order.
   heads) agrees with ``zest_tpu``'s ``fused_nerf_apply(..., approx=True)``
   (Pallas, interpret mode) on the same weights as the twin does: rtol 1e-4,
   atol 1e-5 (both round the same operands; the sums differ only in order).
+
+K7's backward pack (``csrc/fused_mlp_tc_bwd.cu``), the B operand of its
+input-gradient products d_x = d_z @ W: ``pack_bf16_bwd_plain``, the twin of
+its pack kernel, lays out the rows of each Linear's ``weight.T`` ([in][out],
+the float32 pack's own layout) that one product reads, rounded to bf16, in
+``bf16_bwd_layout``'s order.
+
+- Every matrix read back from it equals the rounded rows of ``weight.T``,
+  bit for bit, and it is made from the float32 pack it is given.
+- The gradients computed from both packs as K7's bf16 mode computes them
+  (every product with bf16 operands and float32 sums, d_z rounded as an
+  operand, the bias gradients summed from the float32 d_z, cond, z, the
+  masks and the heads in float32) agree with the VJP of ``zest_tpu``'s
+  ``fused_nerf_apply(..., approx=True)`` (Pallas, interpret mode) on the same
+  weights: every input gradient and every weight and bias gradient to 1e-3
+  of its own largest, as the twin is held (a float32 sum in another order
+  can flip the bf16 rounding of one activation).
+- The bf16 twin's backward evaluated at given forward values
+  (``fused_nerf_backward_at_plain``, the plain version the card holds K7's
+  bf16 mode to, at the values K7 ran at), given the twin's own forward
+  values (``forward_values_plain``), equals the twin's autograd, both in
+  float64, to 1e-9 of each input's and each leaf's largest gradient (the
+  same products; autograd adds some sums, cond's eight gradients among
+  them, in another order).
+- The wrapper routes the bf16 mode to the tensor-core entry
+  (``zt_fused_nerf_backward_tc``), with the forward's bf16 pack when it is
+  given, and the float32 mode to the SIMT entry (checked with meta tensors
+  and a stand-in for the kernel library, which does not exist on the CPU).
 """
 import jax
 import jax.numpy as jnp
@@ -25,8 +53,12 @@ from zest_tpu.kernels.fused_mlp import fused_nerf_apply
 from zest_tpu.models.nerf import NeRFField as JNeRFField
 
 from zest_tpu_torch.convert import from_jax_params
-from zest_tpu_torch.kernels.fused_mlp import (bf16_layout, pack_bf16,
-                                              pack_bf16_plain, pack_weights)
+from zest_tpu_torch.kernels import _build, fused_mlp
+from zest_tpu_torch.kernels.fused_mlp import (
+    bf16_bwd_layout, bf16_layout, forward_values_plain,
+    fused_nerf_backward_at_plain, fused_nerf_backward_plain, pack_bf16,
+    pack_bf16_bwd, pack_bf16_bwd_plain, pack_bf16_plain, pack_leaves,
+    pack_weights)
 from zest_tpu_torch.models.nerf import NeRFField, round_bf16
 
 # (P, F, V) of the static (xyz) and dynamic (xyzt) fields at multires 10 / 4
@@ -147,3 +179,232 @@ def test_pack_field_matches_approx_kernel(static):
     with torch.no_grad():
         out = _field_from_pack(field, *map(torch.from_numpy, inputs))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+def _bwd_matrices(field, scale=1.0):
+    """[(Linear, first input row, the matrix read back [rows][out])] of the
+    backward pack made from the float32 pack times scale"""
+    with torch.no_grad():
+        f32, f32_offsets = pack_weights(field)
+    pack, offsets = pack_bf16_bwd_plain(field, f32 * scale, f32_offsets)
+    assert pack.dtype == torch.bfloat16 and pack.dim() == 1
+    mats, end = [], 0
+    for (lin, r0, rows), off in zip(bf16_bwd_layout(field), offsets):
+        assert off == end                     # back to back, stream order
+        end = off + rows * lin.out_features
+        mats.append((lin, r0, pack[off:end].view(rows, lin.out_features)))
+    assert end == pack.numel()
+    return mats
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("skips", [(4,), ()])
+def test_bwd_pack_reads_back_rounded_weights(width, static, skips):
+    P, F_, V = LAYOUTS[static]
+    torch.manual_seed(7)
+    field = NeRFField(8, width, P, V, F_, skips=skips, static=static,
+                      bf16=True)
+    mats = _bwd_matrices(field)
+    views = field.views_linears[0]
+    trunk = []
+    for i in reversed(range(8)):
+        lin = field.pts_linears[i]
+        trunk += ([(lin, 0, P), (lin, P, width)] if i and i - 1 in skips
+                  else [(lin, 0, P if i == 0 else width)])
+    want = [(views, width, V), (views, 0, width),
+            (field.feature_linear, 0, width), *trunk, (field.pts_bias, 0, F_)]
+    assert [(lin, r0, m.shape[0]) for lin, r0, m in mats] == want
+    for lin, r0, mat in mats:
+        ref = round_bf16(lin.weight.T[r0:r0 + mat.shape[0]]).detach()
+        assert torch.equal(mat.float(), ref)
+
+
+@pytest.mark.parametrize("static", [True, False])
+def test_bwd_pack_is_made_from_the_float32_pack(static):
+    P, F_, V = LAYOUTS[static]
+    torch.manual_seed(8)
+    field = NeRFField(8, 64, P, V, F_, static=static, bf16=True)
+    for lin, r0, mat in _bwd_matrices(field, scale=2.0):
+        ref = round_bf16(2.0 * lin.weight.T[r0:r0 + mat.shape[0]]).detach()
+        assert torch.equal(mat.float(), ref)
+    with torch.no_grad():
+        f32, offsets = pack_weights(field)
+    assert torch.equal(pack_bf16_bwd(field, f32, offsets),
+                       pack_bf16_bwd_plain(field, f32, offsets)[0])
+
+
+def _grads_from_packs(field, pts, feats, views, g):
+    """The field's gradients as K7's bf16 mode computes them from K6's pack
+    (the forward recompute) and the backward pack (the input gradients):
+    (d_pts, d_feats, d_views, {parameter name: gradient})."""
+    fwd = [m.float() for _, _, m in _matrices(field)]
+    bwd = iter([m.float() for _, _, m in _bwd_matrices(field)])
+    depth, skips = len(field.pts_linears), field.skips
+
+    def rcat(*xs):
+        return torch.cat([F.pad(round_bf16(x), (0, _pad16(x.shape[-1])
+                                                - x.shape[-1])) for x in xs], -1)
+
+    def mm(i, lin, *xs):
+        return rcat(*xs) @ fwd[i].T + lin.bias
+
+    def d_in(d):                          # d_z @ W with bf16 operands
+        return round_bf16(d) @ next(bwd).T
+
+    grads = {}
+
+    def wgrad(lin, d, *xs, bf16=True):
+        x = torch.cat(xs, -1)
+        grads[lin] = ((round_bf16(d).T @ round_bf16(x)) if bf16 else d.T @ x,
+                      d.sum(0))
+
+    cond = mm(0, field.pts_bias, feats)
+    h, zs, ins = pts, [], []
+    for i, lin in enumerate(field.pts_linears):
+        ins.append((pts,) if i == 0 else (pts, h) if i - 1 in skips else (h,))
+        zs.append(mm(1 + i, lin, *ins[-1]))
+        h = torch.relu(zs[-1] * cond)
+    if field.static:
+        heads = [(field.w_linear, torch.sigmoid)]
+    else:
+        heads = [(field.sf_linear, torch.tanh),
+                 (field.prob_linear, torch.sigmoid)]
+    feature = mm(depth + 1, field.feature_linear, h)
+    hv = torch.relu(mm(depth + 2, field.views_linears[0], feature, views))
+
+    g_rgb, g_alpha, col = g[:, :3], g[:, 3:4], 4
+    d_h = g_alpha @ field.alpha_linear.weight
+    wgrad(field.alpha_linear, g_alpha, h, bf16=False)
+    for lin, act in heads:
+        e = act(lin(h))
+        ge = g[:, col:col + lin.out_features]
+        ge = ge * (e * (1 - e) if act is torch.sigmoid else 1 - e * e)
+        col += lin.out_features
+        d_h = d_h + ge @ lin.weight
+        wgrad(lin, ge, h, bf16=False)
+    wgrad(field.rgb_linear, g_rgb, hv, bf16=False)
+    d_hv = (g_rgb @ field.rgb_linear.weight) * (hv > 0)
+    d_views = d_in(d_hv)
+    d_feature = d_in(d_hv)
+    wgrad(field.views_linears[0], d_hv, feature, views)
+    d_h = d_h + d_in(d_feature)
+    wgrad(field.feature_linear, d_feature, h)
+    d_cond = torch.zeros_like(cond)
+    d_pts = torch.zeros_like(pts)
+    for i in reversed(range(depth)):
+        z = zs[i]
+        d_a = d_h * (z * cond > 0)
+        d_cond = d_cond + d_a * z
+        d_z = d_a * cond
+        wgrad(field.pts_linears[i], d_z, *ins[i])
+        if i == 0 or i - 1 in skips:
+            d_pts = d_pts + d_in(d_z)
+        if i > 0:
+            d_h = d_in(d_z)
+    d_feats = d_in(d_cond)
+    wgrad(field.pts_bias, d_cond, feats)
+    assert next(bwd, None) is None
+    names = {id(m): n for n, m in field.named_modules()}
+    out = {}
+    for lin, (dw, db) in grads.items():
+        out[f"{names[id(lin)]}.weight"], out[f"{names[id(lin)]}.bias"] = dw, db
+    return d_pts, d_feats, d_views, out
+
+
+@pytest.mark.parametrize("static", [True, False])
+def test_pack_gradients_match_approx_kernel(static):
+    P, F_, V = LAYOUTS[static]
+    jfield = JNeRFField(depth=8, width=64, in_ch_pts=P, in_ch_views=V,
+                        in_ch_feat=F_, sceneflow=True, static=static,
+                        use_mvs=True)
+    variables = jax.tree.map(np.asarray, jfield.init(
+        jax.random.PRNGKey(9), jnp.zeros((1, P)), jnp.zeros((1, F_)),
+        jnp.zeros((1, V))))
+    field = NeRFField(8, 64, P, V, F_, static=static, bf16=True)
+    sd = from_jax_params({"nerf_static": variables})
+    field.load_state_dict({k[len("nerf_static."):]: v for k, v in sd.items()
+                           if k.startswith("nerf_static.")})
+    rng = np.random.default_rng(10 if static else 11)
+    inputs = [rng.normal(size=(300, c)).astype(np.float32) for c in (P, F_, V)]
+    g = rng.normal(size=(300, field.out_ch)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v, *x: fused_nerf_apply(jfield, v, *x, approx=True),
+                     variables, *map(jnp.asarray, inputs))
+    d_vars, *d_ins = vjp(jnp.asarray(g))
+    with torch.no_grad():
+        *got, leaves = _grads_from_packs(field, *map(torch.from_numpy, inputs),
+                                         torch.from_numpy(g))
+    for name, a, b in zip(("pts", "feats", "views"), got, d_ins):
+        b = np.asarray(b)
+        assert np.abs(a.numpy() - b).max() <= 1e-3 * np.abs(b).max(), name
+    ref = from_jax_params({"nerf_static": jax.tree.map(np.asarray, d_vars)})
+    assert set(leaves) == {n for n, _ in field.named_parameters()}
+    for name, a in leaves.items():
+        b = ref[f"nerf_static.{name}"].numpy()
+        assert np.abs(a.numpy() - b).max() <= 1e-3 * np.abs(b).max(), name
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("skips", [(4,), ()])
+def test_backward_at_forward_values_matches_autograd(width, static, skips):
+    P, F_, V = LAYOUTS[static]
+    torch.manual_seed(12)
+    field = NeRFField(8, width, P, V, F_, skips=skips, static=static,
+                      bf16=True).double()
+    rng = np.random.default_rng(13)
+    pts, feats, views, g = (torch.from_numpy(rng.normal(size=(200, c)))
+                            for c in (P, F_, V, field.out_ch))
+    saved = forward_values_plain(field, pts, feats, views)
+    assert len(saved["z"]) == 8 and saved["feature"].dtype == torch.bfloat16
+    got = fused_nerf_backward_at_plain(field, saved, pts, feats, views, g)
+    ref = fused_nerf_backward_plain(field, pts, feats, views, g)
+    for name, a, b in zip(("d_pts", "d_feats", "d_views"), got, ref):
+        assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max()), name
+    _, offsets = pack_weights(field)
+    for (name, a), (_, b) in zip(pack_leaves(field, got[3], offsets),
+                                 pack_leaves(field, ref[3], offsets)):
+        assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max()), name
+
+
+class _Library:
+    """Stands in for the kernel library: records each C entry called and
+    returns 0 (success, and a zero length or size)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("bf16,give_wb", [(True, False), (True, True),
+                                          (False, False)])
+def test_backward_routes_by_mode(bf16, give_wb, monkeypatch):
+    lib = _Library()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_build, "require_cuda_f32", lambda *args: None)
+    P, F_, V = LAYOUTS[False]
+    field = NeRFField(8, 64, P, V, F_, static=False, bf16=bf16)
+    with torch.no_grad():
+        pack, offsets = pack_weights(field)
+    n = 100
+    pts, feats, views, g = (torch.empty((n, c), device="meta")
+                            for c in (P, F_, V, field.out_ch))
+    wb = torch.empty(3, device="meta", dtype=torch.bfloat16) if give_wb else None
+    grads = fused_mlp.fused_nerf_backward(field, pts, feats, views, g,
+                                          pack.to("meta"), offsets, wb)
+    assert [t.shape for t in grads] == [pts.shape, feats.shape, views.shape,
+                                        pack.shape]
+    if bf16:
+        want = ([] if give_wb else ["zt_fused_nerf_pack_tc_len",
+                                    "zt_fused_nerf_pack_tc"])
+        want += ["zt_fused_nerf_pack_bwd_tc_len", "zt_fused_nerf_pack_bwd_tc",
+                 "zt_fused_nerf_backward_tc_scratch", "zt_fused_nerf_backward_tc"]
+    else:
+        want = ["zt_fused_nerf_backward_scratch", "zt_fused_nerf_backward"]
+    assert lib.calls == want

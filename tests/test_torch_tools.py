@@ -3,7 +3,7 @@ their refusal to run without a CUDA device, and their --precision flag."""
 import pytest
 import torch
 
-from zest_tpu_torch.tools import profile_eval, profile_train
+from zest_tpu_torch.tools import field_grad_census, profile_eval, profile_train
 
 
 @pytest.mark.parametrize("intervals,busy", [
@@ -49,12 +49,22 @@ def test_refuses_without_cuda(monkeypatch):
     ("void fused_nerf_bwd_kernel<256, true>(float const*)",
      "K7 field backward, pass 1"),
     ("void fused_nerf_kernel<256, true>(float const*)", "K6 fused field"),
+    ("void (anonymous namespace)::fused_nerf_bwd_tc_kernel<256>(float const*)",
+     "K7 field backward, pass 1"),
+    ("(anonymous namespace)::wgrad_tc_kernel(WJobs, float*, long long)",
+     "K7 field backward, pass 2 (weights)"),
+    ("void wgrad_kernel(float const*, int)", "K7 field backward, pass 2 (weights)"),
+    ("void (anonymous namespace)::head_grads_kernel<9>(float const*)",
+     "K7 field backward, pass 2 (weights)"),
+    ("(anonymous namespace)::round_pack_bwd_tc_kernel(float const*, BwdPack)",
+     "K6 / K7 bf16 weight rounding"),
 ])
 def test_train_kernel_groups(name, group):
     assert profile_eval.group_of(name, profile_train.GROUPS) == group
 
 
-@pytest.mark.parametrize("tool", [profile_eval, profile_train])
+@pytest.mark.parametrize("tool", [profile_eval, profile_train,
+                                  field_grad_census])
 def test_tools_refuse_without_cuda_at_either_precision(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tool.main(["--precision", "16"]) == 2

@@ -14,8 +14,8 @@
 //   rgb = hv @ Wr + br
 // Output row: [rgb(3), alpha(1), extras].
 //
-// This file's forward is the float32 mode; the bf16-operand mode of K6 runs
-// on the tensor cores, in fused_mlp_tc.cu.
+// This file's kernels are the float32 mode; the bf16-operand modes of K6 and
+// K7 run on the tensor cores, in fused_mlp_tc.cu and fused_mlp_tc_bwd.cu.
 //
 // Layout: a block of 4 warps takes 32 points; each warp owns 8 of them and
 // keeps their activations h and conditioning cond (then the feature layer)
@@ -39,18 +39,6 @@
 // took a field from 12.6 to 11.3 ms on 262,144 points); at width 256 that
 // takes ~135 registers and no spills. The float32 mode on the tensor cores
 // (3xTF32 or split bf16) is later work.
-//
-// bf16-operand mode of the backward (zest_tpu's approx=True, the 16-bit
-// precision path): a compile-time mode of K7's kernels. The products of the
-// conditioning, the trunk, the feature and the views layers take
-// bf16-rounded operands with float32 sums; the alpha, rgb and extra heads
-// keep float32 operands. The weights are rounded once per call into a copy
-// of the pack (round_pack_kernel); the activations are rounded as a product
-// loads them, so every buffer stays float32 and the heads read the same h
-// unrounded. The backward rounds the same operands, the incoming output
-// gradients included (zest_tpu/kernels/fused_mlp.py:115-215, 264-346).
-#include <cuda_bf16.h>
-
 #include "common.cuh"
 #include "fused_mlp.cuh"
 
@@ -67,13 +55,6 @@ struct Params {
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-// x rounded to the nearest bf16 value (ties to even) where kRound
-template <bool kRound>
-__device__ __forceinline__ float operand(float x) {
-  if constexpr (kRound) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
 }
 
 // N consecutive floats at p (16-byte aligned when N % 4 == 0, 8 when N == 2)
@@ -113,9 +94,8 @@ __device__ __forceinline__ void store_cols(float* p, const float (&v)[N]) {
 }
 
 // acc[r][j] += sum_k x[r * ldx + k] * W[k * ldw + lane * NC + j]: each lane
-// owns NC consecutive columns, read as vector loads; kRound rounds x to bf16
-// (W is rounded in the pack)
-template <int NC, bool kRound = false>
+// owns NC consecutive columns, read as vector loads
+template <int NC>
 __device__ __forceinline__ void dense(float (&acc)[kRows][NC],
                                       const float* x, int ldx, int K,
                                       const float* __restrict__ W, int ldw,
@@ -125,7 +105,7 @@ __device__ __forceinline__ void dense(float (&acc)[kRows][NC],
   for (int k = 0; k < K; ++k) {
     float xv[kRows], wv[NC];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) xv[r] = operand<kRound>(x[r * ldx + k]);
+    for (int r = 0; r < kRows; ++r) xv[r] = x[r * ldx + k];
     load_cols<NC, true>(wv, wcol + static_cast<long long>(k) * ldw);
 #pragma unroll
     for (int j = 0; j < NC; ++j)
@@ -184,48 +164,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
     const long long g = row0 + r;
     dst[t] = g < n ? src[g * ch + (t - r * ch)] : 0.f;
   }
-}
-
-// The weight matrices whose products take bf16 operands: the conditioning,
-// the trunk, the feature and the views layers (not the biases, not the heads).
-struct RParts {
-  int off[kMaxLayers + 4];
-  int len[kMaxLayers + 4];
-  int n;
-};
-
-RParts rounded_parts(const int* off, int P, int F, int V, int W, int depth,
-                     int skip) {
-  RParts r;
-  r.n = 0;
-  auto add = [&](int o, int len) {
-    r.off[r.n] = o;
-    r.len[r.n++] = len;
-  };
-  add(off[kWb], F * W);
-  for (int i = 0; i < depth; ++i)
-    add(off[kLayer0 + 2 * i], (i == 0 ? P : i == skip + 1 ? P + W : W) * W);
-  add(off[kWf], W * W);
-  add(off[kWv], (W + V) * (W / 2));
-  return r;
-}
-
-__global__ void round_pack_kernel(float* __restrict__ w, RParts r) {
-  const int o = r.off[blockIdx.y], len = r.len[blockIdx.y];
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < len;
-       e += gridDim.x * blockDim.x)
-    w[o + e] = operand<true>(w[o + e]);
-}
-
-// wr = the pack w (len floats) with the bf16-operand weights rounded
-int round_pack(const float* w, float* wr, long long len, const int* off, int P,
-               int F, int V, int W, int depth, int skip, cudaStream_t stream) {
-  cudaError_t e = cudaMemcpyAsync(wr, w, sizeof(float) * len,
-                                  cudaMemcpyDeviceToDevice, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const RParts r = rounded_parts(off, P, F, V, W, depth, skip);
-  round_pack_kernel<<<dim3(32, r.n), 256, 0, stream>>>(wr, r);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int WIDTH>
@@ -496,9 +434,7 @@ __device__ __forceinline__ void store_gl(float* gl, long long ld,
 }
 
 // acc[r][q] += sum_k x[r * ldx + k] * W[k * ldw + lane + 32 q], q < kNarrow:
-// a product with at most 32 * kNarrow output columns, one column per lane;
-// kRound rounds x to bf16
-template <bool kRound = false>
+// a product with at most 32 * kNarrow output columns, one column per lane
 __device__ __forceinline__ void dense_narrow(float (&acc)[kRows][kNarrow],
                                              const float* x, int ldx, int K,
                                              const float* __restrict__ W,
@@ -507,7 +443,7 @@ __device__ __forceinline__ void dense_narrow(float (&acc)[kRows][kNarrow],
   for (int k = 0; k < K; ++k) {
     float xv[kRows], wv[kNarrow];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) xv[r] = operand<kRound>(x[r * ldx + k]);
+    for (int r = 0; r < kRows; ++r) xv[r] = x[r * ldx + k];
 #pragma unroll
     for (int q = 0; q < kNarrow; ++q) {
       const int c = lane + 32 * q;
@@ -543,7 +479,7 @@ __device__ __forceinline__ void zero_narrow(float (&acc)[kRows][kNarrow]) {
 }
 
 // pass 1: one chunk of n points (pointers already offset to the chunk)
-template <int WIDTH, bool kBf16>
+template <int WIDTH>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_nerf_bwd_kernel(const float* __restrict__ pts,
                       const float* __restrict__ feats,
@@ -583,7 +519,7 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts,
   // ---- forward again, saving what the weight gradients read ----
   float acc[kRows][NC];
   zero(acc);
-  dense<NC, kBf16>(acc, fin, F, F, w + prm.off[kWb], W, lane);
+  dense<NC>(acc, fin, F, F, w + prm.off[kWb], W, lane);
   add_bias(acc, w + prm.off[kBb], lane);
   store_sm(B, W, acc, lane);                     // cond
   store_gl(s.cond, W, acc, row0, n, lane);
@@ -593,12 +529,12 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts,
     const float* Wi = w + prm.off[kLayer0 + 2 * i];
     zero(acc);
     if (i == 0) {
-      dense<NC, kBf16>(acc, xin, P, P, Wi, W, lane);
+      dense<NC>(acc, xin, P, P, Wi, W, lane);
     } else if (i == skip + 1) {
-      dense<NC, kBf16>(acc, xin, P, P, Wi, W, lane);
-      dense<NC, kBf16>(acc, A, W, W, Wi + static_cast<long long>(P) * W, W, lane);
+      dense<NC>(acc, xin, P, P, Wi, W, lane);
+      dense<NC>(acc, A, W, W, Wi + static_cast<long long>(P) * W, W, lane);
     } else {
-      dense<NC, kBf16>(acc, A, W, W, Wi, W, lane);
+      dense<NC>(acc, A, W, W, Wi, W, lane);
     }
     __syncwarp();                                // every lane has read h
     add_bias(acc, w + prm.off[kLayer0 + 2 * i + 1], lane);
@@ -637,7 +573,7 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts,
 
   // feature layer into B (cond is in the scratch from here on)
   zero(acc);
-  dense<NC, kBf16>(acc, A, W, W, w + prm.off[kWf], W, lane);
+  dense<NC>(acc, A, W, W, w + prm.off[kWf], W, lane);
   add_bias(acc, w + prm.off[kBf], lane);
   store_sm(B, W, acc, lane);
   store_gl(s.feat, W, acc, row0, n, lane);
@@ -646,8 +582,8 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts,
   // views layer: hv = relu([feature, views] @ Wv + bv) into A
   float accv[kRows][NCV];
   zero(accv);
-  dense<NCV, kBf16>(accv, B, W, W, w + prm.off[kWv], W / 2, lane);
-  dense<NCV, kBf16>(accv, vin, V, V, w + prm.off[kWv] + static_cast<long long>(W) * (W / 2),
+  dense<NCV>(accv, B, W, W, w + prm.off[kWv], W / 2, lane);
+  dense<NCV>(accv, vin, V, V, w + prm.off[kWv] + static_cast<long long>(W) * (W / 2),
         W / 2, lane);
   add_bias(accv, w + prm.off[kBv], lane);
 #pragma unroll
@@ -689,19 +625,19 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts,
 
   float accn[kRows][kNarrow];
   zero_narrow(accn);
-  dense_narrow<kBf16>(accn, A, W, W / 2, wt + prm.toff[kTWvV], V, V, lane);
+  dense_narrow(accn, A, W, W / 2, wt + prm.toff[kTWvV], V, V, lane);
   store_narrow(d_views, V, accn, row0, n, lane);
 
   // d_feature = d_hv @ Wv_feature^T into B
   zero(acc);
-  dense<NC, kBf16>(acc, A, W, W / 2, wt + prm.toff[kTWvF], W, lane);
+  dense<NC>(acc, A, W, W / 2, wt + prm.toff[kTWvF], W, lane);
   store_sm(B, W, acc, lane);
   store_gl(s.dfeat, W, acc, row0, n, lane);
   __syncwarp();
 
   // d_h of the trunk output: feature, alpha and the extra heads
   zero(acc);
-  dense<NC, kBf16>(acc, B, W, W, wt + prm.toff[kTWf], W, lane);
+  dense<NC>(acc, B, W, W, wt + prm.toff[kTWf], W, lane);
   dense(acc, gs + 3, kGS, 1, wt + prm.toff[kTWa], W, lane);
   if (n_extra == 1) {
     dense(acc, gs + 4, kGS, 1, wt + prm.toff[kTWx1], W, lane);
@@ -747,12 +683,12 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts,
     store_gl(s.dz + i * rw, W, acc, row0, n, lane);
     __syncwarp();
     if (i == 0) {
-      dense_narrow<kBf16>(accp, A, W, W, wt + prm.toff[kTLayer0], P, P, lane);
+      dense_narrow(accp, A, W, W, wt + prm.toff[kTLayer0], P, P, lane);
     } else {
       if (i == skip + 1)
-        dense_narrow<kBf16>(accp, A, W, W, wt + prm.toff[kTSkipP], P, P, lane);
+        dense_narrow(accp, A, W, W, wt + prm.toff[kTSkipP], P, P, lane);
       zero(acc);
-      dense<NC, kBf16>(acc, A, W, W, wt + prm.toff[kTLayer0 + i], W, lane);
+      dense<NC>(acc, A, W, W, wt + prm.toff[kTLayer0 + i], W, lane);
     }
     __syncwarp();                                // A is read before rewriting
   }
@@ -767,26 +703,23 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts,
     store_cols(s.dbias + (row0 + r) * W + lane * NC, db);
   }
   zero_narrow(accn);
-  dense_narrow<kBf16>(accn, B, W, W, wt + prm.toff[kTWb], F, F, lane);
+  dense_narrow(accn, B, W, W, wt + prm.toff[kTWb], F, F, lane);
   store_narrow(d_feats, F, accn, row0, n, lane);
 }
 
 // pass 2: C[m][n] += sum_k A'[k][m] * B[k][n] over this block's kSplit rows,
 // A' = relu(A * S) when S is given (S has A's layout), else A; and, when db
 // is given, db[n] += sum_k B[k][n] (the blocks of the first row of tiles).
-// kRound rounds A' and B to bf16 in the product, not in db's sum.
 constexpr int kGT = 64;         // output tile (kGT x kGT), 4x4 per thread
 constexpr int kGK = 16;         // rows per shared-memory stage
 constexpr int kSplit = 1024;    // rows per block
 
-template <bool kRound>
 __global__ void __launch_bounds__(256)
 wgrad_kernel(const float* __restrict__ Am, int lda, const float* __restrict__ S,
              const float* __restrict__ Bm, int ldb, float* C, int ldc,
              float* db, int M, int N, long long K) {
   __shared__ float As[kGK][kGT];
   __shared__ float Bs[kGK][kGT];
-  __shared__ float Bu[kRound ? kGK : 1][kGT];      // B unrounded, for db
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * kGT, n0 = blockIdx.x * kGT;
   const long long k0 = static_cast<long long>(blockIdx.z) * kSplit;
@@ -804,9 +737,8 @@ wgrad_kernel(const float* __restrict__ Am, int lda, const float* __restrict__ S,
         if (S != nullptr) a = fmaxf(a * S[k * lda + m0 + c], 0.f);
       }
       if (k < k1 && n0 + c < N) b = Bm[k * ldb + n0 + c];
-      As[kk][c] = operand<kRound>(a);
-      Bs[kk][c] = operand<kRound>(b);
-      if constexpr (kRound) Bu[kk][c] = b;
+      As[kk][c] = a;
+      Bs[kk][c] = b;
     }
     __syncthreads();
 #pragma unroll
@@ -822,8 +754,7 @@ wgrad_kernel(const float* __restrict__ Am, int lda, const float* __restrict__ S,
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       if (do_db) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          colsum[j] += kRound ? Bu[kk][tx * 4 + j] : b[j];
+        for (int j = 0; j < 4; ++j) colsum[j] += b[j];
       }
     }
     __syncthreads();
@@ -848,37 +779,31 @@ wgrad_kernel(const float* __restrict__ Am, int lda, const float* __restrict__ S,
 }
 
 int wgrad(const float* A, int lda, const float* S, const float* B, int ldb,
-          float* C, int ldc, float* db, int M, int N, long long K, bool round,
+          float* C, int ldc, float* db, int M, int N, long long K,
           cudaStream_t stream) {
   const dim3 grid((N + kGT - 1) / kGT, (M + kGT - 1) / kGT,
                   static_cast<unsigned int>((K + kSplit - 1) / kSplit));
-  if (round)
-    wgrad_kernel<true><<<grid, 256, 0, stream>>>(A, lda, S, B, ldb, C, ldc, db,
-                                                 M, N, K);
-  else
-    wgrad_kernel<false><<<grid, 256, 0, stream>>>(A, lda, S, B, ldb, C, ldc, db,
-                                                  M, N, K);
+  wgrad_kernel<<<grid, 256, 0, stream>>>(A, lda, S, B, ldb, C, ldc, db, M, N,
+                                         K);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the weight-gradient products of one chunk of `rows` points; bf16 rounds
-// the operands of the layers other than the heads
+// the weight-gradient products of one chunk of `rows` points
 int weight_grads(const float* pts, const float* feats, const float* views,
                  const Scratch& s, const BParams& prm, float* d_pack,
                  long long rows, int P, int F, int V, int W, int depth,
-                 int skip, int n_extra, bool bf16, cudaStream_t st) {
+                 int skip, int n_extra, cudaStream_t st) {
   const int out_ch = n_extra == 1 ? 5 : 12;
   const long long rw = rows * W;
   const float* h_last = s.z + (depth - 1) * rw;
   float* d = d_pack;
   const int* off = prm.off;
   int err = 0;
-  bool round = bf16;                     // false for the heads below
   auto run = [&](const float* A, int lda, const float* S, const float* Bm,
                  int ldb, int c_off, int d_off, int M, int N) {
     if (err == 0)
       err = wgrad(A, lda, S, Bm, ldb, d + c_off, N, d_off < 0 ? nullptr : d + d_off,
-                  M, N, rows, round, st);
+                  M, N, rows, st);
   };
   run(feats, F, nullptr, s.dbias, W, off[kWb], off[kBb], F, W);
   for (int i = 0; i < depth; ++i) {
@@ -896,7 +821,6 @@ int weight_grads(const float* pts, const float* feats, const float* views,
       run(z_prev, W, s.cond, dz, W, h_off, bo, W, W);
     }
   }
-  round = false;
   run(h_last, W, s.cond, s.gh + 3, out_ch, off[kWa], off[kBa], W, 1);
   if (n_extra == 1) {
     run(h_last, W, s.cond, s.gh + 4, out_ch, off[kWx1], off[kBx1], W, 1);
@@ -904,19 +828,16 @@ int weight_grads(const float* pts, const float* feats, const float* views,
     run(h_last, W, s.cond, s.gh + 4, out_ch, off[kWx1], off[kBx1], W, 6);
     run(h_last, W, s.cond, s.gh + 10, out_ch, off[kWx2], off[kBx2], W, 2);
   }
-  round = bf16;
   run(h_last, W, s.cond, s.dfeat, W, off[kWf], off[kBf], W, W);
   run(s.feat, W, nullptr, s.dhv, W / 2, off[kWv], off[kBv], W, W / 2);
   run(views, V, nullptr, s.dhv, W / 2, off[kWv] + W * (W / 2), -1, V, W / 2);
-  round = false;
   run(s.hv, W / 2, nullptr, s.gh, out_ch, off[kWr], off[kBr], W / 2, 3);
   return err;
 }
 
 // prm.wt and prm.toff are set here: the transposed pack goes to the head of
-// scratch (tlen floats, from tpack_layout), the per-chunk buffers after it;
-// in the bf16 mode prm.w is the rounded pack, made by the caller
-template <int WIDTH, bool kBf16>
+// scratch (tlen floats, from tpack_layout), the per-chunk buffers after it
+template <int WIDTH>
 int launch_bwd(const float* pts, const float* feats, const float* views,
                const float* g, BParams& prm, const TParts& parts, int tlen,
                float* scratch, long long chunk, float* d_pts, float* d_feats,
@@ -925,7 +846,7 @@ int launch_bwd(const float* pts, const float* feats, const float* views,
   const size_t smem =
       sizeof(float) * kTile * (2 * WIDTH + P + F + V + kGS + kES);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_nerf_bwd_kernel<WIDTH, kBf16>,
+      fused_nerf_bwd_kernel<WIDTH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   float* tpack = scratch;
@@ -939,7 +860,7 @@ int launch_bwd(const float* pts, const float* feats, const float* views,
     const long long rows = n - c0 < chunk ? n - c0 : chunk;
     const Scratch s = carve(scratch, rows, WIDTH, depth);
     const unsigned int blocks = static_cast<unsigned int>((rows + kTile - 1) / kTile);
-    fused_nerf_bwd_kernel<WIDTH, kBf16><<<blocks, kWarps * 32, smem, stream>>>(
+    fused_nerf_bwd_kernel<WIDTH><<<blocks, kWarps * 32, smem, stream>>>(
         pts + c0 * P, feats + c0 * F, views + c0 * V, g + c0 * out_ch, prm, s,
         d_pts + c0 * P, d_feats + c0 * F, d_views + c0 * V, rows, P, F, V,
         depth, skip, n_extra);
@@ -947,7 +868,7 @@ int launch_bwd(const float* pts, const float* feats, const float* views,
     if (err != 0) return err;
     err = weight_grads(pts + c0 * P, feats + c0 * F, views + c0 * V, s, prm,
                        d_pack, rows, P, F, V, WIDTH, depth, skip, n_extra,
-                       kBf16, stream);
+                       stream);
     if (err != 0) return err;
   }
   return 0;
@@ -966,29 +887,6 @@ int launch(const float* pts, const float* feats, const float* views,
   fused_nerf_kernel<WIDTH><<<blocks, kWarps * 32, smem, stream>>>(
       pts, feats, views, prm, out, n, P, F, V, depth, skip, n_extra);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int WIDTH>
-int launch_bwd_mode(bool bf16, const float* pts, const float* feats,
-                    const float* views, const float* g, BParams& prm,
-                    const TParts& parts, int tlen, float* scratch,
-                    long long chunk, float* d_pts, float* d_feats,
-                    float* d_views, float* d_pack, long long n, int P, int F,
-                    int V, int depth, int skip, int n_extra,
-                    cudaStream_t stream) {
-  return bf16 ? launch_bwd<WIDTH, true>(pts, feats, views, g, prm, parts, tlen,
-                                        scratch, chunk, d_pts, d_feats,
-                                        d_views, d_pack, n, P, F, V, depth,
-                                        skip, n_extra, stream)
-              : launch_bwd<WIDTH, false>(pts, feats, views, g, prm, parts,
-                                         tlen, scratch, chunk, d_pts, d_feats,
-                                         d_views, d_pack, n, P, F, V, depth,
-                                         skip, n_extra, stream);
-}
-
-// floats of the rounded pack copy at the head of the backward's scratch
-inline long long rounded_len(bool bf16, long long pack_len) {
-  return bf16 ? (pack_len + 3) / 4 * 4 : 0;
 }
 
 }  // namespace
@@ -1022,12 +920,10 @@ ZT_API int zt_fused_nerf_forward(const float* pts, const float* feats,
 }
 
 // The floats of scratch that zt_fused_nerf_backward needs for n points in
-// chunks of `chunk`: in the bf16 mode the rounded pack, then the transposed
-// pack, then one chunk's buffers.
+// chunks of `chunk`: the transposed pack, then one chunk's buffers.
 ZT_API int zt_fused_nerf_backward_scratch(int n, int chunk, int P, int F,
                                           int V, int width, int depth,
-                                          int skip, int n_extra, int bf16,
-                                          long long pack_len,
+                                          int skip, int n_extra,
                                           long long* floats) {
   if (depth < 1 || depth > kMaxLayers || n_extra < 1 || n_extra > 2 ||
       chunk < 1)
@@ -1035,16 +931,15 @@ ZT_API int zt_fused_nerf_backward_scratch(int n, int chunk, int P, int F,
   BParams prm = {};
   TParts parts;
   const long long rows = n < chunk ? (n > 1 ? n : 1) : chunk;
-  *floats = rounded_len(bf16 != 0, pack_len) +
-            tpack_layout(prm, parts, P, F, V, width, depth, skip, n_extra) +
+  *floats = tpack_layout(prm, parts, P, F, V, width, depth, skip, n_extra) +
             scratch_floats(rows, width, depth, n_extra == 1 ? 5 : 12);
   return 0;
 }
 
+// K7 in its float32 mode (the bf16-operand mode: fused_mlp_tc_bwd.cu).
 // d_pts [n][P], d_feats [n][F], d_views [n][V] are written; d_pack (the
 // forward pack's layout) must be zeroed by the caller: the weight gradients
 // are added into it. scratch holds zt_fused_nerf_backward_scratch floats.
-// bf16 != 0 selects the bf16-operand mode.
 ZT_API int zt_fused_nerf_backward(const float* pts, const float* feats,
                                   const float* views, const float* g,
                                   const float* wpack, const int* offsets,
@@ -1052,8 +947,7 @@ ZT_API int zt_fused_nerf_backward(const float* pts, const float* feats,
                                   int chunk, float* d_pts, float* d_feats,
                                   float* d_views, float* d_pack, int n, int P,
                                   int F, int V, int width, int depth, int skip,
-                                  int n_extra, int bf16, long long pack_len,
-                                  void* stream) {
+                                  int n_extra, void* stream) {
   if (depth < 1 || depth > kMaxLayers || n_extra < 1 || n_extra > 2 ||
       chunk < 1 || P > 32 * kNarrow || F > 32 * kNarrow || V > 32 * kNarrow)
     return cudaErrorInvalidValue;
@@ -1065,31 +959,23 @@ ZT_API int zt_fused_nerf_backward(const float* pts, const float* feats,
   TParts parts;
   const int tlen = tpack_layout(prm, parts, P, F, V, width, depth, skip,
                                 n_extra);
-  const long long rlen = rounded_len(bf16 != 0, pack_len);
   if (scratch_len <
-      rlen + tlen + scratch_floats(rows, width, depth, n_extra == 1 ? 5 : 12))
+      tlen + scratch_floats(rows, width, depth, n_extra == 1 ? 5 : 12))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (int err = round_pack(wpack, scratch, pack_len, prm.off, P, F, V, width,
-                             depth, skip, st))
-      return err;
-    prm.w = scratch;
-    scratch += rlen;
-  }
   switch (width) {
     case 64:
-      return launch_bwd_mode<64>(bf16 != 0, pts, feats, views, g, prm, parts,
-                                 tlen, scratch, rows, d_pts, d_feats, d_views,
-                                 d_pack, n, P, F, V, depth, skip, n_extra, st);
+      return launch_bwd<64>(pts, feats, views, g, prm, parts, tlen, scratch,
+                            rows, d_pts, d_feats, d_views, d_pack, n, P, F, V,
+                            depth, skip, n_extra, st);
     case 128:
-      return launch_bwd_mode<128>(bf16 != 0, pts, feats, views, g, prm, parts,
-                                  tlen, scratch, rows, d_pts, d_feats, d_views,
-                                  d_pack, n, P, F, V, depth, skip, n_extra, st);
+      return launch_bwd<128>(pts, feats, views, g, prm, parts, tlen, scratch,
+                             rows, d_pts, d_feats, d_views, d_pack, n, P, F, V,
+                             depth, skip, n_extra, st);
     case 256:
-      return launch_bwd_mode<256>(bf16 != 0, pts, feats, views, g, prm, parts,
-                                  tlen, scratch, rows, d_pts, d_feats, d_views,
-                                  d_pack, n, P, F, V, depth, skip, n_extra, st);
+      return launch_bwd<256>(pts, feats, views, g, prm, parts, tlen, scratch,
+                             rows, d_pts, d_feats, d_views, d_pack, n, P, F, V,
+                             depth, skip, n_extra, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -49,16 +49,33 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # width, P, F, V -> bytes of dynamic shared memory per block
     "zt_fused_nerf_forward_tc_smem": [_I, _I, _I, _I],
-    # n, chunk, P, F, V, width, depth, skip, n_extra, bf16, pack_len,
-    # floats (host long long*)
+    # n, chunk, P, F, V, width, depth, skip, n_extra, floats (host long long*)
     "zt_fused_nerf_backward_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                       _I, _L, _P],
+                                       _P],
     # pts, feats, views, g, wpack, offsets (host int*), scratch, scratch_len,
     # chunk, d_pts, d_feats, d_views, d_pack,
-    # n, P, F, V, width, depth, skip, n_extra, bf16, pack_len, stream
+    # n, P, F, V, width, depth, skip, n_extra, stream
     "zt_fused_nerf_backward": [_P, _P, _P, _P, _P, _P, _P, _L, _I,
                                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _L, _P],
+                               _I, _P],
+    # wpack, offsets(host int*), wbt, P, F, V, width, depth, skip, stream
+    "zt_fused_nerf_pack_bwd_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # P, F, V, width, depth, skip -> elements of the backward pack
+    "zt_fused_nerf_pack_bwd_tc_len": [_I, _I, _I, _I, _I, _I],
+    # n, chunk, P, F, V, width, depth, skip, n_extra, bytes (host long long*)
+    "zt_fused_nerf_backward_tc_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                          _P],
+    # pts, feats, views, g, wpack, offsets (host int*), wbf16, wbt, scratch,
+    # scratch_bytes, chunk, d_pts, d_feats, d_views, d_pack, out (or null),
+    # keep, n, P, F, V, width, depth, skip, n_extra, stream
+    "zt_fused_nerf_backward_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
+                                  _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _P],
+    # n, chunk, P, F, V, width, depth, skip, n_extra, at (host long long[5])
+    "zt_fused_nerf_backward_tc_layout": [_I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                         _P],
+    # width, P, F, V -> bytes of dynamic shared memory per block of pass 1
+    "zt_fused_nerf_backward_tc_smem": [_I, _I, _I, _I],
     # g, ndc, d_vol, n_points, D, Hv, Wv, stream
     "zt_trilinear_grad_volume": [_P, _P, _P, _I, _I, _I, _I, _P],
     # vol, ndc, g, d_ndc, n_points, D, Hv, Wv, stream

@@ -3,10 +3,13 @@ PyTorch twins.
 
 Replaces ``zest_tpu/kernels/fused_mlp.py:_fwd_pallas`` (K6, the forward
 ``pallas_call`` behind ``fused_nerf_apply``) and ``_bwd_pallas`` (K7, its
-custom VJP): both in ``csrc/fused_mlp.cu``, except K6's bf16-operand mode,
-which runs on the tensor cores in ``csrc/fused_mlp_tc.cu``. Every product of
-the field runs inside them. ``fused_nerf_forward`` is an autograd Function over
-(pts, feats, views, pack): ``pack_weights`` is a differentiable ``torch.cat``
+custom VJP): both in ``csrc/fused_mlp.cu`` (SIMT) at float32; in the
+bf16-operand mode both run on the tensor cores, K6 in
+``csrc/fused_mlp_tc.cu`` and K7 in ``csrc/fused_mlp_tc_bwd.cu``, which
+recomputes the forward with K6's own device code (``csrc/fused_mlp_tc.cuh``).
+Every product of the field runs inside them. ``fused_nerf_forward`` is an
+autograd Function over (pts, feats, views, pack): ``pack_weights`` is a
+differentiable ``torch.cat``
 of every Linear's ``weight.T`` and bias, so the packed weight gradient of K7
 reaches each Linear. The twin is the port's ``models.nerf.NeRFField`` itself
 and its autograd.
@@ -16,8 +19,9 @@ A field built with ``bf16=True`` runs the kernels' bf16-operand mode
 feature and views products' operands to bf16 and keep float32 sums, float32
 biases and float32 heads, as the twin's ``bf16`` mode does. The forward's
 bf16 weights are made from the float32 pack on the card by one launch on
-every call (``pack_bf16``); the autograd Function saves the float32 pack for
-K7.
+every call (``pack_bf16``); the autograd Function saves the float32 pack
+and that bf16 pack for K7, which makes one more, the backward's matrices
+read [in][out] (``pack_bf16_bwd``), by one launch per call.
 """
 from __future__ import annotations
 
@@ -26,10 +30,11 @@ import ctypes
 import torch
 
 from . import _build
+from ..models.nerf import round_bf16
 
 WIDTHS = (64, 128, 256)          # kernel instantiations
 MAX_LAYERS = 16                  # kMaxLayers in csrc/fused_mlp.cuh
-MAX_NARROW = 96                  # 32 * kNarrow: widest pts / feats / views
+MAX_NARROW = 96                  # widest pts / feats / views (kNarrow)
 SMEM_LIMIT = 232448              # bytes of shared memory a block may opt into
 # offsets-table slots, as the Slot enum in csrc/fused_mlp.cuh numbers them
 _WB, _LAYER0 = 0, 2
@@ -38,7 +43,10 @@ _WF, _WV, _WR, _WX1, _WX2 = _WA + 2, _WA + 4, _WA + 6, _WA + 8, _WA + 10
 _N_SLOTS = _WA + 12
 _TILE = 32
 _SMEM_EXTRA = 16 + 8             # kGS + kES floats per point in the backward
-CHUNK_ROWS = 65536               # points per backward chunk (bounds scratch)
+CHUNK_ROWS = 65536               # points per float32 backward chunk
+# points per bf16-mode backward chunk: ~21 KB of scratch per point at width
+# 256, and a 16-bit training step's largest call (284,672 points) in one
+BF16_CHUNK_ROWS = 1 << 19
 
 
 def _slots(field):
@@ -66,7 +74,7 @@ def _pack(parts_by_slot):
             t = t.reshape(-1)
             parts += [t, t.new_zeros(-t.numel() % 4)]
             cur += t.numel() + (-t.numel() % 4)
-    return torch.cat(parts).float().contiguous(), offsets
+    return torch.cat(parts).contiguous(), offsets
 
 
 def pack_weights(field):
@@ -139,6 +147,46 @@ def pack_bf16_plain(field, pack, offsets):
     return torch.cat(parts), moff
 
 
+def bf16_bwd_layout(field):
+    """The backward's bf16-operand matrices in the order K7's tensor-core
+    kernel runs them (``bwd_mats`` in ``csrc/fused_mlp_tc_bwd.cu``): [(Linear,
+    first input row, rows)], each the rows of the Linear's ``weight.T``
+    ([in][out], ``pack_weights``' layout) that one input-gradient product
+    d_x = d_z @ W reads: the views layer's views part and its feature part,
+    the feature layer, the trunk from the last layer down (the layer after
+    a skip as its pts part, then its h part), the conditioning."""
+    P, F, W = field.in_ch_pts, field.in_ch_feat, field.width
+    views = field.views_linears[0]
+    mats = [(views, W, field.in_ch_views), (views, 0, W),
+            (field.feature_linear, 0, W)]
+    for i in reversed(range(len(field.pts_linears))):
+        lin = field.pts_linears[i]
+        if i == 0:
+            mats.append((lin, 0, P))
+        elif i - 1 in field.skips:
+            mats += [(lin, 0, P), (lin, P, W)]
+        else:
+            mats.append((lin, 0, W))
+    return mats + [(field.pts_bias, 0, F)]
+
+
+@torch.no_grad()
+def pack_bf16_bwd_plain(field, pack, offsets):
+    """Twin of the backward pack kernel (``round_pack_bwd_tc_kernel``):
+    every matrix of ``bf16_bwd_layout``, read from the float32 ``pack`` as it
+    stores it, [in rows][out], rounded to bf16, the matrices back to back.
+    Returns (pack, offsets) as ``pack_bf16_plain`` does."""
+    slot_of = {id(lin): slot for slot, lin in _slots(field)}
+    parts, moff, cur = [], [], 0
+    for lin, r0, rows in bf16_bwd_layout(field):
+        start = offsets[slot_of[id(lin)]] + r0 * lin.out_features
+        parts.append(pack[start:start + rows * lin.out_features]
+                     .to(torch.bfloat16))
+        moff.append(cur)
+        cur += rows * lin.out_features
+    return torch.cat(parts), moff
+
+
 def _geometry(field):
     return (field.in_ch_pts, field.in_ch_feat, field.in_ch_views, field.width,
             len(field.pts_linears), field.skips[0] if field.skips else -2)
@@ -161,6 +209,23 @@ def pack_bf16(field, pack, offsets):
     return wb
 
 
+def pack_bf16_bwd(field, pack, offsets):
+    """K7's backward pack from the float32 ``pack``: a flat bf16 tensor in
+    ``pack_bf16_bwd_plain``'s layout. CPU tensors take the twin; CUDA
+    tensors launch ``round_pack_bwd_tc_kernel`` (one launch) or raise."""
+    if pack.device.type == "cpu":
+        return pack_bf16_bwd_plain(field, pack, offsets)[0]
+    lib = _build.library()
+    length = lib.zt_fused_nerf_pack_bwd_tc_len(*_geometry(field))
+    if length < 0:
+        raise ValueError(f"pack_bf16_bwd: no pack for {_geometry(field)}")
+    wbt = torch.empty(length, device=pack.device, dtype=torch.bfloat16)
+    _build.check(lib.zt_fused_nerf_pack_bwd_tc(
+        pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets), wbt.data_ptr(),
+        *_geometry(field), _build.stream_ptr(pack)), "pack_bf16_bwd")
+    return wbt
+
+
 def _check(name, field, pts, feats, views, extra_smem=0):
     P, F, V = field.in_ch_pts, field.in_ch_feat, field.in_ch_views
     if field.width not in WIDTHS:
@@ -180,8 +245,9 @@ def _check(name, field, pts, feats, views, extra_smem=0):
 
 
 def _launch_forward(field, pts, feats, views, pack, offsets):
-    """K6 on [n, ch] contiguous inputs → [n, out_ch]: the SIMT kernel at
-    float32, the tensor-core kernel in the bf16-operand mode."""
+    """K6 on [n, ch] contiguous inputs → ([n, out_ch], the bf16 pack or
+    None): the SIMT kernel at float32, the tensor-core kernel in the
+    bf16-operand mode."""
     n = pts.shape[0]
     out = torch.empty((n, field.out_ch), device=pts.device, dtype=torch.float32)
     lib = _build.library()
@@ -189,6 +255,7 @@ def _launch_forward(field, pts, feats, views, pack, offsets):
               pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets))
     shape = (n, *_geometry(field), 1 if field.static else 2,
              _build.stream_ptr(pts))
+    wb = None
     if field.bf16:
         wb = pack_bf16(field, pack, offsets)
         err = lib.zt_fused_nerf_forward_tc(*inputs, wb.data_ptr(),
@@ -197,7 +264,7 @@ def _launch_forward(field, pts, feats, views, pack, offsets):
         err = lib.zt_fused_nerf_forward(*inputs, out.data_ptr(), *shape)
     _build.check(err, "fused_nerf_forward")
     fused_nerf_forward.launches += 1
-    return out
+    return out, wb
 
 
 class _FusedField(torch.autograd.Function):
@@ -205,15 +272,16 @@ class _FusedField(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pts, feats, views, pack, field, offsets):
+        out, wb = _launch_forward(field, pts, feats, views, pack, offsets)
         ctx.save_for_backward(pts, feats, views, pack)
-        ctx.field, ctx.offsets = field, offsets
-        return _launch_forward(field, pts, feats, views, pack, offsets)
+        ctx.field, ctx.offsets, ctx.wb = field, offsets, wb
+        return out
 
     @staticmethod
     def backward(ctx, g):
         pts, feats, views, pack = ctx.saved_tensors
         grads = fused_nerf_backward(ctx.field, pts, feats, views,
-                                    g.contiguous(), pack, ctx.offsets)
+                                    g.contiguous(), pack, ctx.offsets, ctx.wb)
         return (*grads, None, None)
 
 
@@ -240,6 +308,91 @@ def fused_nerf_forward(field, pts, feats, views):
 fused_nerf_forward.launches = 0
 
 
+def forward_values_plain(field, pts, feats, views):
+    """The forward values that K7's bf16 mode keeps (``fused_nerf_backward``'s
+    ``saved``), from the bf16 twin's own arithmetic: cond, every trunk
+    layer's z_i (before the product with cond), the feature layer's output
+    rounded to bf16, hv, and the output rows."""
+    with torch.no_grad():
+        mm = field._bf16_product
+        cond = mm(field.pts_bias, feats)
+        h, z = pts, []
+        for i, lin in enumerate(field.pts_linears):
+            z.append(mm(lin, h))
+            h = torch.relu(z[-1] * cond)
+            if i in field.skips:
+                h = torch.cat([pts, h], -1)
+        feature = mm(field.feature_linear, h)
+        hv = torch.relu(mm(field.views_linears[0], torch.cat([feature, views],
+                                                             -1)))
+        return dict(cond=cond, z=z, feature=feature.to(torch.bfloat16), hv=hv,
+                    out=field(pts, feats, views))
+
+
+@torch.no_grad()
+def fused_nerf_backward_at_plain(field, saved, pts, feats, views, g):
+    """The bf16 twin's backward evaluated at given forward values (``saved``,
+    as ``forward_values_plain`` or K7's bf16 mode gives them), so that every
+    ReLU mask, every bf16-rounded activation and every head activation is
+    the one those values imply: the plain version of K7's bf16 mode at K6's
+    own forward. Each product as ``_BF16Linear``'s backward computes it
+    (output gradient and input rounded to bf16, float32 sums, the bias
+    gradient the float32 sum); the heads in float32. Returns (d_pts,
+    d_feats, d_views, d_pack) with d_pack in ``pack_weights``' layout."""
+    cond, zs, hv, out = saved["cond"], saved["z"], saved["hv"], saved["out"]
+    feature = saved["feature"].to(cond.dtype)
+    grads = {}
+
+    def back(lin, d, *xs):
+        """d_x of lin's bf16 product for its output gradient d; records
+        lin's weight and bias gradients"""
+        gr = round_bf16(d)
+        grads[id(lin)] = (gr.T @ round_bf16(torch.cat(xs, -1)), d.sum(0))
+        return gr @ round_bf16(lin.weight)
+
+    def head(lin, d, x):
+        grads[id(lin)] = (d.T @ x, d.sum(0))
+        return d @ lin.weight
+
+    h, ins = pts, []
+    for i, z in enumerate(zs):
+        ins.append((pts,) if i == 0 else (pts, h) if i - 1 in field.skips
+                   else (h,))
+        h = torch.relu(z * cond)
+    g_rgb, g_alpha = g[:, :3], g[:, 3:4]
+    d_h = head(field.alpha_linear, g_alpha, h)
+    heads = ([(field.w_linear, False)] if field.static
+             else [(field.sf_linear, True), (field.prob_linear, False)])
+    col = 4
+    for lin, is_tanh in heads:
+        e = out[:, col:col + lin.out_features]
+        ge = g[:, col:col + lin.out_features]
+        ge = ge * (1 - e * e if is_tanh else e * (1 - e))
+        d_h = d_h + head(lin, ge, h)
+        col += lin.out_features
+    d_hv = head(field.rgb_linear, g_rgb, hv) * (hv > 0)
+    W = field.width
+    d_x = back(field.views_linears[0], d_hv, feature, views)
+    d_feature, d_views = d_x[:, :W], d_x[:, W:]
+    d_h = d_h + back(field.feature_linear, d_feature, h)
+    d_cond = torch.zeros_like(cond)
+    d_pts = torch.zeros_like(pts)
+    for i in reversed(range(len(zs))):
+        d_a = d_h * (zs[i] * cond > 0)
+        d_cond = d_cond + d_a * zs[i]
+        d_x = back(field.pts_linears[i], d_a * cond, *ins[i])
+        if i == 0:
+            d_pts = d_pts + d_x
+        elif i - 1 in field.skips:
+            d_pts, d_h = d_pts + d_x[:, :field.in_ch_pts], d_x[:, field.in_ch_pts:]
+        else:
+            d_h = d_x
+    d_feats = back(field.pts_bias, d_cond, feats)
+    return d_pts, d_feats, d_views, _pack(
+        [(slot, (grads[id(lin)][0].T, grads[id(lin)][1]))
+         for slot, lin in _slots(field)])[0]
+
+
 def fused_nerf_backward_plain(field, pts, feats, views, g):
     """Twin of K7: autograd through the field module. Returns (d_pts,
     d_feats, d_views, d_pack) with d_pack in ``pack_weights``' layout; the
@@ -252,13 +405,40 @@ def fused_nerf_backward_plain(field, pts, feats, views, g):
     return (*(t.grad for t in inputs), pack_grads(field))
 
 
-def fused_nerf_backward(field, pts, feats, views, g, pack, offsets):
+def _kept_values(lib, field, scratch, n, shape):
+    """The forward values K7's bf16 mode left in its scratch (one chunk of
+    n points), as float32 / bf16 views: cond, z (a list), hv, feature."""
+    at = (ctypes.c_longlong * 5)()
+    _build.check(lib.zt_fused_nerf_backward_tc_layout(n, BF16_CHUNK_ROWS,
+                                                      *shape, at), "saved")
+    R, W = at[0], field.width
+
+    def view(offset, dtype, count, cols):
+        size = torch.finfo(dtype).bits // 8
+        return (scratch[offset:offset + size * count * R * cols].view(dtype)
+                .view(count, R, cols)[:, :n])
+
+    return dict(z=list(view(at[1], torch.float32, len(field.pts_linears), W)),
+                cond=view(at[2], torch.float32, 1, W)[0],
+                hv=view(at[3], torch.float32, 1, W // 2)[0],
+                feature=view(at[4], torch.bfloat16, 1, W)[0])
+
+
+def fused_nerf_backward(field, pts, feats, views, g, pack, offsets, wb=None,
+                        recomputed=None, saved=None):
     """K7: the field's gradients at [n, ch] inputs for the output gradient g
     [n, out_ch] → (d_pts, d_feats, d_views, d_pack), d_pack in the layout of
     ``pack`` (``pack_weights``).
 
+    In the bf16-operand mode, wb is K6's bf16 pack of ``pack`` (the forward
+    made it; made here when None), and ``recomputed`` ([n, out_ch] float32,
+    optional) receives the output rows that the backward recomputed, which
+    equal K6's bit for bit. A dict given as ``saved`` (with n at most
+    ``BF16_CHUNK_ROWS``) receives the forward values the backward ran at, as
+    ``forward_values_plain`` gives them, for ``fused_nerf_backward_at_plain``.
+
     CPU tensors take the twin (the module's own weights); CUDA tensors
-    launch the kernel or raise.
+    launch the kernels or raise.
     """
     if pts.device.type == "cpu":
         return fused_nerf_backward_plain(field, pts, feats, views, g)
@@ -272,23 +452,49 @@ def fused_nerf_backward(field, pts, feats, views, g, pack, offsets):
         raise ValueError(f"{name}: expected [n, ch] inputs and g of "
                          f"[{n}, {field.out_ch}], got {tuple(pts.shape)}, "
                          f"{tuple(g.shape)}")
-    _build.require_cuda_f32(name, pts, feats, views, g, pack)
+    if recomputed is not None and (not field.bf16 or
+                                   recomputed.shape != (n, field.out_ch)):
+        raise ValueError(f"{name}: recomputed rows are the bf16 mode's, "
+                         f"[{n}, {field.out_ch}]")
+    if saved is not None and (not field.bf16 or n > BF16_CHUNK_ROWS):
+        raise ValueError(f"{name}: the forward values are kept in the bf16 "
+                         f"mode and for one chunk ({BF16_CHUNK_ROWS} points)")
+    if saved is not None and recomputed is None:
+        recomputed = torch.empty((n, field.out_ch), device=pts.device)
+    _build.require_cuda_f32(name, pts, feats, views, g, pack,
+                            *([] if recomputed is None else [recomputed]))
     lib = _build.library()
-    shape = (P, F, V, field.width, len(field.pts_linears),
-             field.skips[0] if field.skips else -2, 1 if field.static else 2,
-             int(field.bf16), pack.numel())
-    floats = ctypes.c_longlong()
-    _build.check(lib.zt_fused_nerf_backward_scratch(
-        n, CHUNK_ROWS, *shape, ctypes.byref(floats)), name)
-    scratch = torch.empty(floats.value, device=pts.device, dtype=torch.float32)
     d_pts, d_feats, d_views = (torch.empty_like(t) for t in (pts, feats, views))
     d_pack = torch.zeros_like(pack)
-    err = lib.zt_fused_nerf_backward(
-        pts.data_ptr(), feats.data_ptr(), views.data_ptr(), g.data_ptr(),
-        pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets),
-        scratch.data_ptr(), scratch.numel(), CHUNK_ROWS, d_pts.data_ptr(),
-        d_feats.data_ptr(), d_views.data_ptr(), d_pack.data_ptr(), n, *shape,
-        _build.stream_ptr(pts))
+    inputs = (pts.data_ptr(), feats.data_ptr(), views.data_ptr(), g.data_ptr(),
+              pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets))
+    outputs = (d_pts.data_ptr(), d_feats.data_ptr(), d_views.data_ptr(),
+               d_pack.data_ptr())
+    shape = (*_geometry(field), 1 if field.static else 2)
+    size = ctypes.c_longlong()
+    if field.bf16:
+        if wb is None:
+            wb = pack_bf16(field, pack, offsets)
+        wbt = pack_bf16_bwd(field, pack, offsets)
+        _build.check(lib.zt_fused_nerf_backward_tc_scratch(
+            n, BF16_CHUNK_ROWS, *shape, ctypes.byref(size)), name)
+        scratch = torch.empty(size.value, device=pts.device, dtype=torch.uint8)
+        err = lib.zt_fused_nerf_backward_tc(
+            *inputs, wb.data_ptr(), wbt.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), BF16_CHUNK_ROWS, *outputs,
+            None if recomputed is None else recomputed.data_ptr(),
+            int(saved is not None), n, *shape, _build.stream_ptr(pts))
+        if saved is not None:
+            saved.update(_kept_values(lib, field, scratch, n, shape),
+                         out=recomputed)
+    else:
+        _build.check(lib.zt_fused_nerf_backward_scratch(
+            n, CHUNK_ROWS, *shape, ctypes.byref(size)), name)
+        scratch = torch.empty(size.value, device=pts.device,
+                              dtype=torch.float32)
+        err = lib.zt_fused_nerf_backward(
+            *inputs, scratch.data_ptr(), scratch.numel(), CHUNK_ROWS,
+            *outputs, n, *shape, _build.stream_ptr(pts))
     _build.check(err, name)
     fused_nerf_backward.launches += 1
     return d_pts, d_feats, d_views, d_pack

@@ -41,6 +41,8 @@ GROUPS = (("transpose_pack", "K7 field backward, weight transpose"),
           ("row_gather", "K9 row gather"),
           ("row_scatter", "K9 row gather backward (scatter-add)"),
           ("fused_nerf_bwd", "K7 field backward, pass 1"),
+          ("wgrad_tc", "K7 field backward, pass 2 (weights)"),
+          ("head_grads", "K7 field backward, pass 2 (weights)"),
           ("wgrad_kernel", "K7 field backward, pass 2 (weights)"),
           ("fused_nerf", "K6 fused field"),
           ("trilinear_grad_volume", "K4 volume lookup d/d volume"),
