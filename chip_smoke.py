@@ -45,8 +45,10 @@ sm_90a), then:
    eval chunk and training passes, and K7 (the tensor-core passes 1 and 2,
    whose SASS must hold HMMA; its TFLOP/s; its backward weight pack bit for
    bit; pass 1's recomputed output rows bit for bit equal to K6's; held to
-   the twin's backward at the forward values it ran at, its distance to the
-   twin's autograd logged) at the training passes, against their twins;
+   the twin's autograd with a criterion that the ReLU-kink noise passes,
+   and to the twin's backward at the forward values it ran at, which are
+   held to the twin's forward; each leaf's distance to a float64 twin
+   logged beside the float32 twin's) at the training passes;
    K9's backward is timed against the same
    work by the library (zeros, ``index_add_``, one rounding) and, on a line
    of its own, its bare launch against bare ``index_add_``;
@@ -86,6 +88,11 @@ TRAIN_STEPS = 5              # timed flagship training steps, after warm-up
 # rounding of an activation, a change of 2^-8 of that operand
 BF16_FIELD_TOL = 1e-3        # K6: of max(1, |output|)
 BF16_FIELD_GRAD_TOL = 2.0 ** -8   # K7: of each input's and each leaf's largest
+# K7's bf16 mode against the twin's autograd: where a ReLU input lies within
+# rounding noise of zero, the two forwards take different branches and that
+# point's gradient jumps (hold_bf16_backward)
+BF16_KINK_ROWS = 2.0 ** -9   # rows beyond BF16_FIELD_GRAD_TOL, share of the rows
+BF16_LEAF_PEAK = 2.0 ** -6   # a leaf's largest error, of its largest gradient
 
 
 def log(msg: str) -> None:
@@ -231,14 +238,14 @@ class Rows:
 
     def check(self, name, source, replaces, counter, kern, plain, library,
               tol, iters, moved_bytes, flops, relative=False, flops_bf16=0,
-              paths=("eval", "train"), held=None):
+              paths=("eval", "train"), verified=None):
         """``verify``, then time kern, plain and library; flops count
         float32 operations, flops_bf16 those on bf16 operands; paths names
-        the runs whose launches the row reports (eval first); held, if
-        given, is the (kernel, plain) pair that ``verify`` holds instead
-        of (kern, plain)."""
-        err, shapes = self.verify(name, *(held or (kern, plain)), tol,
-                                  relative)
+        the runs whose launches the row reports (eval first); verified, if
+        given, is the (error, shapes) of a check the caller made instead of
+        ``verify``."""
+        err, shapes = verified or self.verify(name, kern, plain, tol,
+                                              relative)
         with torch.no_grad():
             ms = cuda_ms(kern, iters)
             plain_ms = cuda_ms(plain, iters)
@@ -334,31 +341,192 @@ def check_field_forward(rows, name, system, field_inputs, tol, paths,
                    f32_ops, flops_bf16=bf16_ops, paths=paths)
 
 
+def step_inputs(system, batch, cfg, gen):
+    """The flagship training step's step-0 rays (drawn from gen), the
+    stacked t±1 points and the three field passes' inputs (field, inputs)
+    by label, as ``render_rays_train`` builds them."""
+    from zest_tpu_torch import render, sampling
+    from zest_tpu_torch.kernels import fused_mlp
+    from zest_tpu_torch.system import phase_for_step
+    phase = phase_for_step(cfg, 0)
+    draws = sampling.sample_draws(gen, cfg, cfg.img_h, cfg.img_w,
+                                  int(batch["motion_count"]), phase.extra_samples)
+    with torch.no_grad():
+        models = system.render_models(batch)
+        rays = system.train_rays(batch, draws, phase)
+        kw = system.render_kwargs(batch)
+        st_in = render.static_field_inputs(models, rays, kw["im_w2c_ref"])
+        dy_in = render.dynamic_field_inputs(models, rays, kw["nb_w2c_ref"],
+                                            kw["ref_frame_idx"])
+        raw_dy = fused_mlp.fused_nerf_forward(system.nerf_dynamic, *dy_in)
+        warped = torch.cat([rays.ndc + raw_dy[..., 4:7],
+                            rays.ndc + raw_dy[..., 7:10]]).contiguous()
+        dt = 2.0 / batch["total_frames"]
+        ones = torch.ones_like(rays.ndc[..., :1])
+        t_pp = torch.cat([ones * (kw["ref_frame_idx"] - dt),
+                          ones * (kw["ref_frame_idx"] + dt)])
+        col = dy_in[1][..., 8:]
+        pp_in = render._dynamic_inputs(models, warped, t_pp,
+                                       torch.cat([col, col]),
+                                       torch.cat([dy_in[2], dy_in[2]]),
+                                       warped=True)
+    return rays, warped, {"static": (system.nerf_static, st_in),
+                          "dynamic": (system.nerf_dynamic, dy_in),
+                          "t-1 / t+1": (system.nerf_dynamic, pp_in)}
+
+
+def float64_twin(field):
+    """The bf16 twin of field in float64: the same bf16 rounding of every
+    operand, float64 sums (the witness of the float32 evaluations)."""
+    from zest_tpu_torch.models.nerf import NeRFField
+    twin = NeRFField(field.depth, field.width, field.in_ch_pts,
+                     field.in_ch_views, field.in_ch_feat, field.skips,
+                     field.static, bf16=True).to(next(field.parameters()).device)
+    twin.load_state_dict({k: v.double() for k, v in field.state_dict().items()})
+    return twin.double()
+
+
+def grad_distance(got, ref, leaves) -> tuple:
+    """Distances of got to ref, each (d_pts, d_feats, d_views, d_pack):
+    ({name: (norm-wise relative error, largest error / largest |ref|)} for
+    the three inputs and every leaf of d_pack (``leaves(d_pack)`` gives
+    [(name, tensor)]), the count of points whose input-gradient row
+    differs by more than BF16_FIELD_GRAD_TOL of that input's largest)."""
+    out, beyond = {}, None
+    pairs = list(zip(("d_pts", "d_feats", "d_views"), got[:3], ref[:3]))
+    pairs += [(name, a, b) for (name, a), (_, b) in zip(leaves(got[3]),
+                                                        leaves(ref[3]))]
+    for name, a, b in pairs:
+        a, b = a.double(), b.double()
+        peak = max(float(b.abs().max()), 1e-300)
+        out[name] = (float((a - b).norm()) / max(float(b.norm()), 1e-300),
+                     float((a - b).abs().max()) / peak)
+        if name.startswith("d_"):
+            far = (a - b).abs().amax(1) > BF16_FIELD_GRAD_TOL * peak
+            beyond = far if beyond is None else beyond | far
+    return out, int(beyond.sum())
+
+
+def hold_bf16_backward(name, label, field, flat, g, pack, offsets):
+    """K7's bf16 mode on one pass, held three ways (the gates of phase 9):
+
+    1. to the twin's autograd, with a criterion that the ReLU-kink noise
+       passes: every input and every leaf within BF16_FIELD_GRAD_TOL
+       norm-wise; the rows beyond BF16_FIELD_GRAD_TOL of their input's
+       largest at most BF16_KINK_ROWS of the rows; every leaf's largest
+       error within BF16_LEAF_PEAK of its largest gradient;
+    2. to the twin's backward at the forward values K7 ran at, every input
+       and leaf to BF16_FIELD_GRAD_TOL of its largest; those values (cond,
+       every z_i, hv, the feature layer's output) are held to the twin's
+       own forward within BF16_FIELD_GRAD_TOL norm-wise and BF16_LEAF_PEAK
+       of their largest;
+    3. a float64 twin is the witness: each leaf's distance from K7 and from
+       the float32 twin to it is logged, and so are the ReLU masks and bf16
+       activations of K7's forward (K6's) and of the twin's that differ
+       from float64's.
+
+    Returns the largest norm-wise distance to the twin's autograd."""
+    from zest_tpu_torch.kernels import fused_mlp
+
+    def leaves(d_pack):
+        return fused_mlp.pack_leaves(field, d_pack, offsets)
+
+    n = flat[0].shape[0]
+    saved = {}
+    got = fused_mlp.fused_nerf_backward(field, *flat, g, pack, offsets,
+                                        saved=saved)
+    twin = fused_mlp.fused_nerf_backward_plain(field, *flat, g)
+    wide = float64_twin(field)
+    flat64 = [t.double() for t in flat]
+    exact = fused_mlp.fused_nerf_backward_plain(wide, *flat64, g.double())
+    with torch.no_grad():
+        at = fused_mlp.fused_nerf_backward_at_plain(field, saved, *flat, g)
+        fwd = fused_mlp.forward_values_plain(field, *flat)
+        fwd64 = fused_mlp.forward_values_plain(wide, *flat64)
+    torch.cuda.synchronize()
+    to_twin, beyond = grad_distance(got, twin, leaves)
+    to_exact, _ = grad_distance(got, exact, leaves)
+    twin_exact, twin_beyond = grad_distance(twin, exact, leaves)
+    at_own, _ = grad_distance(got, at, leaves)
+    del got, twin, exact, at
+
+    failures = []
+    for leaf, (norm, peak) in to_twin.items():
+        if not norm <= BF16_FIELD_GRAD_TOL:
+            failures.append(f"{leaf} {norm:.3e} norm-wise from the twin")
+        if not (leaf.startswith("d_") or peak <= BF16_LEAF_PEAK):
+            failures.append(f"{leaf} {peak:.3e} of its largest from the twin")
+        if not at_own[leaf][1] <= BF16_FIELD_GRAD_TOL:
+            failures.append(f"{leaf} {at_own[leaf][1]:.3e} from the twin's "
+                            f"backward at K7's forward values")
+    rows_cap = BF16_KINK_ROWS * n
+    if not beyond <= rows_cap:
+        failures.append(f"{beyond} rows beyond "
+                        f"{BF16_FIELD_GRAD_TOL:g} (cap {rows_cap:.0f})")
+    values = [("cond", saved["cond"], fwd["cond"]),
+              ("hv", saved["hv"], fwd["hv"]),
+              ("feature", saved["feature"].float(), fwd["feature"].float())]
+    values += [(f"z{i}", a, b) for i, (a, b) in enumerate(zip(saved["z"],
+                                                                fwd["z"]))]
+    worst_value = 0.0
+    for what, a, b in values:
+        norm = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        peak = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst_value = max(worst_value, norm)
+        if not (norm <= BF16_FIELD_GRAD_TOL and peak <= BF16_LEAF_PEAK):
+            failures.append(f"forward value {what}: {norm:.3e} norm-wise, "
+                            f"{peak:.3e} of its largest from the twin's")
+    # the forward's decisions against float64's: ReLU masks and the bf16
+    # activations the next products read
+    flips = {"K7": [0, 0], "twin": [0, 0]}
+    for i, z64 in enumerate(fwd64["z"]):
+        a64 = z64 * fwd64["cond"]
+        h64 = torch.relu(a64).to(torch.bfloat16)
+        for who, vals in (("K7", saved), ("twin", fwd)):
+            a = vals["z"][i] * vals["cond"]
+            flips[who][0] += int(((a > 0) != (a64 > 0)).sum())
+            flips[who][1] += int((torch.relu(a).to(torch.bfloat16) != h64).sum())
+    units = n * field.width * len(fwd64["z"])
+    del saved, fwd, fwd64, wide, flat64
+
+    worst = max(norm for norm, _ in to_twin.values())
+    log(f"[backward] {name} {label}: to the twin's autograd, largest "
+        f"norm-wise error {worst:.3e}"
+        f" (tol {BF16_FIELD_GRAD_TOL:g}), rows beyond {BF16_FIELD_GRAD_TOL:g}"
+        f" of their input's largest {beyond} of {n} (cap {rows_cap:.0f}; "
+        f"the float32 twin to float64: {twin_beyond}); to the twin's "
+        f"backward at K7's own forward values, largest error "
+        f"{max(peak for _, peak in at_own.values()):.3e} of "
+        f"the largest (tol {BF16_FIELD_GRAD_TOL:g}); those values to the "
+        f"twin's forward {worst_value:.3e} norm-wise")
+    log(f"[backward] {name} {label}: of {units} trunk units, ReLU masks that "
+        f"differ from float64's: K7 (K6's forward) {flips['K7'][0]}, twin "
+        f"{flips['twin'][0]}; bf16 activations that differ: K7 "
+        f"{flips['K7'][1]}, twin {flips['twin'][1]}")
+    log(f"[backward] {name} {label}: per input and leaf, norm-wise / largest "
+        f"error of the largest: K7 to twin | K7 to float64 | twin to float64")
+    for leaf, (norm, peak) in to_twin.items():
+        log(f"[backward]   {leaf}: {norm:.2e} / {peak:.2e} | "
+            f"{to_exact[leaf][0]:.2e} / {to_exact[leaf][1]:.2e} | "
+            f"{twin_exact[leaf][0]:.2e} / {twin_exact[leaf][1]:.2e}")
+    if failures:
+        raise AssertionError(f"{name} {label}: " + "; ".join(failures))
+    return worst
+
+
 def check_field_backward(rows, name, passes, gen, tol, paths,
                          source="zest_tpu_torch/csrc/fused_mlp.cu"):
     """K7 on the step's field passes against autograd through the twin, with
-    a random output gradient; d_pack is held leaf by leaf, each weight and
-    bias to tol of its own largest element. The bf16 mode takes its gradient
-    at K6's forward, whose float32 sums are the tensor cores': it is held to
-    the twin's backward at the forward values it ran at (one chunk), and its
-    distance to the twin's autograd (where a ReLU input within rounding
-    noise of zero takes the other branch) is logged; the time is the
-    default chunks' against the twin's autograd."""
+    a random output gradient: at float32 d_pack is held leaf by leaf, each
+    weight and bias to tol of its own largest element; the bf16 mode as
+    ``hold_bf16_backward`` holds it. The time is the default chunks'
+    against the twin's autograd."""
     from zest_tpu_torch.kernels import fused_mlp
 
     def leafwise(field, offsets, grads):
         d_pts, d_feats, d_views, d_pack = grads
         return (d_pts, d_feats, d_views,
                 *(t for _, t in fused_mlp.pack_leaves(field, d_pack, offsets)))
-
-    def at_its_forward(field, flat, g, pack, offsets):
-        """(K7 in one chunk keeping its forward values, the twin's backward
-        at those values), each as leafwise tensors"""
-        saved = {}
-        got = fused_mlp.fused_nerf_backward(field, *flat, g, pack, offsets,
-                                            saved=saved)
-        ref = fused_mlp.fused_nerf_backward_at_plain(field, saved, *flat, g)
-        return leafwise(field, offsets, got), leafwise(field, offsets, ref)
 
     for label, (field, inputs) in passes.items():
         flat = [t.reshape(-1, t.shape[-1]).contiguous() for t in inputs]
@@ -373,27 +541,19 @@ def check_field_backward(rows, name, passes, gen, tol, paths,
         plain = lambda: leafwise(field, offsets,
                                  fused_mlp.fused_nerf_backward_plain(
                                      field, *flat, g))
-        held = None
+        verified = None
         if field.bf16:
-            with torch.no_grad():
-                pair = at_its_forward(field, flat, g, pack, offsets)
-            held = (lambda: pair[0], lambda: pair[1])
-            worst, flipped = 0.0, 0
-            for a, b in zip(pair[0][:3], plain()[:3]):
-                row = (a - b).abs().amax(1) / float(b.abs().max())
-                worst = max(worst, float(row.max()))
-                flipped += int((row > tol).sum())
-            log(f"[backward] {name} {label}: against the twin's autograd, "
-                f"largest error {worst:.3e} of the largest gradient; rows "
-                f"beyond {tol:g}: {flipped} (their ReLU inputs lie within "
-                f"rounding noise of zero)")
+            err = hold_bf16_backward(name, label, field, flat, g, pack,
+                                     offsets)
+            verified = (err, [tuple(t.shape) for t in flat])
         rows.check(name, source,
                    "zest_tpu/kernels/fused_mlp.py:398", "fused_nerf_backward",
                    kern, plain, None, tol, 2,
                    2 * nbytes(*flat) + nbytes(g) + 2 * nbytes(pack), f32_ops,
-                   relative=True, flops_bf16=bf16_ops, paths=paths, held=held)
-        del held
+                   relative=True, flops_bf16=bf16_ops, paths=paths,
+                   verified=verified)
         field.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
 
 
 def forward_kernels(rows, dev, cfg, system, batch):
@@ -559,7 +719,6 @@ def backward_kernels(rows, dev, cfg, system, batch):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     near_far = batch["near_fars"][0]
-    from zest_tpu_torch.tools.field_grad_census import step_inputs
     rays, warped, passes = step_inputs(system, batch, cfg, gen)
     with torch.no_grad():
         static_vol, _, _ = system.enc_static(batch["images"][:-1],
@@ -836,7 +995,6 @@ def bf16_kernels(rows, dev, cfg, system, batch):
         f"TFLOP/s (timed only)")
     del a, b, field_inputs
 
-    from zest_tpu_torch.tools.field_grad_census import step_inputs
     _, warped, passes = step_inputs(system, batch, cfg, gen)
     # K6 bf16 on the step's three field passes too (held, not timed: the
     # row's time is the eval chunk's), and the bf16 weight packs of K6 and

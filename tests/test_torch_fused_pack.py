@@ -22,21 +22,20 @@ the float32 pack's own layout) that one product reads, rounded to bf16, in
 
 - Every matrix read back from it equals the rounded rows of ``weight.T``,
   bit for bit, and it is made from the float32 pack it is given.
-- The gradients computed from both packs as K7's bf16 mode computes them
-  (every product with bf16 operands and float32 sums, d_z rounded as an
-  operand, the bias gradients summed from the float32 d_z, cond, z, the
-  masks and the heads in float32) agree with the VJP of ``zest_tpu``'s
-  ``fused_nerf_apply(..., approx=True)`` (Pallas, interpret mode) on the same
-  weights: every input gradient and every weight and bias gradient to 1e-3
-  of its own largest, as the twin is held (a float32 sum in another order
-  can flip the bf16 rounding of one activation).
 - The bf16 twin's backward evaluated at given forward values
   (``fused_nerf_backward_at_plain``, the plain version the card holds K7's
-  bf16 mode to, at the values K7 ran at), given the twin's own forward
-  values (``forward_values_plain``), equals the twin's autograd, both in
-  float64, to 1e-9 of each input's and each leaf's largest gradient (the
-  same products; autograd adds some sums, cond's eight gradients among
-  them, in another order).
+  bf16 mode to, at the values K7 ran at), at the twin's own forward values
+  (``forward_values_plain``): every product with bf16 operands and float32
+  sums, d_z rounded as an operand, the bias gradients summed from the
+  float32 d_z, cond, z, the masks and the heads in float32. It agrees with
+  the VJP of ``zest_tpu``'s ``fused_nerf_apply(..., approx=True)`` (Pallas,
+  interpret mode) on the same weights, every input gradient and every
+  weight and bias gradient to 1e-3 of its own largest, as the twin is held
+  (a float32 sum in another order can flip the bf16 rounding of one
+  activation); and it equals the twin's autograd, both in float64, to 1e-9
+  of each input's and each leaf's largest gradient (the same products;
+  autograd adds some sums, cond's eight gradients among them, in another
+  order).
 - The wrapper routes the bf16 mode to the tensor-core entry
   (``zt_fused_nerf_backward_tc``), with the forward's bf16 pack when it is
   given, and the float32 mode to the SIMT entry (checked with meta tensors
@@ -234,84 +233,6 @@ def test_bwd_pack_is_made_from_the_float32_pack(static):
                        pack_bf16_bwd_plain(field, f32, offsets)[0])
 
 
-def _grads_from_packs(field, pts, feats, views, g):
-    """The field's gradients as K7's bf16 mode computes them from K6's pack
-    (the forward recompute) and the backward pack (the input gradients):
-    (d_pts, d_feats, d_views, {parameter name: gradient})."""
-    fwd = [m.float() for _, _, m in _matrices(field)]
-    bwd = iter([m.float() for _, _, m in _bwd_matrices(field)])
-    depth, skips = len(field.pts_linears), field.skips
-
-    def rcat(*xs):
-        return torch.cat([F.pad(round_bf16(x), (0, _pad16(x.shape[-1])
-                                                - x.shape[-1])) for x in xs], -1)
-
-    def mm(i, lin, *xs):
-        return rcat(*xs) @ fwd[i].T + lin.bias
-
-    def d_in(d):                          # d_z @ W with bf16 operands
-        return round_bf16(d) @ next(bwd).T
-
-    grads = {}
-
-    def wgrad(lin, d, *xs, bf16=True):
-        x = torch.cat(xs, -1)
-        grads[lin] = ((round_bf16(d).T @ round_bf16(x)) if bf16 else d.T @ x,
-                      d.sum(0))
-
-    cond = mm(0, field.pts_bias, feats)
-    h, zs, ins = pts, [], []
-    for i, lin in enumerate(field.pts_linears):
-        ins.append((pts,) if i == 0 else (pts, h) if i - 1 in skips else (h,))
-        zs.append(mm(1 + i, lin, *ins[-1]))
-        h = torch.relu(zs[-1] * cond)
-    if field.static:
-        heads = [(field.w_linear, torch.sigmoid)]
-    else:
-        heads = [(field.sf_linear, torch.tanh),
-                 (field.prob_linear, torch.sigmoid)]
-    feature = mm(depth + 1, field.feature_linear, h)
-    hv = torch.relu(mm(depth + 2, field.views_linears[0], feature, views))
-
-    g_rgb, g_alpha, col = g[:, :3], g[:, 3:4], 4
-    d_h = g_alpha @ field.alpha_linear.weight
-    wgrad(field.alpha_linear, g_alpha, h, bf16=False)
-    for lin, act in heads:
-        e = act(lin(h))
-        ge = g[:, col:col + lin.out_features]
-        ge = ge * (e * (1 - e) if act is torch.sigmoid else 1 - e * e)
-        col += lin.out_features
-        d_h = d_h + ge @ lin.weight
-        wgrad(lin, ge, h, bf16=False)
-    wgrad(field.rgb_linear, g_rgb, hv, bf16=False)
-    d_hv = (g_rgb @ field.rgb_linear.weight) * (hv > 0)
-    d_views = d_in(d_hv)
-    d_feature = d_in(d_hv)
-    wgrad(field.views_linears[0], d_hv, feature, views)
-    d_h = d_h + d_in(d_feature)
-    wgrad(field.feature_linear, d_feature, h)
-    d_cond = torch.zeros_like(cond)
-    d_pts = torch.zeros_like(pts)
-    for i in reversed(range(depth)):
-        z = zs[i]
-        d_a = d_h * (z * cond > 0)
-        d_cond = d_cond + d_a * z
-        d_z = d_a * cond
-        wgrad(field.pts_linears[i], d_z, *ins[i])
-        if i == 0 or i - 1 in skips:
-            d_pts = d_pts + d_in(d_z)
-        if i > 0:
-            d_h = d_in(d_z)
-    d_feats = d_in(d_cond)
-    wgrad(field.pts_bias, d_cond, feats)
-    assert next(bwd, None) is None
-    names = {id(m): n for n, m in field.named_modules()}
-    out = {}
-    for lin, (dw, db) in grads.items():
-        out[f"{names[id(lin)]}.weight"], out[f"{names[id(lin)]}.bias"] = dw, db
-    return d_pts, d_feats, d_views, out
-
-
 @pytest.mark.parametrize("static", [True, False])
 def test_pack_gradients_match_approx_kernel(static):
     P, F_, V = LAYOUTS[static]
@@ -331,20 +252,25 @@ def test_pack_gradients_match_approx_kernel(static):
     _, vjp = jax.vjp(lambda v, *x: fused_nerf_apply(jfield, v, *x, approx=True),
                      variables, *map(jnp.asarray, inputs))
     d_vars, *d_ins = vjp(jnp.asarray(g))
-    with torch.no_grad():
-        *got, leaves = _grads_from_packs(field, *map(torch.from_numpy, inputs),
-                                         torch.from_numpy(g))
+    pts, feats, views = map(torch.from_numpy, inputs)
+    saved = forward_values_plain(field, pts, feats, views)
+    *got, d_pack = fused_nerf_backward_at_plain(field, saved, pts, feats,
+                                                views, torch.from_numpy(g))
     for name, a, b in zip(("pts", "feats", "views"), got, d_ins):
         b = np.asarray(b)
         assert np.abs(a.numpy() - b).max() <= 1e-3 * np.abs(b).max(), name
     ref = from_jax_params({"nerf_static": jax.tree.map(np.asarray, d_vars)})
+    _, offsets = pack_weights(field)
+    leaves = dict(pack_leaves(field, d_pack, offsets))
     assert set(leaves) == {n for n, _ in field.named_parameters()}
     for name, a in leaves.items():
         b = ref[f"nerf_static.{name}"].numpy()
+        if name.endswith(".weight"):
+            b = b.T                           # the pack holds weight.T
         assert np.abs(a.numpy() - b).max() <= 1e-3 * np.abs(b).max(), name
 
 
-@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("width", [64, 128, 256])
 @pytest.mark.parametrize("static", [True, False])
 @pytest.mark.parametrize("skips", [(4,), ()])
 def test_backward_at_forward_values_matches_autograd(width, static, skips):

@@ -3,7 +3,7 @@ their refusal to run without a CUDA device, and their --precision flag."""
 import pytest
 import torch
 
-from zest_tpu_torch.tools import field_grad_census, profile_eval, profile_train
+from zest_tpu_torch.tools import profile_eval, profile_train
 
 
 @pytest.mark.parametrize("intervals,busy", [
@@ -63,8 +63,7 @@ def test_train_kernel_groups(name, group):
     assert profile_eval.group_of(name, profile_train.GROUPS) == group
 
 
-@pytest.mark.parametrize("tool", [profile_eval, profile_train,
-                                  field_grad_census])
+@pytest.mark.parametrize("tool", [profile_eval, profile_train])
 def test_tools_refuse_without_cuda_at_either_precision(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tool.main(["--precision", "16"]) == 2
