@@ -14,7 +14,13 @@ sm_90a), then:
 3. holds each forward kernel against its plain PyTorch twin on the card, on
    the first chunk's inputs of the flagship eval (both fields' inputs as
    ``render_rays`` builds them, [16384, 128, ch]), and times kernel, twin and
-   the one library call that computes the same function, with CUDA events;
+   the one library call that computes the same function, with CUDA events.
+   The field K6 runs on the tensor cores at float32 as 3xTF32: its SASS must
+   hold HMMA at every width, its float32 operand pack must equal its twin
+   bit for bit, and on the chunk it must be within max(8 x the float32
+   twin's own norm-wise distance from a float64 twin, 2^-20) of that
+   float64 twin (float32-class, not one TF32 product); its TFLOP/s is
+   printed beside a float32 ``torch.matmul`` of a trunk layer's shape;
 4. runs the eval step at a small configuration on CUDA (the kernels) and on
    the CPU (the twins) with the same seeded weights, and compares every map;
 5. runs the flagship eval step (288x512, 8 keyframes + target, 4 neighbours,
@@ -25,7 +31,8 @@ sm_90a), then:
 6. holds each backward kernel (warp K2, volume K4, coordinates K5, field K7)
    against its twin's autograd at the flagship training step's own inputs
    (the step's rays, encoding volumes and field inputs, a random output
-   gradient), and times kernel, twin and library call;
+   gradient), and times kernel, twin and library call; holds K6 on the
+   step's three float32 field passes, each beside a float64 twin;
 7. runs the training step at a small configuration on CUDA and on the CPU
    from the same weights and draws, in both phases (motion-mask rays; the
    chain pass), and compares the loss, every log, every gradient and the
@@ -82,6 +89,13 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12     # bf16 operands, float32 sums (tensor cores)
+TF32_FLOP_PER_S = 494.7e12   # TF32 operands, dense (tensor cores); 3xTF32
+#                              takes three of them per float32 product
+# K6's float32 mode against a float64 twin, norm-wise: within this many
+# times the float32 twin's own distance, or F32_CLASS_FLOOR (one TF32
+# product, ~11 bits of each operand, is ~1e-4 away)
+F32_CLASS_FACTOR = 8
+F32_CLASS_FLOOR = 2.0 ** -20
 TRAIN_STEPS = 5              # timed flagship training steps, after warm-up
 # bf16-operand field kernels against their twins: both round the same
 # operands, but a float32 sum taken in another order can flip one bf16
@@ -120,7 +134,9 @@ def build() -> None:
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log("[build] " + line.strip())
     lib = _build.library()
-    for kernel, smem in (("fused_nerf_tc_kernel", lib.zt_fused_nerf_forward_tc_smem),
+    for kernel, smem in (("fused_nerf_tc32_kernel",
+                          lib.zt_fused_nerf_forward_tc32_smem),
+                         ("fused_nerf_tc_kernel", lib.zt_fused_nerf_forward_tc_smem),
                          ("fused_nerf_bwd_tc_kernel",
                           lib.zt_fused_nerf_backward_tc_smem)):
         log(f"[build] {kernel}<256> dynamic shared memory per block: static "
@@ -203,6 +219,12 @@ def read_counters() -> dict:
     return {k: fn.launches for k, fn in counters().items()}
 
 
+def ops_seconds(f32: float, bf16: float, tf32: float) -> float:
+    """The least time of these operations at the card's peak rate for each
+    operand type."""
+    return f32 / F32_FLOP_PER_S + bf16 / BF16_FLOP_PER_S + tf32 / TF32_FLOP_PER_S
+
+
 class Rows:
     """One JSON row per kernel; a kernel checked on several inputs (both
     field layouts, the passes of a step) sums its times and its bound."""
@@ -238,12 +260,12 @@ class Rows:
 
     def check(self, name, source, replaces, counter, kern, plain, library,
               tol, iters, moved_bytes, flops, relative=False, flops_bf16=0,
-              paths=("eval", "train"), verified=None):
+              paths=("eval", "train"), verified=None, flops_tf32=0):
         """``verify``, then time kern, plain and library; flops count
-        float32 operations, flops_bf16 those on bf16 operands; paths names
-        the runs whose launches the row reports (eval first); verified, if
-        given, is the (error, shapes) of a check the caller made instead of
-        ``verify``."""
+        float32 operations, flops_bf16 those on bf16 operands, flops_tf32
+        those on TF32 operands; paths names the runs whose launches the row
+        reports (eval first); verified, if given, is the (error, shapes) of
+        a check the caller made instead of ``verify``."""
         err, shapes = verified or self.verify(name, kern, plain, tol,
                                               relative)
         with torch.no_grad():
@@ -251,7 +273,7 @@ class Rows:
             plain_ms = cuda_ms(plain, iters)
             lib_ms = cuda_ms(library, iters) if library is not None else None
         bound_ms = 1e3 * max(moved_bytes / HBM_BYTES_PER_S,
-                             flops / F32_FLOP_PER_S + flops_bf16 / BF16_FLOP_PER_S)
+                             ops_seconds(flops, flops_bf16, flops_tf32))
         log(f"[kernel] {name}: shapes {shapes} max_abs_err {err:.3e} "
             f"(tol {tol:g}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"library {'-' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
@@ -259,7 +281,7 @@ class Rows:
         row = self.rows.setdefault(name, dict(
             name=name, route="cuda", source=source, replaces=replaces,
             counter=counter, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-            bytes=0, flops=0, flops_bf16=0, paths=paths,
+            bytes=0, flops=0, flops_bf16=0, flops_tf32=0, paths=paths,
             library_ms=0.0 if library is not None else None))
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
@@ -267,6 +289,7 @@ class Rows:
         row["bytes"] += moved_bytes
         row["flops"] += flops
         row["flops_bf16"] += flops_bf16
+        row["flops_tf32"] += flops_tf32
         if lib_ms is not None:
             row["library_ms"] += lib_ms
 
@@ -278,8 +301,8 @@ class Rows:
         rows = []
         for r in self.rows.values():
             b_ms = 1e3 * r["bytes"] / HBM_BYTES_PER_S
-            o_ms = 1e3 * (r["flops"] / F32_FLOP_PER_S
-                          + r["flops_bf16"] / BF16_FLOP_PER_S)
+            o_ms = 1e3 * ops_seconds(r["flops"], r["flops_bf16"],
+                                     r["flops_tf32"])
             c = r["counter"]
             eval_path, train_path = r["paths"]
             path = eval_path if launches[eval_path][c] else train_path
@@ -294,19 +317,25 @@ class Rows:
         return rows
 
 
-def field_ops(field, n: int, passes: int) -> tuple:
-    """(float32, bf16-operand) operations of `passes` products per weight on
-    n points: one multiply-add per weight and point in each product; in the
-    bf16-operand mode only the heads keep float32 operands."""
+def field_ops(field, n: int, passes: int, tf32: bool) -> tuple:
+    """(float32, bf16-operand, TF32-operand) operations of `passes` products
+    per weight on n points: one multiply-add per weight and point in each
+    product. Where the products run on the tensor cores only the heads keep
+    float32 operands: the bf16-operand mode's products take bf16 operands,
+    the float32 mode's, with tf32 set (K6; K7's float32 mode runs on the
+    CUDA cores), three TF32 products each (3xTF32)."""
     macs = sum(m.weight.numel() for m in field.modules()
                if isinstance(m, torch.nn.Linear))
-    if not field.bf16:
-        return 2 * passes * n * macs, 0
+    if not (field.bf16 or tf32):
+        return 2 * passes * n * macs, 0, 0
     heads = [field.alpha_linear, field.rgb_linear]
     heads += [field.w_linear] if field.static else [field.sf_linear,
                                                     field.prob_linear]
     head = sum(m.weight.numel() for m in heads)
-    return 2 * passes * n * head, 2 * passes * n * (macs - head)
+    products = 2 * passes * n * (macs - head)
+    if field.bf16:
+        return 2 * passes * n * head, products, 0
+    return 2 * passes * n * head, 0, 3 * products
 
 
 def chunk_inputs(system, batch):
@@ -324,21 +353,61 @@ def chunk_inputs(system, batch):
 
 
 def check_field_forward(rows, name, system, field_inputs, tol, paths,
-                        source="zest_tpu_torch/csrc/fused_mlp.cu"):
+                        source="zest_tpu_torch/csrc/fused_mlp_tc32.cu"):
     """K6 on both fields' chunk inputs; the twin is the field module itself;
     no single library call computes a field."""
     from zest_tpu_torch.kernels.fused_mlp import fused_nerf_forward
     for kind, inputs in field_inputs.items():
         field = getattr(system, f"nerf_{kind}")
         n = inputs[0].numel() // inputs[0].shape[-1]
-        f32_ops, bf16_ops = field_ops(field, n, 1)
+        f32_ops, bf16_ops, tf32_ops = field_ops(field, n, 1, True)
         rows.check(name, source,
                    "zest_tpu/kernels/fused_mlp.py:376", "fused_nerf_forward",
                    functools.partial(fused_nerf_forward, field, *inputs),
                    functools.partial(field, *inputs), None, tol, 3,
                    nbytes(*inputs) + 4 * n * field.out_ch
                    + 4 * sum(p.numel() for p in field.parameters()),
-                   f32_ops, flops_bf16=bf16_ops, paths=paths)
+                   f32_ops, flops_bf16=bf16_ops, paths=paths,
+                   flops_tf32=tf32_ops)
+
+
+def float64_distances(field, inputs, outs, rows=1 << 18) -> list:
+    """Norm-wise distance of each of outs (the field's outputs on inputs)
+    from ``float64_twin(field)``'s output, computed in slices of `rows`
+    points."""
+    wide = float64_twin(field)
+    flat = [t.reshape(-1, t.shape[-1]) for t in inputs]
+    n = flat[0].shape[0]
+    num, den = [0.0] * len(outs), 0.0
+    with torch.no_grad():
+        for s in range(0, n, rows):
+            ref = wide(*(t[s:s + rows].double() for t in flat))
+            den += float((ref * ref).sum())
+            for i, out in enumerate(outs):
+                d = out.reshape(n, -1)[s:s + rows].double() - ref
+                num[i] += float((d * d).sum())
+            del ref
+    return [(x / den) ** 0.5 for x in num]
+
+
+def float32_class(label, field, inputs, gate) -> tuple:
+    """K6's float32 mode (3xTF32) and the float32 twin on one field's
+    inputs, each against a float64 twin, norm-wise; with gate, fails unless
+    K6 is within max(F32_CLASS_FACTOR x the twin's, F32_CLASS_FLOOR).
+    Returns (K6's distance, the twin's)."""
+    from zest_tpu_torch.kernels.fused_mlp import fused_nerf_forward
+    with torch.no_grad():
+        out = fused_nerf_forward(field, *inputs)
+        twin = field(*inputs)
+    got, own = float64_distances(field, inputs, (out, twin))
+    limit = max(F32_CLASS_FACTOR * own, F32_CLASS_FLOOR)
+    log(f"[kernel] fused_nerf {label}: norm-wise from a float64 twin {got:.3e}"
+        f", the float32 twin's {own:.3e}"
+        + (f" (limit {limit:.3e}) -> ok" if gate else ""))
+    if gate and not got <= limit:
+        raise AssertionError(f"K6 float32 on {label}: {got} from float64, "
+                             f"limit {limit}")
+    return got, own
 
 
 def step_inputs(system, batch, cfg, gen):
@@ -376,12 +445,14 @@ def step_inputs(system, batch, cfg, gen):
 
 
 def float64_twin(field):
-    """The bf16 twin of field in float64: the same bf16 rounding of every
-    operand, float64 sums (the witness of the float32 evaluations)."""
+    """The twin of field in float64, the witness of the float32 evaluations:
+    float64 sums, and in the bf16-operand mode the same bf16 rounding of
+    every operand."""
     from zest_tpu_torch.models.nerf import NeRFField
     twin = NeRFField(field.depth, field.width, field.in_ch_pts,
                      field.in_ch_views, field.in_ch_feat, field.skips,
-                     field.static, bf16=True).to(next(field.parameters()).device)
+                     field.static,
+                     bf16=field.bf16).to(next(field.parameters()).device)
     twin.load_state_dict({k: v.double() for k, v in field.state_dict().items()})
     return twin.double()
 
@@ -534,7 +605,7 @@ def check_field_backward(rows, name, passes, gen, tol, paths,
         g = torch.randn((n, field.out_ch), generator=gen, device=flat[0].device)
         with torch.no_grad():
             pack, offsets = fused_mlp.pack_weights(field)
-        f32_ops, bf16_ops = field_ops(field, n, 3)
+        f32_ops, bf16_ops, _ = field_ops(field, n, 3, False)
         log(f"[backward] {name} {label}: {n} points")
         kern = lambda: leafwise(field, offsets, fused_mlp.fused_nerf_backward(
             field, *flat, g, pack, offsets))
@@ -562,6 +633,7 @@ def forward_kernels(rows, dev, cfg, system, batch):
     import torch.nn.functional as F
 
     from zest_tpu_torch import geometry
+    from zest_tpu_torch.kernels import fused_mlp
     from zest_tpu_torch.kernels.color_gather import (gather_colors,
                                                      gather_colors_plain)
     from zest_tpu_torch.kernels.plane_sweep import homo_warp_cm, homo_warp_cm_plain
@@ -628,9 +700,39 @@ def forward_kernels(rows, dev, cfg, system, batch):
                1e-5, 20, 12 * image_pixels(xy, H, W) + nbytes(xy)
                + 12 * xy.shape[0] * xy.shape[1], 24 * xy.shape[0] * xy.shape[1])
 
-    # K6: both fields on the chunk's inputs
+    # K6: both fields on the chunk's inputs, on the tensor cores as 3xTF32
+    mma = sass_has_mma("fused_nerf_tc32_kernel")
+    log(f"[kernel] tensor-core instructions (HMMA / HGMMA) per instantiation "
+        f"of fused_nerf_tc32_kernel: {sorted(mma.values())}")
+    if len(mma) != 3 or min(mma.values()) == 0:
+        raise AssertionError(f"fused_nerf_tc32_kernel without HMMA: {mma}")
     check_field_forward(rows, "fused_nerf", system, field_inputs, 1e-4,
                         ("eval", "train"))
+    for kind, inputs in field_inputs.items():
+        field = getattr(system, f"nerf_{kind}")
+        float32_class(f"{kind} field, eval chunk", field, inputs, True)
+        with torch.no_grad():
+            pack, offsets = fused_mlp.pack_weights(field)
+            same = torch.equal(fused_mlp.pack_tc32(field, pack, offsets),
+                               fused_mlp.pack_tc32_plain(field, pack,
+                                                         offsets)[0])
+        if not same:
+            raise AssertionError(f"K6's float32 operand pack of the {kind} "
+                                 f"field differs from its twin")
+    row = rows.rows["fused_nerf"]
+    useful = row["flops_tf32"] / 3
+    n = field_inputs["static"][0].numel() // field_inputs["static"][0].shape[-1]
+    a = torch.randn((n, 256), generator=gen, device=dev)
+    b = torch.randn((256, 256), generator=gen, device=dev)
+    mm_ms = cuda_ms(lambda: torch.matmul(a, b), 5)
+    log(f"[kernel] K6 float32 on the chunk: {row['ms']:.3f} ms, "
+        f"{useful / row['ms'] / 1e9:.1f} TFLOP/s of float32 products "
+        f"({3 * useful / row['ms'] / 1e9:.1f} TFLOP/s of TF32 products, "
+        f"3xTF32); its float32 operand packs equal their twins; yardstick "
+        f"torch.matmul float32 [{n}, 256] @ [256, 256] (a trunk layer, TF32 "
+        f"off): {mm_ms:.3f} ms, {2 * n * 256 * 256 / mm_ms / 1e9:.1f} TFLOP/s "
+        f"(timed only)")
+    del a, b
 
 
 def small_slice(dev):
@@ -729,6 +831,17 @@ def backward_kernels(rows, dev, cfg, system, batch):
     R, S = rays.ndc.shape[:2]
     log(f"[backward] R = {R} rays of {S} samples; volumes "
         f"{tuple(static_vol.shape)}, {tuple(dyn_vol.shape)}")
+
+    # K6 on the step's three float32 field passes (held, not timed: the
+    # row's time is the eval chunk's), each beside a float64 twin
+    from zest_tpu_torch.kernels.fused_mlp import fused_nerf_forward
+    for label, (field, inputs) in passes.items():
+        err, shapes = rows.verify(
+            "fused_nerf", functools.partial(fused_nerf_forward, field, *inputs),
+            functools.partial(field, *inputs), 1e-4)
+        log(f"[kernel] fused_nerf on the training pass {label}: shapes "
+            f"{shapes} max_abs_err {err:.3e} (tol 1e-4) -> ok")
+        float32_class(f"training pass {label}", field, inputs, False)
 
     # K7: the field backward on the three passes of a step
     check_field_backward(rows, "fused_nerf_backward", passes, gen, 1e-4,

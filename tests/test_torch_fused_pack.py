@@ -1,8 +1,10 @@
-"""The bf16 weight pack of K6's tensor-core kernel (``csrc/fused_mlp_tc.cu``),
-on the CPU: ``pack_bf16_plain``, the twin of the pack kernel, lays every
-bf16-operand matrix of the float32 pack out as ``nn.Linear`` stores it,
-[out][in], rounded to bf16, each K part zero padded to a multiple of 16, the
-matrices back to back in ``bf16_layout``'s order.
+"""The operand packs of K6's tensor-core kernels, on the CPU.
+
+``pack_bf16_plain``, the twin of the bf16 mode's pack kernel
+(``csrc/fused_mlp_tc.cu``), lays every bf16-operand matrix of the float32
+pack out as ``nn.Linear`` stores it, [out][in], rounded to bf16, each K part
+zero padded to a multiple of 16, the matrices back to back in
+``tc_layout``'s order.
 
 - Every matrix read back from the pack equals ``round_bf16(lin.weight)``
   part by part, bit for bit, and every padding column is zero.
@@ -13,6 +15,26 @@ matrices back to back in ``bf16_layout``'s order.
   heads) agrees with ``zest_tpu``'s ``fused_nerf_apply(..., approx=True)``
   (Pallas, interpret mode) on the same weights as the twin does: rtol 1e-4,
   atol 1e-5 (both round the same operands; the sums differ only in order).
+
+``pack_tc32_plain``, the twin of the float32 mode's pack kernel
+(``csrc/fused_mlp_tc32.cu``), lays the same matrices out in float32, each K
+part zero padded to a multiple of 8 (the depth of mma m16n8k8 TF32).
+
+- Every matrix read back from it equals ``lin.weight`` part by part, bit for
+  bit, every padding column is zero, and it is made from the float32 pack it
+  is given.
+- The field computed from it as the kernel computes it, 3xTF32: every
+  operand split into big = tf32(x) and small = tf32(x - big), rounded to
+  TF32 by bits as ``cvt.rna.tf32.f32`` does (to nearest, ties away from
+  zero), and per k8 step small x big, then big x small, then big x big added
+  into one float32 sum. It agrees with ``zest_tpu``'s ``fused_nerf_apply(...,
+  approx=False)`` (Pallas, interpret mode) at 1e-4 of max(1, |out|). That
+  tolerance alone would pass one TF32 product at width 256, so the same
+  field is also held to a float64 twin at 2^-20 norm-wise (three TF32
+  products keep ~22 bits of each operand), which one TF32 product (big x
+  big alone, ~11 bits) misses.
+- The forward wrapper routes each mode to its pack and tensor-core entry
+  (a stand-in for the kernel library, as below).
 
 K7's backward pack (``csrc/fused_mlp_tc_bwd.cu``), the B operand of its
 input-gradient products d_x = d_z @ W: ``pack_bf16_bwd_plain``, the twin of
@@ -41,6 +63,9 @@ the float32 pack's own layout) that one product reads, rounded to bf16, in
   given, and the float32 mode to the SIMT entry (checked with meta tensors
   and a stand-in for the kernel library, which does not exist on the CPU).
 """
+import copy
+from typing import Callable, NamedTuple
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,10 +79,10 @@ from zest_tpu.models.nerf import NeRFField as JNeRFField
 from zest_tpu_torch.convert import from_jax_params
 from zest_tpu_torch.kernels import _build, fused_mlp
 from zest_tpu_torch.kernels.fused_mlp import (
-    bf16_bwd_layout, bf16_layout, forward_values_plain,
-    fused_nerf_backward_at_plain, fused_nerf_backward_plain, pack_bf16,
-    pack_bf16_bwd, pack_bf16_bwd_plain, pack_bf16_plain, pack_leaves,
-    pack_weights)
+    bf16_bwd_layout, forward_values_plain, fused_nerf_backward_at_plain,
+    fused_nerf_backward_plain, pack_bf16, pack_bf16_bwd, pack_bf16_bwd_plain,
+    pack_bf16_plain, pack_leaves, pack_tc32, pack_tc32_plain, pack_weights,
+    tc_layout)
 from zest_tpu_torch.models.nerf import NeRFField, round_bf16
 
 # (P, F, V) of the static (xyz) and dynamic (xyzt) fields at multires 10 / 4
@@ -68,19 +93,42 @@ def _pad16(k):
     return -(-k // 16) * 16
 
 
-def _matrices(field, scale=1.0):
+def _pad8(k):
+    return -(-k // 8) * 8
+
+
+class Mode(NamedTuple):
+    """One mode's operand pack: its twin, its wrapper, the operand type, the
+    K padding and the rounding of a weight to the operand."""
+    plain: Callable
+    wrapper: Callable
+    dtype: torch.dtype
+    pad: Callable
+    rounded: Callable
+
+
+BF16_PACK = Mode(pack_bf16_plain, pack_bf16, torch.bfloat16, _pad16,
+                 round_bf16)
+TC32_PACK = Mode(pack_tc32_plain, pack_tc32, torch.float32, _pad8,
+                 lambda w: w)
+MODES = pytest.mark.parametrize("mode", [BF16_PACK, TC32_PACK],
+                                ids=["bf16", "float32"])
+
+
+def _matrices(field, scale=1.0, mode=BF16_PACK):
     """[(Linear, K parts, the matrix read back from the pack [out][K_pad])],
-    the pack made from the float32 pack times scale"""
+    the pack of mode made from the float32 pack times scale"""
+    plain, _, dtype, pad, _ = mode
     with torch.no_grad():
         f32, f32_offsets = pack_weights(field)
-    pack, offsets = pack_bf16_plain(field, f32 * scale, f32_offsets)
-    assert pack.dtype == torch.bfloat16 and pack.dim() == 1
-    layout = bf16_layout(field)
+    pack, offsets = plain(field, f32 * scale, f32_offsets)
+    assert pack.dtype == dtype and pack.dim() == 1
+    layout = tc_layout(field)
     assert len(offsets) == len(layout) == len(field.pts_linears) + 3
     mats, end = [], 0
     for (lin, widths), off in zip(layout, offsets):
         assert off == end                     # back to back, stream order
-        k_pad = sum(_pad16(w) for w in widths)
+        k_pad = sum(pad(w) for w in widths)
         end = off + lin.out_features * k_pad
         mats.append((lin, widths,
                      pack[off:end].view(lin.out_features, k_pad)))
@@ -88,15 +136,16 @@ def _matrices(field, scale=1.0):
     return mats
 
 
+@MODES
 @pytest.mark.parametrize("width", [64, 256])
 @pytest.mark.parametrize("static", [True, False])
 @pytest.mark.parametrize("skips", [(4,), ()])
-def test_pack_reads_back_rounded_weights(width, static, skips):
+def test_pack_reads_back_rounded_weights(width, static, skips, mode):
     P, F_, V = LAYOUTS[static]
     torch.manual_seed(5)
     field = NeRFField(8, width, P, V, F_, skips=skips, static=static,
-                      bf16=True)
-    mats = _matrices(field)
+                      bf16=mode is BF16_PACK)
+    mats = _matrices(field, mode=mode)
     assert [m[0] for m in mats] == ([field.pts_bias, *field.pts_linears,
                                      field.feature_linear,
                                      field.views_linears[0]])
@@ -108,39 +157,47 @@ def test_pack_reads_back_rounded_weights(width, static, skips):
                               if layer - 1 in skips else [width])
         src = dst = 0
         for w in widths:
-            part = mat[:, dst:dst + _pad16(w)]
-            want = round_bf16(lin.weight[:, src:src + w]).detach()
+            part = mat[:, dst:dst + mode.pad(w)]
+            want = mode.rounded(lin.weight[:, src:src + w]).detach()
             assert torch.equal(part[:, :w].float(), want), (i, src)
             assert not part[:, w:].any(), (i, src)
             src += w
-            dst += _pad16(w)
+            dst += mode.pad(w)
         assert dst == mat.shape[1]
 
 
+@MODES
 @pytest.mark.parametrize("static", [True, False])
-def test_pack_is_made_from_the_float32_pack(static):
+def test_pack_is_made_from_the_float32_pack(static, mode):
     P, F_, V = LAYOUTS[static]
     torch.manual_seed(6)
-    field = NeRFField(8, 64, P, V, F_, static=static, bf16=True)
-    for lin, widths, mat in _matrices(field, scale=2.0):
-        cols = torch.cat([torch.arange(w) + sum(_pad16(x) for x in widths[:j])
+    field = NeRFField(8, 64, P, V, F_, static=static,
+                      bf16=mode is BF16_PACK)
+    for lin, widths, mat in _matrices(field, scale=2.0, mode=mode):
+        cols = torch.cat([torch.arange(w) + sum(mode.pad(x)
+                                                for x in widths[:j])
                           for j, w in enumerate(widths)])
-        want = round_bf16(2.0 * lin.weight).detach()
+        want = mode.rounded(2.0 * lin.weight).detach()
         assert torch.equal(mat[:, cols].float(), want)
     with torch.no_grad():
         f32, offsets = pack_weights(field)
-    assert torch.equal(pack_bf16(field, f32, offsets),
-                       pack_bf16_plain(field, f32, offsets)[0])
+    assert torch.equal(mode.wrapper(field, f32, offsets),
+                       mode.plain(field, f32, offsets)[0])
 
 
-def _field_from_pack(field, pts, feats, views):
-    """The field as the tensor-core kernel computes it from the bf16 pack."""
-    mats = [m.float() for _, _, m in _matrices(field)]
+def _field_from_pack(field, pts, feats, views, mode=BF16_PACK,
+                     product=lambda x, w: round_bf16(x) @ w.T):
+    """The field as the tensor-core kernel computes it from mode's operand
+    pack: every input part zero padded as the pack's K parts are, each of
+    the conditioning, trunk, feature and views products product(x, w) with
+    w [out][K_pad] from the pack, float32 biases, cond and heads."""
+    pad = mode.pad
+    mats = [m.float() for _, _, m in _matrices(field, mode=mode)]
 
     def mm(i, lin, *xs):
-        x = torch.cat([F.pad(round_bf16(x), (0, _pad16(x.shape[-1])
-                                             - x.shape[-1])) for x in xs], -1)
-        return x @ mats[i].T + lin.bias
+        x = torch.cat([F.pad(x, (0, pad(x.shape[-1]) - x.shape[-1]))
+                       for x in xs], -1)
+        return product(x, mats[i]) + lin.bias
 
     cond = mm(0, field.pts_bias, feats)
     h = pts
@@ -178,6 +235,86 @@ def test_pack_field_matches_approx_kernel(static):
     with torch.no_grad():
         out = _field_from_pack(field, *map(torch.from_numpy, inputs))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+def _jax_field(static, width, seed):
+    """A ``zest_tpu`` field and its variables (numpy), and the port's field
+    (float32) with the same weights."""
+    P, F_, V = LAYOUTS[static]
+    jfield = JNeRFField(depth=8, width=width, in_ch_pts=P, in_ch_views=V,
+                        in_ch_feat=F_, sceneflow=True, static=static,
+                        use_mvs=True)
+    variables = jax.tree.map(np.asarray, jfield.init(
+        jax.random.PRNGKey(seed), jnp.zeros((1, P)), jnp.zeros((1, F_)),
+        jnp.zeros((1, V))))
+    field = NeRFField(8, width, P, V, F_, static=static)
+    sd = from_jax_params({"nerf_static": variables})
+    field.load_state_dict({k[len("nerf_static."):]: v for k, v in sd.items()
+                           if k.startswith("nerf_static.")})
+    return jfield, variables, field
+
+
+def _tf32(x):
+    """x rounded to TF32 by its bits, to nearest with ties away from zero,
+    as cvt.rna.tf32.f32 does: add half of the 13 dropped bits' place to
+    the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(x, w, terms=3):
+    """x [n, K] @ w [out, K]^T as K6's float32 mode takes it, K a multiple
+    of 8: every operand split into big = tf32(v) and small = tf32(v - big),
+    and per k8 step small x big, then big x small, then big x big added into
+    one float32 sum (each product of two TF32 values is exact in float32).
+    terms=1 takes big x big alone: one TF32 product."""
+    xb, wb = _tf32(x), _tf32(w)
+    xs, ws = _tf32(x - xb), _tf32(w - wb)
+    acc = torch.zeros((x.shape[0], w.shape[0]))
+    for k in range(0, x.shape[1], 8):
+        ks = slice(k, k + 8)
+        if terms == 3:
+            acc = acc + xs[:, ks] @ wb[:, ks].T
+            acc = acc + xb[:, ks] @ ws[:, ks].T
+        acc = acc + xb[:, ks] @ wb[:, ks].T
+    return acc
+
+
+def _norm_dist(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _tf32_case(static, width, seed, terms):
+    """(the field from the float32 operand pack with ``terms`` TF32
+    products, its float64 twin's output, the inputs, the JAX field)"""
+    jfield, variables, field = _jax_field(static, width, seed)
+    rng = np.random.default_rng(seed + 1)
+    inputs = [rng.normal(size=(300, c)).astype(np.float32)
+              for c in LAYOUTS[static]]
+    ins = list(map(torch.from_numpy, inputs))
+    with torch.no_grad():
+        out = _field_from_pack(field, *ins, mode=TC32_PACK,
+                               product=lambda x, w: _mm_tf32(x, w, terms))
+        exact = copy.deepcopy(field).double()(*(t.double() for t in ins))
+    return out.numpy(), exact.numpy(), inputs, (jfield, variables)
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_3xtf32_field_matches_exact_kernel(static, width):
+    out, exact, inputs, (jfield, variables) = _tf32_case(static, width, 14, 3)
+    ref = np.asarray(fused_nerf_apply(jfield, variables,
+                                      *map(jnp.asarray, inputs), approx=False))
+    assert np.abs(out - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
+    assert _norm_dist(out, exact) <= 2.0 ** -20
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_one_tf32_product_is_not_float32_class(static, width):
+    out, exact, _, _ = _tf32_case(static, width, 14, 1)
+    assert _norm_dist(out, exact) > 2.0 ** -20
 
 
 def _bwd_matrices(field, scale=1.0):
@@ -334,3 +471,24 @@ def test_backward_routes_by_mode(bf16, give_wb, monkeypatch):
     else:
         want = ["zt_fused_nerf_backward_scratch", "zt_fused_nerf_backward"]
     assert lib.calls == want
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_forward_routes_by_mode(bf16, monkeypatch):
+    lib = _Library()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    P, F_, V = LAYOUTS[True]
+    field = NeRFField(8, 64, P, V, F_, static=True, bf16=bf16)
+    with torch.no_grad():
+        pack, offsets = pack_weights(field)
+    n = 100
+    pts, feats, views = (torch.empty((n, c), device="meta")
+                         for c in (P, F_, V))
+    out, wb = fused_mlp._launch_forward(field, pts, feats, views,
+                                        pack.to("meta"), offsets)
+    assert out.shape == (n, field.out_ch)
+    assert (wb is not None) == bf16
+    entry = "zt_fused_nerf_forward_tc" if bf16 else "zt_fused_nerf_forward_tc32"
+    pack_entry = "zt_fused_nerf_pack_tc" if bf16 else "zt_fused_nerf_pack_tc32"
+    assert lib.calls == [pack_entry + "_len", pack_entry, entry]

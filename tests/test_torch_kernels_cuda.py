@@ -7,9 +7,17 @@ imports no JAX, so on the GPU machine it runs without the JAX conftest:
 
 Tolerances: the gathers (warp, volume lookup, color gather) form the same
 coordinates as F.grid_sample and blend the same taps, atol 1e-5. The fused
-field chains ten float32 products in another summation order than cuBLAS:
-1e-4 of the output scale. The small eval slice: rtol = atol = 1e-4, since
-cuDNN and the CPU order the convolution sums differently.
+field's float32 mode runs on the tensor cores as 3xTF32
+(``csrc/fused_mlp_tc32.cu``): every operand split into two TF32 values,
+~22 bits kept, ten products chained in another summation order than
+cuBLAS: 1e-4 of the output scale, at every width, both field layouts, with
+and without the skip layer and at ragged point counts around its 64-point
+tile. That tolerance alone would pass one TF32 product at width 256, so on
+a thousand points the output is also held to a float64 twin at 2^-20
+norm-wise, which one TF32 product misses by two orders of magnitude. Its
+float32 operand pack, made on the card, equals its twin bit for bit. The
+small eval slice: rtol = atol = 1e-4, since cuDNN and the CPU order the
+convolution sums differently.
 
 The backward kernels: K2 (warp) and K4 (volume) add with atomics in an order
 that changes from run to run, K5 (coordinates) sums 8 corners in another
@@ -144,11 +152,11 @@ def test_fused_kernel_matches_twin(dev, width, static):
 
 
 def _spy_forward_entries(monkeypatch):
-    """Count the calls of K6's two C entry points (SIMT float32, bf16 on the
-    tensor cores)."""
+    """Count the calls of K6's two C entry points (float32 as 3xTF32, bf16;
+    both on the tensor cores)."""
     from zest_tpu_torch.kernels import _build
     lib, calls = _build.library(), {}
-    for name in ("zt_fused_nerf_forward", "zt_fused_nerf_forward_tc"):
+    for name in ("zt_fused_nerf_forward_tc32", "zt_fused_nerf_forward_tc"):
         def spy(*args, _fn=getattr(lib, name), _name=name):
             calls[_name] = calls.get(_name, 0) + 1
             return _fn(*args)
@@ -181,19 +189,78 @@ def test_bf16_field_forward_on_tensor_cores(dev, width, static, n,
     assert _max_err(out, ref) <= 1e-3 * max(1.0, float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("width", [64, 256])
-def test_float32_field_keeps_the_simt_kernel(dev, width, monkeypatch):
+@pytest.mark.parametrize("skips", [(4,), ()])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_float32_field_forward_on_tensor_cores(dev, width, static, n, skips,
+                                               monkeypatch):
+    """K6's float32 mode takes the 3xTF32 tensor-core kernel at every width
+    and holds the float32 twin to 1e-4 of max(1, |out|) at ragged point
+    counts, with and without the skip layer."""
     calls = _spy_forward_entries(monkeypatch)
+    P, F = (63, 40) if static else (84, 24)
     torch.manual_seed(23)
-    field = NeRFField(8, width, 84, 27, 24, static=False).to(dev)
+    field = NeRFField(8, width, P, 27, F, skips=skips, static=static).to(dev)
     g = _gen(dev, 24)
-    pts, feats, views = (torch.randn((300, c), generator=g, device=dev)
-                         for c in (84, 24, 27))
+    pts, feats, views = (torch.randn((n, c), generator=g, device=dev)
+                         for c in (P, F, 27))
+    before = fused_nerf_forward.launches
     with torch.no_grad():
         out = fused_nerf_forward(field, pts, feats, views)
         ref = field(pts, feats, views)
-    assert calls == {"zt_fused_nerf_forward": 1}
+    assert fused_nerf_forward.launches == before + 1
+    assert calls == {"zt_fused_nerf_forward_tc32": 1}
+    assert out.shape == (n, field.out_ch)
+    assert bool(torch.isfinite(out).all())
     assert _max_err(out, ref) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def _norm_dist(a, b):
+    torch.cuda.synchronize()
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_float32_field_forward_is_float32_class(dev, width, static):
+    """Three TF32 products keep ~22 bits of each operand: on a thousand
+    points K6's float32 mode is within 2^-20 norm-wise of a float64 twin,
+    which one TF32 product (~11 bits) misses by far; the float32 twin's
+    own distance is the yardstick."""
+    import copy
+    P, F = (63, 40) if static else (84, 24)
+    torch.manual_seed(3)
+    field = NeRFField(8, width, P, 27, F, static=static).to(dev)
+    wide = copy.deepcopy(field).double()
+    g = _gen(dev, 26)
+    pts, feats, views = (torch.randn((1000, c), generator=g, device=dev)
+                         for c in (P, F, 27))
+    with torch.no_grad():
+        out = fused_nerf_forward(field, pts, feats, views)
+        ref = wide(pts.double(), feats.double(), views.double())
+        twin = field(pts, feats, views)
+    got = _norm_dist(out, ref)
+    assert got <= 2.0 ** -20, (got, _norm_dist(twin, ref))
+
+
+@pytest.mark.parametrize("skips", [(4,), ()])
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_tc32_pack_kernel_matches_twin(dev, width, static, skips):
+    """K6's float32 operand pack, made on the card from the float32 pack,
+    equals its twin bit for bit (the same values, moved)."""
+    P, F = (63, 40) if static else (84, 24)
+    torch.manual_seed(27)
+    field = NeRFField(8, width, P, 27, F, skips=skips, static=static).to(dev)
+    with torch.no_grad():
+        pack, offsets = fused_mlp.pack_weights(field)
+    out = fused_mlp.pack_tc32(field, pack, offsets)
+    ref = fused_mlp.pack_tc32_plain(field, pack, offsets)[0]
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("skips", [(4,), ()])

@@ -29,6 +29,8 @@ def test_busy_union(intervals, busy):
      profile_eval.OTHER),
     ("(anonymous namespace)::round_pack_tc_kernel(float const*, TcParams)",
      "K6 bf16 weight pack"),
+    ("(anonymous namespace)::pack_tc32_kernel(float const*, "
+     "TcParamsOf<float>)", "K6 float32 weight pack"),
 ])
 def test_kernel_groups(name, group):
     assert profile_eval.group_of(name) == group
@@ -58,6 +60,8 @@ def test_refuses_without_cuda(monkeypatch):
      "K7 field backward, pass 2 (weights)"),
     ("(anonymous namespace)::round_pack_bwd_tc_kernel(float const*, BwdPack)",
      "K6 / K7 bf16 weight rounding"),
+    ("(anonymous namespace)::pack_tc32_kernel(float const*, "
+     "TcParamsOf<float>)", "K6 float32 weight pack"),
 ])
 def test_train_kernel_groups(name, group):
     assert profile_eval.group_of(name, profile_train.GROUPS) == group
@@ -70,8 +74,10 @@ def test_tools_refuse_without_cuda_at_either_precision(tool, monkeypatch):
     assert tool.main() == 2
 
 
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::fused_nerf_tc_kernel<256>(float const*)",
+    "void (anonymous namespace)::fused_nerf_tc32_kernel<256>(float const*)"])
 @pytest.mark.parametrize("groups", [profile_eval.GROUPS, profile_train.GROUPS])
-def test_tensor_core_field_kernel_is_k6(groups):
-    name = "void (anonymous namespace)::fused_nerf_tc_kernel<256>(float const*)"
+def test_tensor_core_field_kernel_is_k6(groups, name):
     assert profile_eval.group_of(name, groups) == "K6 fused field"
 

@@ -1,9 +1,7 @@
-// Fused NeRF field (v0, multiplicative conditioning), forward (K6) and
-// backward (K7, further down).
+// Fused NeRF field (v0, multiplicative conditioning), backward (K7) in its
+// float32 mode, on the CUDA cores (SIMT).
 //
-// Replaces the TPU kernel zest_tpu/kernels/fused_mlp.py:_fwd_pallas
-// (pallas_call at :376, reached from fused_nerf_apply). One launch evaluates a
-// whole field on a tile of points:
+// The field (zest_tpu/kernels/fused_mlp.py:_forward_tile, the forward K6):
 //   cond = feats @ Wb + bb
 //   h    = relu((h @ W_i + b_i) * cond)         i = 0 .. depth-1, where the
 //          layer after `skip` reads [pts, h] as a split product
@@ -14,31 +12,21 @@
 //   rgb = hv @ Wr + br
 // Output row: [rgb(3), alpha(1), extras].
 //
-// This file's kernels are the float32 mode; the bf16-operand modes of K6 and
-// K7 run on the tensor cores, in fused_mlp_tc.cu and fused_mlp_tc_bwd.cu.
+// K6 runs on the tensor cores in both modes (fused_mlp_tc32.cu at float32,
+// 3xTF32; fused_mlp_tc.cu with bf16 operands), and so does K7's bf16 mode
+// (fused_mlp_tc_bwd.cu). This file's kernels are K7's float32 mode.
 //
-// Layout: a block of 4 warps takes 32 points; each warp owns 8 of them and
-// keeps their activations h and conditioning cond (then the feature layer)
-// in shared memory, with the warp's inputs beside them. A warp only ever
-// reads its own rows, so __syncwarp is the only barrier. Every product is an
-// FMA loop in this kernel: lane l computes the width/32 consecutive columns
-// l*width/32 ... of its 8 rows, reading them from W[k] as float4 loads (one
-// coalesced 1 KB row per warp at width 256, L1/L2-resident) and broadcasting
-// h[r][k] from shared memory. Weights are [in][out] row-major in one packed
-// buffer whose matrices start on 16-byte boundaries.
-//
-// What bounds it on an H100: float32 FMA issue and the loads that feed it.
-// At width 256 a field is ~0.6 M multiply-adds per point (2.1 M points per
-// 16384-ray chunk), and per k a lane issues 8 shared and 2 float4 global
-// loads for 64 FMAs. The ~2.4 MB of weights stay in the 50 MB L2; every
-// 32-point tile streams them again. Shared memory per block is
-// 32 * (2*width + P + F + V) floats (~83 KB at the flagship), so the launch
-// opts in above 48 KB and two blocks fit on an SM. Eight rows per warp (rather
-// than four) halve the weight loads per FMA, and a k loop unrolled 16 deep
-// keeps enough of them in flight to cover L2 latency (on the card: 4 -> 16
-// took a field from 12.6 to 11.3 ms on 262,144 points); at width 256 that
-// takes ~135 registers and no spills. The float32 mode on the tensor cores
-// (3xTF32 or split bf16) is later work.
+// Layout of pass 1 below: a block of 4 warps takes 32 points; each warp owns
+// 8 of them and keeps their activations and conditioning in shared memory,
+// with the warp's inputs beside them. A warp only ever reads its own rows,
+// so __syncwarp is the only barrier. Every product is an FMA loop: lane l
+// computes the width/32 consecutive columns l*width/32 ... of its 8 rows,
+// reading them from W[k] as float4 loads (one coalesced 1 KB row per warp at
+// width 256, L1/L2-resident) and broadcasting h[r][k] from shared memory.
+// Weights are [in][out] row-major in one packed buffer whose matrices start
+// on 16-byte boundaries. Eight rows per warp (rather than four) halve the
+// weight loads per FMA, and a k loop unrolled 16 deep keeps enough of them in
+// flight to cover L2 latency.
 #include "common.cuh"
 #include "fused_mlp.cuh"
 
@@ -47,11 +35,6 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kRows = 8;                       // points per warp
 constexpr int kTile = kWarps * kRows;          // points per block
-
-struct Params {
-  const float* w;
-  int off[kNumSlots];
-};
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
@@ -114,28 +97,6 @@ __device__ __forceinline__ void dense(float (&acc)[kRows][NC],
   }
 }
 
-// out rows (row stride ld) = act(acc + b [* scale rows]), lane's columns
-template <int NC, bool kScale, bool kRelu>
-__device__ __forceinline__ void epilogue(float* out, int ld,
-                                         const float (&acc)[kRows][NC],
-                                         const float* __restrict__ b,
-                                         const float* scale, int lane) {
-  float bv[NC];
-  load_cols<NC, true>(bv, b + lane * NC);
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    float o[NC], sv[NC];
-    if constexpr (kScale) load_cols<NC, false>(sv, scale + r * ld + lane * NC);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      o[j] = acc[r][j] + bv[j];
-      if constexpr (kScale) o[j] *= sv[j];
-      if constexpr (kRelu) o[j] = fmaxf(o[j], 0.f);
-    }
-    store_cols(out + r * ld + lane * NC, o);
-  }
-}
-
 template <int NC>
 __device__ __forceinline__ void zero(float (&acc)[kRows][NC]) {
 #pragma unroll
@@ -166,109 +127,8 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   }
 }
 
-template <int WIDTH>
-__global__ void __launch_bounds__(kWarps * 32)
-fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
-                  const float* __restrict__ views, Params prm,
-                  float* __restrict__ out, long long n, int P, int F, int V,
-                  int depth, int skip, int n_extra) {
-  constexpr int NC = WIDTH / 32;       // trunk columns per lane
-  constexpr int NCV = WIDTH / 64;      // views-layer columns per lane
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* h = smem + warp * kRows * (2 * WIDTH + P + F + V);
-  float* cond = h + kRows * WIDTH;
-  float* xin = cond + kRows * WIDTH;
-  float* fin = xin + kRows * P;
-  float* vin = fin + kRows * F;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTile + warp * kRows;
-  if (row0 >= n) return;               // whole warp idle: no barrier to skip
-  const float* w = prm.w;
-
-  load_rows(xin, pts, row0, P, n, lane);
-  load_rows(fin, feats, row0, F, n, lane);
-  load_rows(vin, views, row0, V, n, lane);
-  __syncwarp();
-
-  float acc[kRows][NC];
-  zero(acc);
-  dense<NC>(acc, fin, F, F, w + prm.off[kWb], WIDTH, lane);
-  epilogue<NC, false, false>(cond, WIDTH, acc, w + prm.off[kBb], nullptr, lane);
-  __syncwarp();
-
-  for (int i = 0; i < depth; ++i) {
-    const float* Wi = w + prm.off[kLayer0 + 2 * i];
-    const float* bi = w + prm.off[kLayer0 + 2 * i + 1];
-    zero(acc);
-    if (i == 0) {
-      dense<NC>(acc, xin, P, P, Wi, WIDTH, lane);
-    } else if (i == skip + 1) {        // input is [pts, h]
-      dense<NC>(acc, xin, P, P, Wi, WIDTH, lane);
-      dense<NC>(acc, h, WIDTH, WIDTH, Wi + static_cast<long long>(P) * WIDTH,
-            WIDTH, lane);
-    } else {
-      dense<NC>(acc, h, WIDTH, WIDTH, Wi, WIDTH, lane);
-    }
-    __syncwarp();                      // every lane has read h
-    epilogue<NC, true, true>(h, WIDTH, acc, bi, cond, lane);
-    __syncwarp();
-  }
-
-  // alpha and the extra heads read the trunk output h
-  const int out_ch = n_extra == 1 ? 5 : 12;
-  for (int r = 0; r < kRows; ++r) {
-    const long long g = row0 + r;
-    const float* hr = h + r * WIDTH;
-    const float alpha = warp_dot(hr, WIDTH, w + prm.off[kWa], 1, 0, lane) +
-                        w[prm.off[kBa]];
-    if (lane == 0 && g < n) out[g * out_ch + 3] = alpha;
-    if (n_extra == 1) {
-      const float v = warp_dot(hr, WIDTH, w + prm.off[kWx1], 1, 0, lane) +
-                      w[prm.off[kBx1]];
-      if (lane == 0 && g < n) out[g * out_ch + 4] = sigmoidf(v);
-    } else if (n_extra == 2) {
-      for (int o = 0; o < 6; ++o) {
-        const float v = warp_dot(hr, WIDTH, w + prm.off[kWx1], 6, o, lane) +
-                        w[prm.off[kBx1] + o];
-        if (lane == 0 && g < n) out[g * out_ch + 4 + o] = tanhf(v);
-      }
-      for (int o = 0; o < 2; ++o) {
-        const float v = warp_dot(hr, WIDTH, w + prm.off[kWx2], 2, o, lane) +
-                        w[prm.off[kBx2] + o];
-        if (lane == 0 && g < n) out[g * out_ch + 10 + o] = sigmoidf(v);
-      }
-    }
-  }
-
-  // feature layer (no activation) into the cond buffer, which is free now
-  zero(acc);
-  dense<NC>(acc, h, WIDTH, WIDTH, w + prm.off[kWf], WIDTH, lane);
-  epilogue<NC, false, false>(cond, WIDTH, acc, w + prm.off[kBf], nullptr, lane);
-  __syncwarp();
-
-  // views layer: [feature, views] -> width/2, relu, into h
-  float accv[kRows][NCV];
-  zero(accv);
-  const float* Wv = w + prm.off[kWv];
-  dense<NCV>(accv, cond, WIDTH, WIDTH, Wv, WIDTH / 2, lane);
-  dense<NCV>(accv, vin, V, V, Wv + static_cast<long long>(WIDTH) * (WIDTH / 2),
-        WIDTH / 2, lane);
-  __syncwarp();
-  epilogue<NCV, false, true>(h, WIDTH, accv, w + prm.off[kBv], nullptr, lane);
-  __syncwarp();
-
-  for (int r = 0; r < kRows; ++r) {
-    const long long g = row0 + r;
-    for (int o = 0; o < 3; ++o) {
-      const float v = warp_dot(h + r * WIDTH, WIDTH / 2, w + prm.off[kWr], 3,
-                               o, lane) + w[prm.off[kBr] + o];
-      if (lane == 0 && g < n) out[g * out_ch + o] = v;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Backward (K7).
+// Backward (K7), float32.
 //
 // Replaces zest_tpu/kernels/fused_mlp.py:_bwd_pallas (pallas_call at :398).
 // The TPU kernel recomputes the forward per tile and sums every dW across
@@ -294,9 +154,9 @@ fused_nerf_kernel(const float* __restrict__ pts, const float* __restrict__ feats
 // per column. Points are processed in chunks of `chunk` rows so the scratch
 // (W * (2 * depth + 5) + out_ch floats per point) stays bounded.
 //
-// What bounds it on an H100: float32 FMA issue, as in the forward: pass 1
-// does the forward's products plus the same again for d_h (~2.4 MFLOP per
-// point at width 256), pass 2 the weight products (~1.2 MFLOP per point).
+// What bounds it on an H100: float32 FMA issue: pass 1 does the forward's
+// products plus the same again for d_h (~2.4 MFLOP per point at width 256),
+// pass 2 the weight products (~1.2 MFLOP per point).
 // The scratch adds ~43 KB of traffic per point (written once, read once),
 // ~4 ms per flagship step at the HBM rate against ~30 ms of FMA work at peak.
 
@@ -874,50 +734,7 @@ int launch_bwd(const float* pts, const float* feats, const float* views,
   return 0;
 }
 
-template <int WIDTH>
-int launch(const float* pts, const float* feats, const float* views,
-           const Params& prm, float* out, long long n, int P, int F, int V,
-           int depth, int skip, int n_extra, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kTile * (2 * WIDTH + P + F + V);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_nerf_kernel<WIDTH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned int blocks = static_cast<unsigned int>((n + kTile - 1) / kTile);
-  fused_nerf_kernel<WIDTH><<<blocks, kWarps * 32, smem, stream>>>(
-      pts, feats, views, prm, out, n, P, F, V, depth, skip, n_extra);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
-
-// K6 in its float32 mode (the bf16-operand mode: fused_mlp_tc.cu)
-ZT_API int zt_fused_nerf_forward(const float* pts, const float* feats,
-                                 const float* views, const float* wpack,
-                                 const int* offsets, float* out, int n, int P,
-                                 int F, int V, int width, int depth, int skip,
-                                 int n_extra, void* stream) {
-  if (depth < 1 || depth > kMaxLayers || n_extra < 1 || n_extra > 2)
-    return cudaErrorInvalidValue;
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  Params prm;
-  prm.w = wpack;
-  for (int s = 0; s < kNumSlots; ++s) prm.off[s] = offsets[s];
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (width) {
-    case 64:
-      return launch<64>(pts, feats, views, prm, out, n, P, F, V, depth, skip,
-                        n_extra, st);
-    case 128:
-      return launch<128>(pts, feats, views, prm, out, n, P, F, V, depth, skip,
-                         n_extra, st);
-    case 256:
-      return launch<256>(pts, feats, views, prm, out, n, P, F, V, depth, skip,
-                         n_extra, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 // The floats of scratch that zt_fused_nerf_backward needs for n points in
 // chunks of `chunk`: the transposed pack, then one chunk's buffers.

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel zest_tpu/kernels/fused_mlp.py:_fwd_pallas
 // (pallas_call at :376; its per-tile math is _forward_tile) in its
-// approx=True mode, the port's precision 16. The float32 mode stays the SIMT
-// kernel of fused_mlp.cu; the backward's bf16 mode is fused_mlp_tc_bwd.cu.
+// approx=True mode, the port's precision 16. The float32 mode (3xTF32) is
+// fused_mlp_tc32.cu, on the same tile; the backward's bf16 mode is
+// fused_mlp_tc_bwd.cu.
 //
 // What it computes is the bf16 twin's field (models/nerf.py, _BF16Linear):
 //   cond = feats @ Wb + bb                          (float32, kept float32)
@@ -98,9 +99,9 @@ fused_nerf_tc_kernel(const float* __restrict__ pts,
 
   Ring rg{hs + kM * HS, 0, 0, 0, 0};
   for (int s = 0; s < kStages - 1; ++s) fetch<W>(rg, prm.st, tid);
-  load_bf16(xs, PS, g.Pp, pts, P, row0, n, tid);
-  load_bf16(fs, FS, g.Fp, feats, F, row0, n, tid);
-  load_bf16(vs, VS, g.Vp, views, V, row0, n, tid);
+  load_tile(xs, PS, g.Pp, pts, P, row0, n, tid);
+  load_tile(fs, FS, g.Fp, feats, F, row0, n, tid);
+  load_tile(vs, VS, g.Vp, views, V, row0, n, tid);
 
   float cond[2][W / 32][4], accv[2][W / 64][4];
   forward_tile<W, W>(prm, g, rg, hs, xs, PS, fs, FS, vs, VS, red, cond, accv,
@@ -119,15 +120,9 @@ fused_nerf_tc_kernel(const float* __restrict__ pts,
   }
 }
 
-struct Moff {
-  int m[kMats + 1];
-};
-
 // The bf16 pack from the float32 one: matrix blockIdx.y of the stream, its
 // weight [K1 + K2][rows] in the float32 pack, transposed to [rows][K] and
-// rounded to bf16, each part's padding columns zero. One thread per element
-// of the bf16 pack (its writes coalesced, its reads a column of the float32
-// weight, from L2).
+// rounded to bf16, each part's padding columns zero.
 __global__ void round_pack_tc_kernel(const float* __restrict__ w, TcParams prm,
                                      Geo g, Moff moff, bf16* __restrict__ wb) {
   const Mat t = mat_of(g, blockIdx.y);
@@ -135,23 +130,8 @@ __global__ void round_pack_tc_kernel(const float* __restrict__ w, TcParams prm,
   bf16* dst = wb + moff.m[blockIdx.y];
   const int len = t.rows * t.K;
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < len;
-       e += gridDim.x * blockDim.x) {
-    const int o = e / t.K, c = e - o * t.K;
-    const bool first = c < t.K1p;
-    const int k = first ? c : c - t.K1p;
-    const bool real = k < (first ? t.K1 : t.K2);
-    dst[e] = __float2bfloat16_rn(
-        real ? __ldg(src + (first ? k : t.K1 + k) * t.rows + o) : 0.f);
-  }
-}
-
-// the params of a launch; false if the shapes are not the kernel's
-bool tc_params(TcParams& prm, Geo& g, const float* wpack, const int* offsets,
-               const void* wbf16, int P, int F, int V, int width, int depth,
-               int skip) {
-  g = make_geo(width, depth, skip, P, F, V);
-  fill_params(prm, wpack, offsets);
-  return forward_stream(prm.st, g, static_cast<const bf16*>(wbf16));
+       e += gridDim.x * blockDim.x)
+    dst[e] = __float2bfloat16_rn(packed_weight(src, t, e));
 }
 
 template <int WIDTH>

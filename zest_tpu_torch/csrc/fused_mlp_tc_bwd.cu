@@ -198,7 +198,8 @@ struct SaveScratch {
   }
 };
 
-// load_bf16, and the same rounded, padded rows to save [R][Kp] at row0
+// load_tile (bf16), and the same rounded, padded rows to save [R][Kp] at
+// row0
 __device__ __forceinline__ void load_bf16_save(bf16* dst, int ld, int Kp,
                                                const float* __restrict__ src,
                                                int K, long long row0,

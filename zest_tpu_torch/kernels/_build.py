@@ -35,10 +35,16 @@ SIGNATURES = {
     "zt_trilinear_sample": [_P, _P, _P, _I, _I, _I, _I, _P],
     # images, xy, out, V, N, H, W, stream
     "zt_color_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # pts, feats, views, wpack, offsets(host int*), out,
+    # wpack, offsets(host int*), wt, P, F, V, width, depth, skip, stream
+    "zt_fused_nerf_pack_tc32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # P, F, V, width, depth, skip -> floats of the float32 operand pack
+    "zt_fused_nerf_pack_tc32_len": [_I, _I, _I, _I, _I, _I],
+    # pts, feats, views, wpack, offsets(host int*), wt, out,
     # n, P, F, V, width, depth, skip, n_extra, stream
-    "zt_fused_nerf_forward": [_P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "zt_fused_nerf_forward_tc32": [_P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # width, P, F, V -> bytes of dynamic shared memory per block
+    "zt_fused_nerf_forward_tc32_smem": [_I, _I, _I, _I],
     # wpack, offsets(host int*), wbf16, P, F, V, width, depth, skip, stream
     "zt_fused_nerf_pack_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # P, F, V, width, depth, skip -> elements of the bf16 pack

@@ -3,16 +3,25 @@ PyTorch twins.
 
 Replaces ``zest_tpu/kernels/fused_mlp.py:_fwd_pallas`` (K6, the forward
 ``pallas_call`` behind ``fused_nerf_apply``) and ``_bwd_pallas`` (K7, its
-custom VJP): both in ``csrc/fused_mlp.cu`` (SIMT) at float32; in the
-bf16-operand mode both run on the tensor cores, K6 in
-``csrc/fused_mlp_tc.cu`` and K7 in ``csrc/fused_mlp_tc_bwd.cu``, which
-recomputes the forward with K6's own device code (``csrc/fused_mlp_tc.cuh``).
-Every product of the field runs inside them. ``fused_nerf_forward`` is an
+custom VJP). K6 runs on the tensor cores in both modes, on one tile
+(``csrc/fused_mlp_tc.cuh``): at float32 as 3xTF32 (``csrc/fused_mlp_tc32.cu``),
+in the bf16-operand mode with bf16 operands (``csrc/fused_mlp_tc.cu``). K7
+runs on the CUDA cores at float32 (``csrc/fused_mlp.cu``, SIMT) and on the
+tensor cores in the bf16-operand mode (``csrc/fused_mlp_tc_bwd.cu``), which
+recomputes the forward with K6's own device code. Every product of the
+field runs inside them. ``fused_nerf_forward`` is an
 autograd Function over (pts, feats, views, pack): ``pack_weights`` is a
 differentiable ``torch.cat``
 of every Linear's ``weight.T`` and bias, so the packed weight gradient of K7
 reaches each Linear. The twin is the port's ``models.nerf.NeRFField`` itself
 and its autograd.
+
+At float32 K6 splits every operand of the conditioning, trunk, feature and
+views products into two TF32 values (``zest_tpu``'s ``approx=False``, exact
+float32 on the TPU: three TF32 products keep ~22 bits of each operand), from
+a float32 operand pack made from the float32 pack on the card by one launch
+on every call (``pack_tc32``). The float32 K7 recomputes the forward with
+FMA sums, in another order than K6's.
 
 A field built with ``bf16=True`` runs the kernels' bf16-operand mode
 (``zest_tpu``'s ``approx=True``): the kernels round the conditioning, trunk,
@@ -105,12 +114,12 @@ def pack_leaves(field, pack, offsets):
     return leaves
 
 
-def bf16_layout(field):
-    """The bf16-operand matrices in the order K6's tensor-core kernel runs
-    them: [(Linear, K parts)], each part a width of the Linear's input whose
-    columns are zero padded to a multiple of 16 (the mma depth): the
-    conditioning, the trunk (the layer after a skip reads [pts, h]), the
-    feature layer and the views layer ([feature, views])."""
+def tc_layout(field):
+    """The tensor-core matrices in the order K6's kernels run them: [(Linear,
+    K parts)], each part a width of the Linear's input whose columns the
+    operand packs zero pad to a multiple of the mma depth (16 bf16, 8
+    float32): the conditioning, the trunk (the layer after a skip reads
+    [pts, h]), the feature layer and the views layer ([feature, views])."""
     P, V, W = field.in_ch_pts, field.in_ch_views, field.width
     mats = [(field.pts_bias, [field.in_ch_feat])]
     mats += [(lin, [P] if i == 0 else [P, W] if i - 1 in field.skips else [W])
@@ -119,32 +128,40 @@ def bf16_layout(field):
                    (field.views_linears[0], [W, V])]
 
 
-def _pad16(k):
-    return -(-k // 16) * 16
-
-
 @torch.no_grad()
-def pack_bf16_plain(field, pack, offsets):
-    """Twin of the bf16 pack kernel (``round_pack_tc_kernel``): every matrix
-    of ``bf16_layout``, read from the float32 ``pack`` (``pack_weights``'
-    layout), as ``nn.Linear`` stores it, [out][in] (K-contiguous, the B
-    operand of ``mma .row.col``), rounded to bf16, each K part zero padded
-    to a multiple of 16, the matrices back to back. Returns (pack, offsets):
-    a flat bf16 tensor on the pack's device and each matrix's first
-    element."""
+def _operand_pack_plain(field, pack, offsets, dtype, depth):
+    """Every matrix of ``tc_layout``, read from the float32 ``pack``
+    (``pack_weights``' layout), as ``nn.Linear`` stores it, [out][in]
+    (K-contiguous, the B operand of ``mma .row.col``), converted to dtype,
+    each K part zero padded to a multiple of depth, the matrices back to
+    back. Returns (pack, offsets): a flat tensor on the pack's device and
+    each matrix's first element."""
     weights = {id(lin): pack[offsets[slot]:offsets[slot] + lin.weight.numel()]
                .view(lin.in_features, lin.out_features).T
                for slot, lin in _slots(field)}
     parts, moff, cur = [], [], 0
-    for lin, widths in bf16_layout(field):
-        w = weights[id(lin)].to(torch.bfloat16)
-        mat = torch.cat([torch.nn.functional.pad(c, (0, _pad16(c.shape[1])
-                                                     - c.shape[1]))
+    for lin, widths in tc_layout(field):
+        w = weights[id(lin)].to(dtype)
+        mat = torch.cat([torch.nn.functional.pad(c, (0, -c.shape[1] % depth))
                          for c in torch.split(w, widths, dim=1)], 1)
         moff.append(cur)
         parts.append(mat.reshape(-1))
         cur += mat.numel()
     return torch.cat(parts), moff
+
+
+def pack_bf16_plain(field, pack, offsets):
+    """Twin of the bf16 pack kernel (``round_pack_tc_kernel``): the matrices
+    of ``tc_layout`` rounded to bf16, each K part padded to a multiple of 16
+    (``_operand_pack_plain``). Returns (pack, offsets)."""
+    return _operand_pack_plain(field, pack, offsets, torch.bfloat16, 16)
+
+
+def pack_tc32_plain(field, pack, offsets):
+    """Twin of the float32 operand pack kernel (``pack_tc32_kernel``): the
+    matrices of ``tc_layout`` in float32, each K part padded to a multiple
+    of 8 (``_operand_pack_plain``). Returns (pack, offsets)."""
+    return _operand_pack_plain(field, pack, offsets, torch.float32, 8)
 
 
 def bf16_bwd_layout(field):
@@ -192,21 +209,38 @@ def _geometry(field):
             len(field.pts_linears), field.skips[0] if field.skips else -2)
 
 
+def _operand_pack(name, entry, dtype, field, pack, offsets):
+    """One launch of the operand pack kernel behind C entry ``entry`` (its
+    length from ``entry + "_len"``) on the float32 ``pack``."""
+    lib = _build.library()
+    length = getattr(lib, entry + "_len")(*_geometry(field))
+    if length < 0:
+        raise ValueError(f"{name}: no operand pack for {_geometry(field)}")
+    out = torch.empty(length, device=pack.device, dtype=dtype)
+    _build.check(getattr(lib, entry)(
+        pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets), out.data_ptr(),
+        *_geometry(field), _build.stream_ptr(pack)), name)
+    return out
+
+
 def pack_bf16(field, pack, offsets):
     """K6's bf16 pack from the float32 ``pack`` (``pack_weights``): a flat
     bf16 tensor in ``pack_bf16_plain``'s layout. CPU tensors take the twin;
     CUDA tensors launch ``round_pack_tc_kernel`` (one launch) or raise."""
     if pack.device.type == "cpu":
         return pack_bf16_plain(field, pack, offsets)[0]
-    lib = _build.library()
-    length = lib.zt_fused_nerf_pack_tc_len(*_geometry(field))
-    if length < 0:
-        raise ValueError(f"pack_bf16: no bf16 pack for {_geometry(field)}")
-    wb = torch.empty(length, device=pack.device, dtype=torch.bfloat16)
-    _build.check(lib.zt_fused_nerf_pack_tc(
-        pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets), wb.data_ptr(),
-        *_geometry(field), _build.stream_ptr(pack)), "pack_bf16")
-    return wb
+    return _operand_pack("pack_bf16", "zt_fused_nerf_pack_tc", torch.bfloat16,
+                         field, pack, offsets)
+
+
+def pack_tc32(field, pack, offsets):
+    """K6's float32 operand pack from the float32 ``pack``: a flat float32
+    tensor in ``pack_tc32_plain``'s layout. CPU tensors take the twin; CUDA
+    tensors launch ``pack_tc32_kernel`` (one launch) or raise."""
+    if pack.device.type == "cpu":
+        return pack_tc32_plain(field, pack, offsets)[0]
+    return _operand_pack("pack_tc32", "zt_fused_nerf_pack_tc32", torch.float32,
+                         field, pack, offsets)
 
 
 def pack_bf16_bwd(field, pack, offsets):
@@ -246,8 +280,9 @@ def _check(name, field, pts, feats, views, extra_smem=0):
 
 def _launch_forward(field, pts, feats, views, pack, offsets):
     """K6 on [n, ch] contiguous inputs → ([n, out_ch], the bf16 pack or
-    None): the SIMT kernel at float32, the tensor-core kernel in the
-    bf16-operand mode."""
+    None): the tensor-core kernel of the field's mode, 3xTF32 on a float32
+    operand pack (``pack_tc32``) or bf16 on the bf16 pack (``pack_bf16``),
+    each made from ``pack`` by one launch."""
     n = pts.shape[0]
     out = torch.empty((n, field.out_ch), device=pts.device, dtype=torch.float32)
     lib = _build.library()
@@ -261,7 +296,9 @@ def _launch_forward(field, pts, feats, views, pack, offsets):
         err = lib.zt_fused_nerf_forward_tc(*inputs, wb.data_ptr(),
                                            out.data_ptr(), *shape)
     else:
-        err = lib.zt_fused_nerf_forward(*inputs, out.data_ptr(), *shape)
+        wt = pack_tc32(field, pack, offsets)
+        err = lib.zt_fused_nerf_forward_tc32(*inputs, wt.data_ptr(),
+                                             out.data_ptr(), *shape)
     _build.check(err, "fused_nerf_forward")
     fused_nerf_forward.launches += 1
     return out, wb

@@ -33,6 +33,7 @@ REPS = 3
 # (substring of the kernel symbol, group label), first match wins
 GROUPS = (("fused_nerf", "K6 fused field"),
           ("round_pack", "K6 bf16 weight pack"),
+          ("pack_tc32", "K6 float32 weight pack"),
           ("trilinear_sample", "K3 volume lookup"),
           ("color_gather", "K8 color gather"),
           ("plane_sweep", "K1 warp"),

@@ -38,6 +38,7 @@ _LIB = "cuDNN conv / deconv + batch norm"
 # (substring of the kernel symbol, group label), first match wins
 GROUPS = (("transpose_pack", "K7 field backward, weight transpose"),
           ("round_pack", "K6 / K7 bf16 weight rounding"),
+          ("pack_tc32", "K6 float32 weight pack"),
           ("row_gather", "K9 row gather"),
           ("row_scatter", "K9 row gather backward (scatter-add)"),
           ("fused_nerf_bwd", "K7 field backward, pass 1"),
