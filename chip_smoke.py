@@ -32,7 +32,15 @@ sm_90a), then:
    against its twin's autograd at the flagship training step's own inputs
    (the step's rays, encoding volumes and field inputs, a random output
    gradient), and times kernel, twin and library call; holds K6 on the
-   step's three float32 field passes, each beside a float64 twin;
+   step's three float32 field passes, each beside a float64 twin. K7's
+   float32 mode takes its weight gradients (pass 2) on the tensor cores as
+   3xTF32: its SASS must hold HMMA; every pass-2 launch of the three passes
+   is held to its twin on the same scratch buffers and timed beside it and
+   beside float32 ``torch.matmul`` of the same X^T dZ shapes (its row's
+   library time, timed only); and K7's weight gradients of the
+   conditioning, trunk, feature and views layers must be within max(8 x
+   the float32 twin's own norm-wise distance from a float64 twin, 2^-20) of
+   that float64 twin;
 7. runs the training step at a small configuration on CUDA and on the CPU
    from the same weights and draws, in both phases (motion-mask rays; the
    chain pass), and compares the loss, every log, every gradient and the
@@ -206,6 +214,7 @@ def counters():
             "gather_colors": color_gather.gather_colors,
             "fused_nerf_forward": fused_mlp.fused_nerf_forward,
             "fused_nerf_backward": fused_mlp.fused_nerf_backward,
+            "weight_grads": fused_mlp.weight_grads,
             "gather_rows": dma_gather.gather_rows,
             "scatter_rows": dma_gather.scatter_rows}
 
@@ -322,8 +331,8 @@ def field_ops(field, n: int, passes: int, tf32: bool) -> tuple:
     per weight on n points: one multiply-add per weight and point in each
     product. Where the products run on the tensor cores only the heads keep
     float32 operands: the bf16-operand mode's products take bf16 operands,
-    the float32 mode's, with tf32 set (K6; K7's float32 mode runs on the
-    CUDA cores), three TF32 products each (3xTF32)."""
+    the float32 mode's, with tf32 set (K6, K7's pass 2; K7's float32 pass 1
+    runs on the CUDA cores), three TF32 products each (3xTF32)."""
     macs = sum(m.weight.numel() for m in field.modules()
                if isinstance(m, torch.nn.Linear))
     if not (field.bf16 or tf32):
@@ -585,6 +594,88 @@ def hold_bf16_backward(name, label, field, flat, g, pack, offsets):
     return worst
 
 
+def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets):
+    """K7's float32 mode on one pass, with a spy on its pass 2
+    (``fused_mlp.weight_grads``): each chunk's pass-2 launch is held to its
+    twin (``weight_grads_plain``) on the same scratch buffers, each leaf to
+    1e-4 of its largest, and timed beside it and beside float32
+    ``torch.matmul`` of the same X^T dZ shapes (row
+    ``fused_nerf_weight_grads``). Then K7's weight gradients of the
+    conditioning, trunk, feature and views layers against a float64 twin's
+    autograd: each within max(F32_CLASS_FACTOR x the float32 twin's own
+    norm-wise distance, F32_CLASS_FLOOR)."""
+    from zest_tpu_torch.kernels import fused_mlp
+    real = fused_mlp.weight_grads
+
+    def held(field, pts, feats, views, bufs, offsets, d_pack):
+        real(field, pts, feats, views, bufs, offsets, d_pack)
+        out = torch.zeros_like(d_pack)
+
+        def leaves(d):
+            return tuple(t for _, t in fused_mlp.pack_leaves(field, d, offsets))
+
+        def kern():
+            out.zero_()
+            real(field, pts, feats, views, bufs, offsets, out)
+            return leaves(out)
+
+        cond, z, dz = bufs["cond"], bufs["z"], bufs["dz"]
+        h = [torch.relu(zi * cond) for zi in z]
+        xs = [feats, pts] + [torch.cat([pts, h[i - 1]], -1)
+                             if i - 1 in field.skips else h[i - 1]
+                             for i in range(1, len(z))]
+        xs += [h[-1], torch.cat([bufs["feature"], views], -1)]
+        ds = [bufs["d_cond"], *dz, bufs["d_feature"], bufs["d_hv"]]
+        n = pts.shape[0]
+        f32_ops, _, tf32_ops = field_ops(field, n, 1, True)
+        rows.check("fused_nerf_weight_grads",
+                   "zest_tpu_torch/csrc/fused_mlp_tc32_bwd.cu",
+                   "zest_tpu/kernels/fused_mlp.py:398", "weight_grads", kern,
+                   lambda: leaves(fused_mlp.weight_grads_plain(
+                       field, pts, feats, views, bufs)),
+                   lambda: [torch.matmul(x.T, d) for x, d in zip(xs, ds)],
+                   1e-4, 3, nbytes(pts, feats, views, *bufs.values())
+                   + nbytes(d_pack), f32_ops, relative=True,
+                   flops_tf32=tf32_ops)
+
+    held.launches = 0                  # the wrapper counts on its module name
+    fused_mlp.weight_grads = held
+    try:
+        got = fused_mlp.fused_nerf_backward(field, *flat, g, pack, offsets)[3]
+    finally:
+        fused_mlp.weight_grads = real
+    twin = fused_mlp.fused_nerf_backward_plain(field, *flat, g)[3]
+    wide = float64_twin(field)
+    exact = fused_mlp.fused_nerf_backward_plain(
+        wide, *(t.double() for t in flat), g.double())[3]
+    torch.cuda.synchronize()
+    names = {m: f"{n}.weight" for n, m in field.named_modules()}
+    big = {names[m] for m in (field.pts_bias, *field.pts_linears,
+                              field.feature_linear, field.views_linears[0])}
+
+    def dist(a, b):
+        return float((a.double() - b).norm()) / max(float(b.norm()), 1e-300)
+
+    log(f"[backward] {name} {label}: weight gradients, norm-wise from a "
+        f"float64 twin: K7 (pass 2 as 3xTF32) | the float32 twin")
+    failures = []
+    for (leaf, a), (_, b), (_, c) in zip(
+            fused_mlp.pack_leaves(field, got, offsets),
+            fused_mlp.pack_leaves(field, twin, offsets),
+            fused_mlp.pack_leaves(wide, exact, offsets)):
+        if leaf not in big:
+            continue
+        k7, own = dist(a, c), dist(b, c)
+        limit = max(F32_CLASS_FACTOR * own, F32_CLASS_FLOOR)
+        log(f"[backward]   {leaf}: {k7:.3e} | {own:.3e} (limit {limit:.3e})")
+        if not k7 <= limit:
+            failures.append(f"{leaf} {k7:.3e} from float64, limit {limit:.3e}")
+    del got, twin, exact, wide
+    field.zero_grad(set_to_none=True)
+    if failures:
+        raise AssertionError(f"{name} {label}: " + "; ".join(failures))
+
+
 def check_field_backward(rows, name, passes, gen, tol, paths,
                          source="zest_tpu_torch/csrc/fused_mlp.cu"):
     """K7 on the step's field passes against autograd through the twin, with
@@ -605,7 +696,12 @@ def check_field_backward(rows, name, passes, gen, tol, paths,
         g = torch.randn((n, field.out_ch), generator=gen, device=flat[0].device)
         with torch.no_grad():
             pack, offsets = fused_mlp.pack_weights(field)
-        f32_ops, bf16_ops, _ = field_ops(field, n, 3, False)
+        if field.bf16:
+            f32_ops, bf16_ops, tf32_ops = field_ops(field, n, 3, False)
+        else:                          # pass 1 SIMT, pass 2 3xTF32
+            pass1, pass2 = field_ops(field, n, 2, False), field_ops(field, n, 1,
+                                                                    True)
+            f32_ops, bf16_ops, tf32_ops = pass1[0] + pass2[0], 0, pass2[2]
         log(f"[backward] {name} {label}: {n} points")
         kern = lambda: leafwise(field, offsets, fused_mlp.fused_nerf_backward(
             field, *flat, g, pack, offsets))
@@ -617,12 +713,15 @@ def check_field_backward(rows, name, passes, gen, tol, paths,
             err = hold_bf16_backward(name, label, field, flat, g, pack,
                                      offsets)
             verified = (err, [tuple(t.shape) for t in flat])
+        else:
+            hold_float32_backward(rows, name, label, field, flat, g, pack,
+                                  offsets)
         rows.check(name, source,
                    "zest_tpu/kernels/fused_mlp.py:398", "fused_nerf_backward",
                    kern, plain, None, tol, 2,
                    2 * nbytes(*flat) + nbytes(g) + 2 * nbytes(pack), f32_ops,
                    relative=True, flops_bf16=bf16_ops, paths=paths,
-                   verified=verified)
+                   verified=verified, flops_tf32=tf32_ops)
         field.zero_grad(set_to_none=True)
         torch.cuda.empty_cache()
 
@@ -843,9 +942,25 @@ def backward_kernels(rows, dev, cfg, system, batch):
             f"{shapes} max_abs_err {err:.3e} (tol 1e-4) -> ok")
         float32_class(f"training pass {label}", field, inputs, False)
 
-    # K7: the field backward on the three passes of a step
+    # K7: the field backward on the three passes of a step; its float32
+    # pass 2 runs on the tensor cores
+    mma = sass_has_mma("wgrad_tc32_kernel")
+    log(f"[backward] tensor-core instructions (HMMA / HGMMA) in "
+        f"wgrad_tc32_kernel: {sorted(mma.values())}")
+    if len(mma) != 1 or min(mma.values()) == 0:
+        raise AssertionError(f"wgrad_tc32_kernel without HMMA: {mma}")
     check_field_backward(rows, "fused_nerf_backward", passes, gen, 1e-4,
                          ("eval", "train"))
+    row = rows.rows["fused_nerf_weight_grads"]
+    useful = row["flops_tf32"] / 3
+    log(f"[backward] K7 float32 pass 2 on the step's three passes: "
+        f"{row['ms']:.3f} ms, {useful / row['ms'] / 1e9:.1f} TFLOP/s of float32"
+        f" products ({3 * useful / row['ms'] / 1e9:.1f} TFLOP/s of TF32 "
+        f"products, 3xTF32); its twin {row['plain_ms']:.3f} ms; yardstick "
+        f"torch.matmul float32 of the same X^T dZ shapes (TF32 off): "
+        f"{row['library_ms']:.3f} ms, {useful / row['library_ms'] / 1e9:.1f} "
+        f"TFLOP/s (timed only); K7 float32 in all "
+        f"{rows.rows['fused_nerf_backward']['ms']:.3f} ms")
 
     # K4 (d_vol) on the three lookups of a step, K5 (d_ndc) on the warped one;
     # the library call is F.grid_sample's backward on the same layout. Bytes:
@@ -971,6 +1086,7 @@ def flagship_train(cfg, system, batch, params, tag="train"):
     in both phases, finite logs, moved parameters, then a timed window of
     steps. Returns (the step-0 phase's launches, train rays/s)."""
     from zest_tpu_torch import presets, sampling
+    from zest_tpu_torch.kernels import fused_mlp
     from zest_tpu_torch.system import TrainState, phase_for_step
     dev = batch["images"].device
     H, W = cfg.img_h, cfg.img_w
@@ -986,6 +1102,10 @@ def flagship_train(cfg, system, batch, params, tag="train"):
         return step_fn(state, batch, draws, phase)
 
     n_src = batch["images"].shape[0] - 2
+
+    def chunks(n):
+        return -(-n // fused_mlp.CHUNK_ROWS)
+
     state0 = TrainState(params, opt.init(params), 0)
     phase0 = phase_for_step(cfg, 0)
     chain_step = cfg.decay_iteration_clamped * 2000 + 1
@@ -1002,16 +1122,23 @@ def flagship_train(cfg, system, batch, params, tag="train"):
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
         got = read_counters()
+        # the field passes' points: static and dynamic R x S, t±1 2 R x S,
+        # the chain R x S; K7 float32 runs pass 2 once per chunk of each
+        points = (cfg.batch_size + cfg.num_extra_samples * phase.extra_samples
+                  ) * cfg.N_samples
         expected = dict(homo_warp_cm=n_src, homo_warp_cm_grad=n_src,
                         sample_volume=3 + extra, volume_grad=3 + extra,
                         coords_grad=1 + extra, gather_colors=2,
                         fused_nerf_forward=3 + extra,
-                        fused_nerf_backward=3 + extra, gather_rows=0,
-                        scatter_rows=0)
+                        fused_nerf_backward=3 + extra,
+                        weight_grads=(2 + extra) * chunks(points)
+                        + chunks(2 * points), gather_rows=0, scatter_rows=0)
         if system.bf16:
-            # the warped lookups (t±1, the chain) are row gathers
+            # the warped lookups (t±1, the chain) are row gathers; K7's
+            # bf16 mode takes its weight gradients inside its own entry
             expected.update(sample_volume=2, volume_grad=2, coords_grad=0,
-                            gather_rows=1 + extra, scatter_rows=1 + extra)
+                            gather_rows=1 + extra, scatter_rows=1 + extra,
+                            weight_grads=0)
         log(f"[{tag}] {step_tag} {tuple(phase)}: first run {first:.2f} s, "
             f"launches {got}")
         if got != expected:

@@ -317,6 +317,111 @@ def test_one_tf32_product_is_not_float32_class(static, width):
     assert _norm_dist(out, exact) > 2.0 ** -20
 
 
+def _pass1_buffers(field, pts, feats, views, g):
+    """What K7 float32's pass 1 leaves for pass 2 (``weight_grads_plain``'s
+    ``bufs``), from the twin's own forward and autograd: each Linear's
+    output (cond, z, the feature layer's), hv, each Linear's output gradient
+    and the heads' pre-activation gradients in the output's column order."""
+    outs, grads = {}, {}
+
+    def keep(lin, inputs, out):
+        outs[lin] = out.detach()
+        out.register_hook(lambda gr: grads.__setitem__(lin, gr))
+
+    linears = [m for m in field.modules() if isinstance(m, torch.nn.Linear)]
+    hooks = [lin.register_forward_hook(keep) for lin in linears]
+    try:
+        field(pts, feats, views).backward(g)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    trunk, views_lin = field.pts_linears, field.views_linears[0]
+    heads = [field.rgb_linear, field.alpha_linear]
+    heads += ([field.w_linear] if field.static
+              else [field.sf_linear, field.prob_linear])
+    return dict(cond=outs[field.pts_bias],
+                z=torch.stack([outs[lin] for lin in trunk]),
+                feature=outs[field.feature_linear],
+                hv=torch.relu(outs[views_lin]),
+                dz=torch.stack([grads[lin] for lin in trunk]),
+                d_cond=grads[field.pts_bias],
+                d_feature=grads[field.feature_linear], d_hv=grads[views_lin],
+                g_heads=torch.cat([grads[lin] for lin in heads], -1))
+
+
+def _tf32_weight_grads(field, inputs, g, terms):
+    """K7 float32's pass 2 as its kernel computes it, on the twin's pass-1
+    values: ``weight_grads_plain`` with every product of the conditioning,
+    trunk, feature and views layers as ``_mm_tf32`` over k8 steps of points
+    (the points zero padded to a multiple of 8). Returns (d_pack, {weight
+    leaf of those layers: norm-wise distance from a float64 twin's
+    autograd})."""
+    ins = [torch.from_numpy(x) for x in inputs]
+    gt = torch.from_numpy(g)
+    bufs = _pass1_buffers(field, *ins, gt)
+
+    def product(x, d):
+        pad = -x.shape[0] % 8
+        return _mm_tf32(F.pad(x.T, (0, pad)), F.pad(d.T, (0, pad)), terms)
+
+    with torch.no_grad():
+        d_pack = fused_mlp.weight_grads_plain(field, *ins, bufs, product)
+    wide = copy.deepcopy(field).double()
+    exact = fused_nerf_backward_plain(wide, *(t.double() for t in ins),
+                                      gt.double())[3]
+    names = {m: n for n, m in field.named_modules()}
+    big = {f"{names[m]}.weight" for m in (field.pts_bias, *field.pts_linears,
+                                          field.feature_linear,
+                                          field.views_linears[0])}
+    _, offsets = pack_weights(field)
+    dist = {name: _norm_dist(a.numpy(), b.numpy())
+            for (name, a), (_, b) in zip(pack_leaves(field, d_pack, offsets),
+                                         pack_leaves(wide, exact, offsets))
+            if name in big}
+    assert len(dist) == len(big)
+    return d_pack, dist
+
+
+def _tf32_wgrad_case(static, width, terms):
+    jfield, variables, field = _jax_field(static, width, 15)
+    rng = np.random.default_rng(16)
+    inputs = [rng.normal(size=(300, c)).astype(np.float32)
+              for c in LAYOUTS[static]]
+    g = rng.normal(size=(300, field.out_ch)).astype(np.float32)
+    return (*_tf32_weight_grads(field, inputs, g, terms), field, inputs, g,
+            (jfield, variables))
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_3xtf32_weight_grads_match_exact_kernel(static, width):
+    """K7 float32's pass 2 with its products as 3xTF32 holds the VJP of
+    ``zest_tpu``'s ``approx=False`` kernel (interpret mode) at 1e-4 of each
+    leaf's largest, and a float64 twin at 2^-20 norm-wise."""
+    d_pack, dist, field, inputs, g, (jfield, variables) = _tf32_wgrad_case(
+        static, width, 3)
+    _, vjp = jax.vjp(lambda v: fused_nerf_apply(
+        jfield, v, *map(jnp.asarray, inputs), approx=False), variables)
+    ref = from_jax_params({"nerf_static": jax.tree.map(
+        np.asarray, vjp(jnp.asarray(g))[0])})
+    _, offsets = pack_weights(field)
+    leaves = dict(pack_leaves(field, d_pack, offsets))
+    assert set(leaves) == {n for n, _ in field.named_parameters()}
+    for name, a in leaves.items():
+        b = ref[f"nerf_static.{name}"].numpy()
+        if name.endswith(".weight"):
+            b = b.T                           # the pack holds weight.T
+        assert np.abs(a.numpy() - b).max() <= 1e-4 * np.abs(b).max(), name
+    assert max(dist.values()) <= 2.0 ** -20, dist
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_one_tf32_weight_grad_product_is_not_float32_class(static, width):
+    dist = _tf32_wgrad_case(static, width, 1)[1]
+    assert min(dist.values()) > 2.0 ** -20, dist
+
+
 def _bwd_matrices(field, scale=1.0):
     """[(Linear, first input row, the matrix read back [rows][out])] of the
     backward pack made from the float32 pack times scale"""
@@ -469,7 +574,9 @@ def test_backward_routes_by_mode(bf16, give_wb, monkeypatch):
         want += ["zt_fused_nerf_pack_bwd_tc_len", "zt_fused_nerf_pack_bwd_tc",
                  "zt_fused_nerf_backward_tc_scratch", "zt_fused_nerf_backward_tc"]
     else:
-        want = ["zt_fused_nerf_backward_scratch", "zt_fused_nerf_backward"]
+        want = ["zt_fused_nerf_backward_scratch", "zt_fused_nerf_backward_tpack",
+                "zt_fused_nerf_backward", "zt_fused_nerf_backward_layout",
+                "zt_fused_nerf_weight_grads_tc32"]
     assert lib.calls == want
 
 

@@ -25,6 +25,18 @@ order than F.grid_sample, and K7 (field) sums the weight gradients over the
 points in tiles and chunks: each is held to 1e-5 (the gathers) or 1e-4 (the
 field) of its output's scale, never bit for bit; K7's weight gradient leaf
 by leaf, each weight and each bias to 1e-4 of its own largest element.
+K7's float32 mode runs pass 1 on the CUDA cores and pass 2, the weight
+gradients, on the tensor cores as 3xTF32 (``csrc/fused_mlp_tc32_bwd.cu``),
+once per chunk each (a spy on the C entries; the old SIMT weight-gradient
+kernel is not in the built library), at
+every width, both field layouts, with and without the skip layer, at
+ragged point counts and across two chunks. Each pass-2 launch is held to
+its twin on the same scratch buffers, and the whole backward, heads
+included, to the twin's autograd, each leaf to 1e-4 of its largest. That
+tolerance alone would pass one TF32 product, so on a thousand points each
+weight gradient of the conditioning, trunk, feature and views layers is
+also held to a float64 twin at max(8 x the float32 twin's own norm-wise
+distance, 2^-20), which one TF32 product (~3e-4) misses.
 
 The row gather K9 copies rows: bitwise equal to ``tab[idx]``. Its
 scatter-add adds in float32 with atomics, in another order than
@@ -61,6 +73,8 @@ beyond 2^-8 of their input's largest at most 2^-9 of the rows, each leaf's
 largest error within 2^-6 of its largest. Both bf16 weight packs, made on
 the card, equal their twins bit for bit.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -785,3 +799,111 @@ def test_bf16_backward_pack_kernel_matches_twin(dev, width, static, skips):
     torch.cuda.synchronize()
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert torch.equal(out, ref)
+
+
+def _spy_float32_backward(monkeypatch):
+    """Count the calls of K7 float32's two C entry points (pass 1, pass 2),
+    and hold the weight gradients that each pass-2 launch adds to its twin
+    on the same buffers, each leaf to 1e-4 of its largest."""
+    from zest_tpu_torch.kernels import _build
+    lib, calls = _build.library(), {}
+    for name in ("zt_fused_nerf_backward", "zt_fused_nerf_weight_grads_tc32",
+                 "zt_fused_nerf_backward_tc"):
+        def spy(*args, _fn=getattr(lib, name), _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args)
+        monkeypatch.setattr(lib, name, spy)
+    real = fused_mlp.weight_grads
+
+    def held(field, pts, feats, views, bufs, offsets, d_pack):
+        before = d_pack.clone()
+        real(field, pts, feats, views, bufs, offsets, d_pack)
+        ref = fused_mlp.weight_grads_plain(field, pts, feats, views, bufs)
+        for (name, a), (_, b) in zip(
+                fused_mlp.pack_leaves(field, d_pack - before, offsets),
+                fused_mlp.pack_leaves(field, ref, offsets)):
+            assert _rel_err(a, b) <= 1e-4, name
+    held.launches = 0                  # the wrapper counts on its module name
+    monkeypatch.setattr(fused_mlp, "weight_grads", held)
+    return calls
+
+
+@pytest.mark.parametrize("width,n", [(w, n) for w in (64, 128, 256)
+                                     for n in (1, 63, 64, 65, 1000)]
+                         + [(64, fused_mlp.CHUNK_ROWS + 1000)])
+@pytest.mark.parametrize("skips", [(4,), ()])
+@pytest.mark.parametrize("static", [True, False])
+def test_float32_field_backward_on_tensor_cores(dev, width, static, skips, n,
+                                                monkeypatch):
+    """K7's float32 mode: pass 1 (SIMT) and pass 2 (3xTF32 on the tensor
+    cores) once per chunk, the old SIMT weight-gradient kernel nowhere; each
+    pass-2 launch held to its twin on the same buffers; d_pts, d_feats,
+    d_views and every leaf of d_pack, the heads included, within 1e-4 of its
+    largest against the twin's autograd, at ragged point counts and across
+    two chunks."""
+    from zest_tpu_torch.kernels import _build
+    calls = _spy_float32_backward(monkeypatch)
+    P, F = (63, 40) if static else (84, 24)
+    torch.manual_seed(37)
+    field = NeRFField(8, width, P, 27, F, skips=skips, static=static).to(dev)
+    g = _gen(dev, 38)
+    pts, feats, views = (torch.randn((n, c), generator=g, device=dev)
+                         for c in (P, F, 27))
+    cot = torch.randn((n, field.out_ch), generator=g, device=dev)
+    with torch.no_grad():
+        pack, offsets = fused_mlp.pack_weights(field)
+    got = fused_mlp.fused_nerf_backward(field, pts, feats, views, cot, pack,
+                                        offsets)
+    chunks = -(-n // fused_mlp.CHUNK_ROWS)
+    assert calls == {"zt_fused_nerf_backward": chunks,
+                     "zt_fused_nerf_weight_grads_tc32": chunks}
+    # the SIMT weight-gradient kernel is not in the library at all
+    library = Path(_build.build_info["path"]).read_bytes()
+    assert b"wgrad_tc32_kernel" in library and b"wgrad_kernel" not in library
+    ref = fused_mlp.fused_nerf_backward_plain(field, pts, feats, views, cot)
+    for name, a, b in zip(("d_pts", "d_feats", "d_views"), got, ref):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b) <= 1e-4, name
+    for (name, a), (_, b) in zip(fused_mlp.pack_leaves(field, got[3], offsets),
+                                 fused_mlp.pack_leaves(field, ref[3], offsets)):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b) <= 1e-4, name
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_float32_weight_grads_are_float32_class(dev, width, static):
+    """Three TF32 products keep ~22 bits of each operand: on a thousand
+    points every weight gradient of the conditioning, trunk, feature and
+    views layers is within max(8 x the float32 twin's own norm-wise
+    distance, 2^-20) of a float64 twin's autograd, which one TF32 product
+    (~11 bits, ~3e-4 away) misses by far."""
+    import copy
+    P, F = (63, 40) if static else (84, 24)
+    torch.manual_seed(39)
+    field = NeRFField(8, width, P, 27, F, static=static).to(dev)
+    wide = copy.deepcopy(field).double()
+    g = _gen(dev, 40)
+    pts, feats, views, cot = (torch.randn((1000, c), generator=g, device=dev)
+                              for c in (P, F, 27, field.out_ch))
+    with torch.no_grad():
+        pack, offsets = fused_mlp.pack_weights(field)
+    got = fused_mlp.fused_nerf_backward(field, pts, feats, views, cot, pack,
+                                        offsets)[3]
+    twin = fused_mlp.fused_nerf_backward_plain(field, pts, feats, views,
+                                               cot)[3]
+    exact = fused_mlp.fused_nerf_backward_plain(
+        wide, *(t.double() for t in (pts, feats, views, cot)))[3]
+    names = {m: f"{n}.weight" for n, m in field.named_modules()}
+    big = {names[m] for m in (field.pts_bias, *field.pts_linears,
+                              field.feature_linear, field.views_linears[0])}
+    leaves = zip(fused_mlp.pack_leaves(field, got, offsets),
+                 fused_mlp.pack_leaves(field, twin, offsets),
+                 fused_mlp.pack_leaves(wide, exact, offsets))
+    checked = 0
+    for (name, a), (_, b), (_, c) in leaves:
+        if name in big:
+            own = _norm_err(b, c)
+            assert _norm_err(a, c) <= max(8 * own, 2.0 ** -20), (name, own)
+            checked += 1
+    assert checked == len(big)

@@ -3,7 +3,7 @@ their refusal to run without a CUDA device, and their --precision flag."""
 import pytest
 import torch
 
-from zest_tpu_torch.tools import profile_eval, profile_train
+from zest_tpu_torch.tools import probe_wgrad, profile_eval, profile_train
 
 
 @pytest.mark.parametrize("intervals,busy", [
@@ -55,7 +55,8 @@ def test_refuses_without_cuda(monkeypatch):
      "K7 field backward, pass 1"),
     ("(anonymous namespace)::wgrad_tc_kernel(WJobs, float*, long long)",
      "K7 field backward, pass 2 (weights)"),
-    ("void wgrad_kernel(float const*, int)", "K7 field backward, pass 2 (weights)"),
+    ("(anonymous namespace)::wgrad_tc32_kernel(Jobs, float*, long long, "
+     "long long)", "K7 field backward, pass 2 (weights)"),
     ("void (anonymous namespace)::head_grads_kernel<9>(float const*)",
      "K7 field backward, pass 2 (weights)"),
     ("(anonymous namespace)::round_pack_bwd_tc_kernel(float const*, BwdPack)",
@@ -81,3 +82,9 @@ def test_tools_refuse_without_cuda_at_either_precision(tool, monkeypatch):
 def test_tensor_core_field_kernel_is_k6(groups, name):
     assert profile_eval.group_of(name, groups) == "K6 fused field"
 
+
+
+def test_probe_wgrad_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe_wgrad.main() == 2
+    assert probe_wgrad.main(["--points", "1000"]) == 2

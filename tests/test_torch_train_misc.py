@@ -195,8 +195,8 @@ def test_from_jax_params_converts_gradient_trees():
      "K7 field backward, weight transpose"),
     ("void (anonymous namespace)::fused_nerf_bwd_kernel<256>(float const*)",
      "K7 field backward, pass 1"),
-    ("(anonymous namespace)::wgrad_kernel(float const*, int)",
-     "K7 field backward, pass 2 (weights)"),
+    ("(anonymous namespace)::wgrad_tc32_kernel(Jobs, float*, long long, "
+     "long long)", "K7 field backward, pass 2 (weights)"),
     ("void fused_nerf_kernel<256>(float const*)", "K6 fused field"),
     ("trilinear_grad_volume_kernel", "K4 volume lookup d/d volume"),
     ("trilinear_grad_coords_kernel", "K5 volume lookup d/d coordinates"),

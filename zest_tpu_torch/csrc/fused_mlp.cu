@@ -1,5 +1,7 @@
 // Fused NeRF field (v0, multiplicative conditioning), backward (K7) in its
-// float32 mode, on the CUDA cores (SIMT).
+// float32 mode: pass 1 on the CUDA cores (SIMT), and the host side of both
+// passes (the scratch layout, the entry points); pass 2, the weight
+// gradients, is fused_mlp_tc32_bwd.cu (tensor cores, 3xTF32).
 //
 // The field (zest_tpu/kernels/fused_mlp.py:_forward_tile, the forward K6):
 //   cond = feats @ Wb + bb
@@ -14,7 +16,7 @@
 //
 // K6 runs on the tensor cores in both modes (fused_mlp_tc32.cu at float32,
 // 3xTF32; fused_mlp_tc.cu with bf16 operands), and so does K7's bf16 mode
-// (fused_mlp_tc_bwd.cu). This file's kernels are K7's float32 mode.
+// (fused_mlp_tc_bwd.cu).
 //
 // Layout of pass 1 below: a block of 4 warps takes 32 points; each warp owns
 // 8 of them and keeps their activations and conditioning in shared memory,
@@ -133,32 +135,34 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
 // Replaces zest_tpu/kernels/fused_mlp.py:_bwd_pallas (pallas_call at :398).
 // The TPU kernel recomputes the forward per tile and sums every dW across
 // sequential grid steps in resident output refs. Blocks on Hopper run in
-// parallel, so the weight gradients take a second pass:
+// parallel, so the weight gradients take a second pass, each pass one entry
+// point that the wrapper (kernels/fused_mlp.py) calls once per chunk:
 //
-//   pass 1 (fused_nerf_bwd_kernel): per 32-point tile, the forward again,
-//     then the backward to d_pts, d_feats, d_views. Every product input that
-//     the weight gradients need (conditioning, the trunk's pre-activations
-//     z_i, the feature and views-layer outputs) and every layer's output
-//     gradient d_z goes to a scratch buffer in device memory.
-//   pass 2 (wgrad_kernel): dW = X^T dZ and db = sum dZ per layer, a tiled
-//     float32 reduction over the points, split along the points into blocks
-//     of kSplit rows whose partial tiles are added with atomics into d_pack
-//     (which the caller zeroes). The trunk inputs h_{i-1} = relu(z_{i-1} *
-//     cond) are formed while the tile loads.
+//   pass 1 (fused_nerf_bwd_kernel, zt_fused_nerf_backward): per 32-point
+//     tile, the forward again, then the backward to d_pts, d_feats,
+//     d_views. Every product input that the weight gradients need
+//     (conditioning, the trunk's pre-activations z_i, the feature and
+//     views-layer outputs), every layer's output gradient d_z and the heads'
+//     pre-activation gradients go to a scratch buffer in device memory
+//     (carve: each buffer [rows][cols] float32 row-major).
+//   pass 2 (zt_fused_nerf_weight_grads_tc32, fused_mlp_tc32_bwd.cu): dW =
+//     X^T dZ and db = sum dZ per layer from that scratch, added into d_pack
+//     (which the caller zeroes).
 //
 // The input-gradient products of pass 1 read the weights untransposed
 // ([out][in], the "transposed pack" that transpose_pack_kernel builds from
-// the forward pack at the start of every backward call, into the head of the
-// scratch buffer), so a lane's columns are again consecutive floats of one
-// row. The narrow outputs (d_pts, d_feats, d_views: <= 96 columns) use a lane
-// per column. Points are processed in chunks of `chunk` rows so the scratch
-// (W * (2 * depth + 5) + out_ch floats per point) stays bounded.
+// the forward pack once per backward call, zt_fused_nerf_backward_tpack,
+// into the head of the scratch buffer), so a lane's columns are again
+// consecutive floats of one row. The narrow outputs (d_pts, d_feats,
+// d_views: <= 96 columns) use a lane per column. Points are processed in
+// chunks so the scratch (W * (2 * depth + 5) + out_ch floats per point)
+// stays bounded.
 //
-// What bounds it on an H100: float32 FMA issue: pass 1 does the forward's
-// products plus the same again for d_h (~2.4 MFLOP per point at width 256),
-// pass 2 the weight products (~1.2 MFLOP per point).
-// The scratch adds ~43 KB of traffic per point (written once, read once),
-// ~4 ms per flagship step at the HBM rate against ~30 ms of FMA work at peak.
+// What bounds pass 1 on an H100: float32 FMA issue, the forward's products
+// plus the same again for d_h (~2.4 MFLOP per point at width 256). The
+// scratch adds ~43 KB of traffic per point (written once, read once by pass
+// 2), ~7 ms per flagship step at the HBM rate against ~20 ms of FMA work at
+// peak.
 
 constexpr int kGS = 16;         // smem row stride of g / d_heads (<= 12 used)
 constexpr int kES = 8;          // smem row stride of the extra heads' values
@@ -249,19 +253,29 @@ __host__ __device__ inline long long scratch_floats(long long rows, int W,
   return rows * (static_cast<long long>(W) * (2 * depth + 5) + out_ch);
 }
 
-inline Scratch carve(float* base, long long rows, int W, int depth) {
-  Scratch s;
-  s.rows = rows;
+// the buffers of Scratch in its order, by their first float from the chunk's
+// base: cond [rows][W], z [depth][rows][W], feat [rows][W], hv [rows][W / 2],
+// dz [depth][rows][W], dbias (d_cond) [rows][W], dfeat [rows][W], dhv
+// [rows][W / 2], gh [rows][out_ch]
+constexpr int kNumBufs = 9;
+
+inline void buffer_offsets(long long (&at)[kNumBufs], long long rows, int W,
+                           int depth) {
   const long long rw = rows * W;
-  s.cond = base;
-  s.z = s.cond + rw;
-  s.feat = s.z + depth * rw;
-  s.hv = s.feat + rw;
-  s.dz = s.hv + rw / 2;
-  s.dbias = s.dz + depth * rw;
-  s.dfeat = s.dbias + rw;
-  s.dhv = s.dfeat + rw;
-  s.gh = s.dhv + rw / 2;
+  const long long len[kNumBufs - 1] = {rw, depth * rw, rw, rw / 2, depth * rw,
+                                       rw, rw, rw / 2};
+  at[0] = 0;
+  for (int b = 1; b < kNumBufs; ++b) at[b] = at[b - 1] + len[b - 1];
+}
+
+inline Scratch carve(float* base, long long rows, int W, int depth) {
+  long long at[kNumBufs];
+  buffer_offsets(at, rows, W, depth);
+  Scratch s;
+  float** ptr[kNumBufs] = {&s.cond, &s.z,     &s.feat,  &s.hv, &s.dz,
+                           &s.dbias, &s.dfeat, &s.dhv, &s.gh};
+  for (int b = 0; b < kNumBufs; ++b) *ptr[b] = base + at[b];
+  s.rows = rows;
   return s;
 }
 
@@ -567,233 +581,138 @@ fused_nerf_bwd_kernel(const float* __restrict__ pts,
   store_narrow(d_feats, F, accn, row0, n, lane);
 }
 
-// pass 2: C[m][n] += sum_k A'[k][m] * B[k][n] over this block's kSplit rows,
-// A' = relu(A * S) when S is given (S has A's layout), else A; and, when db
-// is given, db[n] += sum_k B[k][n] (the blocks of the first row of tiles).
-constexpr int kGT = 64;         // output tile (kGT x kGT), 4x4 per thread
-constexpr int kGK = 16;         // rows per shared-memory stage
-constexpr int kSplit = 1024;    // rows per block
-
-__global__ void __launch_bounds__(256)
-wgrad_kernel(const float* __restrict__ Am, int lda, const float* __restrict__ S,
-             const float* __restrict__ Bm, int ldb, float* C, int ldc,
-             float* db, int M, int N, long long K) {
-  __shared__ float As[kGK][kGT];
-  __shared__ float Bs[kGK][kGT];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kGT, n0 = blockIdx.x * kGT;
-  const long long k0 = static_cast<long long>(blockIdx.z) * kSplit;
-  const long long k1 = k0 + kSplit < K ? k0 + kSplit : K;
-  const bool do_db = db != nullptr && blockIdx.y == 0 && ty == 0;
-  float acc[4][4] = {};
-  float colsum[4] = {};
-  for (long long kb = k0; kb < k1; kb += kGK) {
-    for (int t = tid; t < kGK * kGT; t += 256) {
-      const int kk = t / kGT, c = t - kk * kGT;
-      const long long k = kb + kk;
-      float a = 0.f, b = 0.f;
-      if (k < k1 && m0 + c < M) {
-        a = Am[k * lda + m0 + c];
-        if (S != nullptr) a = fmaxf(a * S[k * lda + m0 + c], 0.f);
-      }
-      if (k < k1 && n0 + c < N) b = Bm[k * ldb + n0 + c];
-      As[kk][c] = a;
-      Bs[kk][c] = b;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      if (do_db) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) colsum[j] += b[j];
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int nn = n0 + tx * 4 + j;
-      if (nn < N) atomicAdd(C + static_cast<long long>(m) * ldc + nn, acc[i][j]);
-    }
-  }
-  if (do_db) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int nn = n0 + tx * 4 + j;
-      if (nn < N) atomicAdd(db + nn, colsum[j]);
-    }
-  }
-}
-
-int wgrad(const float* A, int lda, const float* S, const float* B, int ldb,
-          float* C, int ldc, float* db, int M, int N, long long K,
-          cudaStream_t stream) {
-  const dim3 grid((N + kGT - 1) / kGT, (M + kGT - 1) / kGT,
-                  static_cast<unsigned int>((K + kSplit - 1) / kSplit));
-  wgrad_kernel<<<grid, 256, 0, stream>>>(A, lda, S, B, ldb, C, ldc, db, M, N,
-                                         K);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the weight-gradient products of one chunk of `rows` points
-int weight_grads(const float* pts, const float* feats, const float* views,
-                 const Scratch& s, const BParams& prm, float* d_pack,
-                 long long rows, int P, int F, int V, int W, int depth,
-                 int skip, int n_extra, cudaStream_t st) {
-  const int out_ch = n_extra == 1 ? 5 : 12;
-  const long long rw = rows * W;
-  const float* h_last = s.z + (depth - 1) * rw;
-  float* d = d_pack;
-  const int* off = prm.off;
-  int err = 0;
-  auto run = [&](const float* A, int lda, const float* S, const float* Bm,
-                 int ldb, int c_off, int d_off, int M, int N) {
-    if (err == 0)
-      err = wgrad(A, lda, S, Bm, ldb, d + c_off, N, d_off < 0 ? nullptr : d + d_off,
-                  M, N, rows, st);
-  };
-  run(feats, F, nullptr, s.dbias, W, off[kWb], off[kBb], F, W);
-  for (int i = 0; i < depth; ++i) {
-    const int wo = off[kLayer0 + 2 * i], bo = off[kLayer0 + 2 * i + 1];
-    const float* dz = s.dz + i * rw;
-    if (i == 0) {
-      run(pts, P, nullptr, dz, W, wo, bo, P, W);
-    } else {
-      const float* z_prev = s.z + (i - 1) * rw;
-      int h_off = wo;
-      if (i == skip + 1) {
-        run(pts, P, nullptr, dz, W, wo, -1, P, W);
-        h_off = wo + P * W;
-      }
-      run(z_prev, W, s.cond, dz, W, h_off, bo, W, W);
-    }
-  }
-  run(h_last, W, s.cond, s.gh + 3, out_ch, off[kWa], off[kBa], W, 1);
-  if (n_extra == 1) {
-    run(h_last, W, s.cond, s.gh + 4, out_ch, off[kWx1], off[kBx1], W, 1);
-  } else {
-    run(h_last, W, s.cond, s.gh + 4, out_ch, off[kWx1], off[kBx1], W, 6);
-    run(h_last, W, s.cond, s.gh + 10, out_ch, off[kWx2], off[kBx2], W, 2);
-  }
-  run(h_last, W, s.cond, s.dfeat, W, off[kWf], off[kBf], W, W);
-  run(s.feat, W, nullptr, s.dhv, W / 2, off[kWv], off[kBv], W, W / 2);
-  run(views, V, nullptr, s.dhv, W / 2, off[kWv] + W * (W / 2), -1, V, W / 2);
-  run(s.hv, W / 2, nullptr, s.gh, out_ch, off[kWr], off[kBr], W / 2, 3);
-  return err;
-}
-
-// prm.wt and prm.toff are set here: the transposed pack goes to the head of
-// scratch (tlen floats, from tpack_layout), the per-chunk buffers after it
+// pass 1 on one chunk of n points (pointers at the chunk); the transposed
+// pack is at the head of scratch (tlen floats), the chunk's buffers after it
 template <int WIDTH>
 int launch_bwd(const float* pts, const float* feats, const float* views,
-               const float* g, BParams& prm, const TParts& parts, int tlen,
-               float* scratch, long long chunk, float* d_pts, float* d_feats,
-               float* d_views, float* d_pack, long long n, int P, int F, int V,
-               int depth, int skip, int n_extra, cudaStream_t stream) {
+               const float* g, const BParams& prm, float* scratch, int tlen,
+               float* d_pts, float* d_feats, float* d_views, long long n,
+               int P, int F, int V, int depth, int skip, int n_extra,
+               cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * kTile * (2 * WIDTH + P + F + V + kGS + kES);
   cudaError_t e = cudaFuncSetAttribute(
       fused_nerf_bwd_kernel<WIDTH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  float* tpack = scratch;
-  scratch += tlen;
-  prm.wt = tpack;
-  transpose_pack_kernel<<<dim3(32, parts.n), 256, 0, stream>>>(prm.w, tpack,
-                                                               parts);
-  if (int err = static_cast<int>(cudaGetLastError())) return err;
-  const int out_ch = n_extra == 1 ? 5 : 12;
-  for (long long c0 = 0; c0 < n; c0 += chunk) {
-    const long long rows = n - c0 < chunk ? n - c0 : chunk;
-    const Scratch s = carve(scratch, rows, WIDTH, depth);
-    const unsigned int blocks = static_cast<unsigned int>((rows + kTile - 1) / kTile);
-    fused_nerf_bwd_kernel<WIDTH><<<blocks, kWarps * 32, smem, stream>>>(
-        pts + c0 * P, feats + c0 * F, views + c0 * V, g + c0 * out_ch, prm, s,
-        d_pts + c0 * P, d_feats + c0 * F, d_views + c0 * V, rows, P, F, V,
-        depth, skip, n_extra);
-    int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    err = weight_grads(pts + c0 * P, feats + c0 * F, views + c0 * V, s, prm,
-                       d_pack, rows, P, F, V, WIDTH, depth, skip, n_extra,
-                       stream);
-    if (err != 0) return err;
-  }
-  return 0;
+  const Scratch s = carve(scratch + tlen, n, WIDTH, depth);
+  const unsigned int blocks = static_cast<unsigned int>((n + kTile - 1) / kTile);
+  fused_nerf_bwd_kernel<WIDTH><<<blocks, kWarps * 32, smem, stream>>>(
+      pts, feats, views, g, prm, s, d_pts, d_feats, d_views, n, P, F, V,
+      depth, skip, n_extra);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool valid(int width, int depth, int n_extra) {
+  return depth >= 1 && depth <= kMaxLayers && n_extra >= 1 && n_extra <= 2 &&
+         (width == 64 || width == 128 || width == 256);
+}
+
+// prm.off from offsets (null: zeros, for the lengths alone), prm.toff;
+// returns the transposed pack's length in floats
+int bparams(BParams& prm, TParts& parts, const float* wpack,
+            const int* offsets, int P, int F, int V, int width, int depth,
+            int skip, int n_extra) {
+  prm.w = wpack;
+  prm.wt = nullptr;
+  for (int s = 0; s < kNumSlots; ++s) prm.off[s] = offsets ? offsets[s] : 0;
+  return tpack_layout(prm, parts, P, F, V, width, depth, skip, n_extra);
 }
 
 }  // namespace
 
-// The floats of scratch that zt_fused_nerf_backward needs for n points in
-// chunks of `chunk`: the transposed pack, then one chunk's buffers.
+// The floats of scratch that K7's float32 mode needs for n points in chunks
+// of `chunk`: the transposed pack, then one chunk's buffers.
 ZT_API int zt_fused_nerf_backward_scratch(int n, int chunk, int P, int F,
                                           int V, int width, int depth,
                                           int skip, int n_extra,
                                           long long* floats) {
-  if (depth < 1 || depth > kMaxLayers || n_extra < 1 || n_extra > 2 ||
-      chunk < 1)
+  if (!valid(width, depth, n_extra) || chunk < 1)
     return cudaErrorInvalidValue;
-  BParams prm = {};
+  BParams prm;
   TParts parts;
   const long long rows = n < chunk ? (n > 1 ? n : 1) : chunk;
-  *floats = tpack_layout(prm, parts, P, F, V, width, depth, skip, n_extra) +
+  *floats = bparams(prm, parts, nullptr, nullptr, P, F, V, width, depth, skip,
+                    n_extra) +
             scratch_floats(rows, width, depth, n_extra == 1 ? 5 : 12);
   return 0;
 }
 
-// K7 in its float32 mode (the bf16-operand mode: fused_mlp_tc_bwd.cu).
-// d_pts [n][P], d_feats [n][F], d_views [n][V] are written; d_pack (the
-// forward pack's layout) must be zeroed by the caller: the weight gradients
-// are added into it. scratch holds zt_fused_nerf_backward_scratch floats.
+// Where pass 1 leaves a chunk of `rows` points in the scratch: at[b] is the
+// first float of buffer b (Scratch's order: cond, z, feat, hv, dz, dbias,
+// dfeat, dhv, gh; buffer_offsets gives their shapes).
+ZT_API int zt_fused_nerf_backward_layout(int rows, int P, int F, int V,
+                                         int width, int depth, int skip,
+                                         int n_extra, long long* at) {
+  if (!valid(width, depth, n_extra) || rows < 0) return cudaErrorInvalidValue;
+  BParams prm;
+  TParts parts;
+  const int tlen = bparams(prm, parts, nullptr, nullptr, P, F, V, width,
+                           depth, skip, n_extra);
+  long long off[kNumBufs];
+  buffer_offsets(off, rows, width, depth);
+  for (int b = 0; b < kNumBufs; ++b) at[b] = tlen + off[b];
+  return 0;
+}
+
+// The transposed pack of wpack into the head of scratch (scratch_len
+// floats), once per backward call, before the chunks' pass 1.
+ZT_API int zt_fused_nerf_backward_tpack(const float* wpack,
+                                        const int* offsets, float* scratch,
+                                        long long scratch_len, int P, int F,
+                                        int V, int width, int depth, int skip,
+                                        int n_extra, void* stream) {
+  if (!valid(width, depth, n_extra)) return cudaErrorInvalidValue;
+  BParams prm;
+  TParts parts;
+  if (scratch_len < bparams(prm, parts, wpack, offsets, P, F, V, width, depth,
+                            skip, n_extra))
+    return cudaErrorInvalidValue;
+  transpose_pack_kernel<<<dim3(32, parts.n), 256, 0,
+                          static_cast<cudaStream_t>(stream)>>>(wpack, scratch,
+                                                               parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7 in its float32 mode, pass 1 on one chunk of n points (pointers at the
+// chunk; the bf16-operand mode: fused_mlp_tc_bwd.cu): d_pts [n][P], d_feats
+// [n][F], d_views [n][V] are written, and the chunk's buffers in scratch
+// (scratch_len floats, zt_fused_nerf_backward_scratch; the transposed pack
+// at its head, zt_fused_nerf_backward_tpack) for pass 2,
+// zt_fused_nerf_weight_grads_tc32.
 ZT_API int zt_fused_nerf_backward(const float* pts, const float* feats,
                                   const float* views, const float* g,
                                   const float* wpack, const int* offsets,
                                   float* scratch, long long scratch_len,
-                                  int chunk, float* d_pts, float* d_feats,
-                                  float* d_views, float* d_pack, int n, int P,
-                                  int F, int V, int width, int depth, int skip,
-                                  int n_extra, void* stream) {
-  if (depth < 1 || depth > kMaxLayers || n_extra < 1 || n_extra > 2 ||
-      chunk < 1 || P > 32 * kNarrow || F > 32 * kNarrow || V > 32 * kNarrow)
+                                  float* d_pts, float* d_feats,
+                                  float* d_views, int n, int P, int F, int V,
+                                  int width, int depth, int skip, int n_extra,
+                                  void* stream) {
+  if (!valid(width, depth, n_extra) || P > 32 * kNarrow || F > 32 * kNarrow ||
+      V > 32 * kNarrow)
     return cudaErrorInvalidValue;
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const long long rows = n < chunk ? n : chunk;
   BParams prm;
-  prm.w = wpack;
-  for (int s = 0; s < kNumSlots; ++s) prm.off[s] = offsets[s];
   TParts parts;
-  const int tlen = tpack_layout(prm, parts, P, F, V, width, depth, skip,
-                                n_extra);
+  const int tlen = bparams(prm, parts, wpack, offsets, P, F, V, width, depth,
+                           skip, n_extra);
   if (scratch_len <
-      tlen + scratch_floats(rows, width, depth, n_extra == 1 ? 5 : 12))
+      tlen + scratch_floats(n, width, depth, n_extra == 1 ? 5 : 12))
     return cudaErrorInvalidValue;
+  prm.wt = scratch;
   auto st = static_cast<cudaStream_t>(stream);
   switch (width) {
     case 64:
-      return launch_bwd<64>(pts, feats, views, g, prm, parts, tlen, scratch,
-                            rows, d_pts, d_feats, d_views, d_pack, n, P, F, V,
-                            depth, skip, n_extra, st);
+      return launch_bwd<64>(pts, feats, views, g, prm, scratch, tlen, d_pts,
+                            d_feats, d_views, n, P, F, V, depth, skip,
+                            n_extra, st);
     case 128:
-      return launch_bwd<128>(pts, feats, views, g, prm, parts, tlen, scratch,
-                             rows, d_pts, d_feats, d_views, d_pack, n, P, F, V,
-                             depth, skip, n_extra, st);
-    case 256:
-      return launch_bwd<256>(pts, feats, views, g, prm, parts, tlen, scratch,
-                             rows, d_pts, d_feats, d_views, d_pack, n, P, F, V,
-                             depth, skip, n_extra, st);
+      return launch_bwd<128>(pts, feats, views, g, prm, scratch, tlen, d_pts,
+                             d_feats, d_views, n, P, F, V, depth, skip,
+                             n_extra, st);
     default:
-      return cudaErrorInvalidValue;
+      return launch_bwd<256>(pts, feats, views, g, prm, scratch, tlen, d_pts,
+                             d_feats, d_views, n, P, F, V, depth, skip,
+                             n_extra, st);
   }
 }

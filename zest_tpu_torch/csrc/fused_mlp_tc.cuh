@@ -685,4 +685,95 @@ __device__ __forceinline__ void forward_tile(
       n0v, wn, lane);
 }
 
+// ---------------------------------------------------------------------------
+// K7's heads' weight and bias gradients, float32 operands, for both
+// tensor-core pass 2s (fused_mlp_tc_bwd.cu, fused_mlp_tc32_bwd.cu): dW[k][o]
+// = sum_p x[p][k] g'[p][o] with x = h_last for the alpha and extra heads and
+// x = hv for rgb, and db[o] = sum_p g'[p][o]. h_last is read as it is, or,
+// where cond is given, rebuilt from z_last as relu(z_last * cond) with the
+// forward's own multiply and max (the float32 scratch keeps z and cond).
+// Thread k owns input column k (the block is W threads), reading x row by
+// row (coalesced) over the block's kHeadSpan points, g' staged in shared
+// memory; one atomic per weight and block into d_pack. NH: the alpha and
+// extra heads (2 static, 9 dynamic).
+constexpr int kHeadSpan = 64;
+constexpr int kHeadTile = 64;
+
+struct HeadSlots {
+  int wa, wx1, wx2, wr, ba, bx1, bx2, br;
+};
+
+template <int NH>
+__global__ void __launch_bounds__(256)
+head_grads_kernel(const float* __restrict__ hlast,
+                  const float* __restrict__ cond, const float* __restrict__ hv,
+                  const float* __restrict__ gh, float* d_pack, HeadSlots hd,
+                  long long K) {
+  constexpr int out_ch = NH == 2 ? 5 : 12;
+  __shared__ float gt[kHeadTile][out_ch];
+  const int k = threadIdx.x, W = blockDim.x;
+  const long long p0 = static_cast<long long>(blockIdx.x) * kHeadSpan;
+  const long long p1 = p0 + kHeadSpan < K ? p0 + kHeadSpan : K;
+  float acc[NH] = {}, accr[3] = {}, bsum = 0.f;
+  for (long long pt = p0; pt < p1; pt += kHeadTile) {
+    const int rows = static_cast<int>(p1 - pt < kHeadTile ? p1 - pt : kHeadTile);
+    __syncthreads();                   // the last tile is read
+    for (int e = k; e < rows * out_ch; e += W)
+      gt[e / out_ch][e % out_ch] = gh[pt * out_ch + e];
+    __syncthreads();
+#pragma unroll 4
+    for (int q = 0; q < rows; ++q) {
+      const long long e = (pt + q) * W + k;
+      const float x = cond == nullptr
+                          ? hlast[e]
+                          : fmaxf(__fmul_rn(hlast[e], cond[e]), 0.f);
+#pragma unroll
+      for (int o = 0; o < NH; ++o) acc[o] = fmaf(x, gt[q][3 + o], acc[o]);
+      if (k < W / 2) {
+        const float v = hv[(pt + q) * (W / 2) + k];
+#pragma unroll
+        for (int o = 0; o < 3; ++o) accr[o] = fmaf(v, gt[q][o], accr[o]);
+      }
+      if (k < out_ch) bsum += gt[q][k];
+    }
+  }
+  atomicAdd(d_pack + hd.wa + k, acc[0]);
+  if constexpr (NH == 2) {
+    atomicAdd(d_pack + hd.wx1 + k, acc[1]);
+  } else {
+#pragma unroll
+    for (int o = 0; o < 6; ++o) atomicAdd(d_pack + hd.wx1 + 6 * k + o, acc[1 + o]);
+#pragma unroll
+    for (int o = 0; o < 2; ++o) atomicAdd(d_pack + hd.wx2 + 2 * k + o, acc[7 + o]);
+  }
+  if (k < W / 2) {
+#pragma unroll
+    for (int o = 0; o < 3; ++o) atomicAdd(d_pack + hd.wr + 3 * k + o, accr[o]);
+  }
+  if (k < out_ch) {
+    const int b = k < 3 ? hd.br + k : k == 3 ? hd.ba
+                  : k < 10 || NH == 2 ? hd.bx1 + k - 4 : hd.bx2 + k - 10;
+    atomicAdd(d_pack + b, bsum);
+  }
+}
+
+// The heads' gradients over K points into d_pack (off: the float32 pack's
+// offsets): hlast [K][W] is h_last, or z_last where cond [K][W] is given;
+// hv [K][W / 2]; gh [K][out_ch] the heads' pre-activation gradients g'.
+inline int head_grads(const float* hlast, const float* cond, const float* hv,
+                      const float* gh, const int* off, float* d_pack,
+                      long long K, int W, int n_extra, cudaStream_t st) {
+  const HeadSlots hd{off[kWa], off[kWx1], off[kWx2], off[kWr],
+                     off[kBa], off[kBx1], off[kBx2], off[kBr]};
+  const unsigned int blocks =
+      static_cast<unsigned int>((K + kHeadSpan - 1) / kHeadSpan);
+  if (n_extra == 1)
+    head_grads_kernel<2><<<blocks, W, 0, st>>>(hlast, cond, hv, gh, d_pack,
+                                               hd, K);
+  else
+    head_grads_kernel<9><<<blocks, W, 0, st>>>(hlast, cond, hv, gh, d_pack,
+                                               hd, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace

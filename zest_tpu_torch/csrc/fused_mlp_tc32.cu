@@ -4,8 +4,9 @@
 // (pallas_call at :376; its per-tile math is _forward_tile) in its
 // approx=False mode, "exact 6-pass f32" (Precision.HIGHEST on the TPU): the
 // port's default precision 32. The bf16-operand mode is fused_mlp_tc.cu, on
-// the same tile; the backward's float32 mode stays the SIMT kernels of
-// fused_mlp.cu.
+// the same tile. The backward's float32 mode recomputes the forward on the
+// CUDA cores (pass 1, fused_mlp.cu) and takes its weight gradients on the
+// tensor cores as 3xTF32 too (pass 2, fused_mlp_tc32_bwd.cu).
 //
 // What it computes is the float32 twin's field (models/nerf.py, NeRFField
 // with bf16=False):
@@ -62,8 +63,8 @@
 // longer sequence than the integer split (114 ms with it), and running the
 // three terms tile by tile instead of term by term was slower.
 //
-// In a training step the backward's float32 mode (fused_mlp.cu, SIMT)
-// recomputes this forward with FMA sums in another order, so its gradient
+// In a training step the backward's float32 mode (its pass 1, fused_mlp.cu,
+// SIMT) recomputes this forward with FMA sums in another order, so its gradient
 // is taken at activations that differ from the ones the loss saw by float32
 // rounding noise (PERF.md §7); a ReLU input within that noise of zero can
 // take the other branch there.

@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel zest_tpu/kernels/fused_mlp.py:_bwd_pallas
 // (pallas_call at :398; its per-tile math is _bwd_kernel, :233-355) in its
-// approx=True mode, the port's precision 16. The float32 mode stays the SIMT
-// kernels of fused_mlp.cu.
+// approx=True mode, the port's precision 16. The float32 mode is fused_mlp.cu
+// (pass 1, SIMT) and fused_mlp_tc32_bwd.cu (pass 2, 3xTF32).
 //
 // What it computes is the gradient of the bf16 twin's field (models/nerf.py,
 // _BF16Linear): every product of the conditioning, the trunk, the feature
@@ -42,8 +42,8 @@
 //     weight gradient over a split of the chunk's points, with both operands
 //     read [points][features] by ldmatrix.trans from a cp.async ring, and
 //     adds its float32 tile into d_pack with float2 atomics. The heads' weight
-//     gradients keep float32 operands (head_grads_kernel: h_last and hv
-//     read once per chunk, one thread per input column).
+//     gradients keep float32 operands (head_grads_kernel, fused_mlp_tc.cuh:
+//     h_last and hv read once per chunk, one thread per input column).
 //
 // What bounds it on an H100: the bf16 products, 3 passes over every weight
 // per point (~1.2 MFLOP per point at width 256): 2.2 ms at the 989 TFLOP/s
@@ -706,84 +706,6 @@ int wgrad_jobs(WJobs& jobs, const BwdScratch& s, const Geo& g,
   return tiles;
 }
 
-// The heads' weight and bias gradients, float32 operands: dW[k][o] = sum_p
-// x[p][k] g'[p][o] with x = h_last for the alpha and extra heads and x = hv
-// for rgb, and db[o] = sum_p g'[p][o]. Thread k owns input column k (the
-// block is W threads), reading x row by row (coalesced) over the block's
-// kHeadSpan points, g' staged in shared memory; one atomic per weight and
-// block into d_pack. NH: the alpha and extra heads (2 static, 9 dynamic).
-constexpr int kHeadSpan = 64;
-constexpr int kHeadTile = 64;
-
-struct HeadSlots {
-  int wa, wx1, wx2, wr, ba, bx1, bx2, br;
-};
-
-template <int NH>
-__global__ void __launch_bounds__(256)
-head_grads_kernel(const float* __restrict__ hlast, const float* __restrict__ hv,
-                  const float* __restrict__ gh, float* d_pack, HeadSlots hd,
-                  long long K) {
-  constexpr int out_ch = NH == 2 ? 5 : 12;
-  __shared__ float gt[kHeadTile][out_ch];
-  const int k = threadIdx.x, W = blockDim.x;
-  const long long p0 = static_cast<long long>(blockIdx.x) * kHeadSpan;
-  const long long p1 = p0 + kHeadSpan < K ? p0 + kHeadSpan : K;
-  float acc[NH] = {}, accr[3] = {}, bsum = 0.f;
-  for (long long pt = p0; pt < p1; pt += kHeadTile) {
-    const int rows = static_cast<int>(p1 - pt < kHeadTile ? p1 - pt : kHeadTile);
-    __syncthreads();                   // the last tile is read
-    for (int e = k; e < rows * out_ch; e += W)
-      gt[e / out_ch][e % out_ch] = gh[pt * out_ch + e];
-    __syncthreads();
-#pragma unroll 4
-    for (int q = 0; q < rows; ++q) {
-      const float x = hlast[(pt + q) * W + k];
-#pragma unroll
-      for (int o = 0; o < NH; ++o) acc[o] = fmaf(x, gt[q][3 + o], acc[o]);
-      if (k < W / 2) {
-        const float v = hv[(pt + q) * (W / 2) + k];
-#pragma unroll
-        for (int o = 0; o < 3; ++o) accr[o] = fmaf(v, gt[q][o], accr[o]);
-      }
-      if (k < out_ch) bsum += gt[q][k];
-    }
-  }
-  atomicAdd(d_pack + hd.wa + k, acc[0]);
-  if constexpr (NH == 2) {
-    atomicAdd(d_pack + hd.wx1 + k, acc[1]);
-  } else {
-#pragma unroll
-    for (int o = 0; o < 6; ++o) atomicAdd(d_pack + hd.wx1 + 6 * k + o, acc[1 + o]);
-#pragma unroll
-    for (int o = 0; o < 2; ++o) atomicAdd(d_pack + hd.wx2 + 2 * k + o, acc[7 + o]);
-  }
-  if (k < W / 2) {
-#pragma unroll
-    for (int o = 0; o < 3; ++o) atomicAdd(d_pack + hd.wr + 3 * k + o, accr[o]);
-  }
-  if (k < out_ch) {
-    const int b = k < 3 ? hd.br + k : k == 3 ? hd.ba
-                  : k < 10 || NH == 2 ? hd.bx1 + k - 4 : hd.bx2 + k - 10;
-    atomicAdd(d_pack + b, bsum);
-  }
-}
-
-int head_grads(const BwdScratch& s, const Geo& g, const int* off,
-               float* d_pack, long long K, int n_extra, cudaStream_t st) {
-  const HeadSlots hd{off[kWa], off[kWx1], off[kWx2], off[kWr],
-                     off[kBa], off[kBx1], off[kBx2], off[kBr]};
-  const unsigned int blocks =
-      static_cast<unsigned int>((K + kHeadSpan - 1) / kHeadSpan);
-  if (n_extra == 1)
-    head_grads_kernel<2><<<blocks, g.W, 0, st>>>(s.hlast, s.hv, s.gh, d_pack,
-                                                 hd, K);
-  else
-    head_grads_kernel<9><<<blocks, g.W, 0, st>>>(s.hlast, s.hv, s.gh, d_pack,
-                                                 hd, K);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // the forward's and the backward's matrices as one stream; false if the
 // shapes are not the kernels'
 bool bwd_params(TcParams& prm, Geo& g, const float* wpack, const int* offsets,
@@ -853,7 +775,9 @@ int launch_bwd_tc(const float* pts, const float* feats, const float* views,
     wgrad_tc_kernel<<<dim3(tiles, static_cast<unsigned int>(splits)), 256,
                       kP2Smem, stream>>>(jobs, d_pack, K, split);
     err = static_cast<int>(cudaGetLastError());
-    if (err == 0) err = head_grads(s, geo, prm.off, d_pack, K, n_extra, stream);
+    if (err == 0)
+      err = head_grads(s.hlast, nullptr, s.hv, s.gh, prm.off, d_pack, K,
+                       WIDTH, n_extra, stream);
     if (err != 0) return err;
   }
   return 0;

@@ -58,12 +58,23 @@ SIGNATURES = {
     # n, chunk, P, F, V, width, depth, skip, n_extra, floats (host long long*)
     "zt_fused_nerf_backward_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,
                                        _P],
+    # rows, P, F, V, width, depth, skip, n_extra, at (host long long[9])
+    "zt_fused_nerf_backward_layout": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # wpack, offsets (host int*), scratch, scratch_len,
+    # P, F, V, width, depth, skip, n_extra, stream
+    "zt_fused_nerf_backward_tpack": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                                     _I, _P],
     # pts, feats, views, g, wpack, offsets (host int*), scratch, scratch_len,
-    # chunk, d_pts, d_feats, d_views, d_pack,
+    # d_pts, d_feats, d_views, n, P, F, V, width, depth, skip, n_extra,
+    # stream
+    "zt_fused_nerf_backward": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # pts, feats, views, cond, z, feat, hv, dz, d_cond, d_feature, d_hv,
+    # g_heads, offsets (host int*), d_pack,
     # n, P, F, V, width, depth, skip, n_extra, stream
-    "zt_fused_nerf_backward": [_P, _P, _P, _P, _P, _P, _P, _L, _I,
-                               _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _P],
+    "zt_fused_nerf_weight_grads_tc32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _P],
     # wpack, offsets(host int*), wbt, P, F, V, width, depth, skip, stream
     "zt_fused_nerf_pack_bwd_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # P, F, V, width, depth, skip -> elements of the backward pack

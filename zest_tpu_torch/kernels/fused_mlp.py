@@ -6,10 +6,14 @@ Replaces ``zest_tpu/kernels/fused_mlp.py:_fwd_pallas`` (K6, the forward
 custom VJP). K6 runs on the tensor cores in both modes, on one tile
 (``csrc/fused_mlp_tc.cuh``): at float32 as 3xTF32 (``csrc/fused_mlp_tc32.cu``),
 in the bf16-operand mode with bf16 operands (``csrc/fused_mlp_tc.cu``). K7
-runs on the CUDA cores at float32 (``csrc/fused_mlp.cu``, SIMT) and on the
-tensor cores in the bf16-operand mode (``csrc/fused_mlp_tc_bwd.cu``), which
-recomputes the forward with K6's own device code. Every product of the
-field runs inside them. ``fused_nerf_forward`` is an
+at float32 is two passes per chunk of points: pass 1 on the CUDA cores
+(``csrc/fused_mlp.cu``, SIMT) recomputes the forward and takes the input
+gradients, leaving every weight gradient's operands in a scratch buffer;
+pass 2 (``weight_grads``, ``csrc/fused_mlp_tc32_bwd.cu``) takes the weight
+gradients from it on the tensor cores as 3xTF32. K7's bf16-operand mode
+runs on the tensor cores (``csrc/fused_mlp_tc_bwd.cu``) and recomputes the
+forward with K6's own device code. Every product of the field runs inside
+them. ``fused_nerf_forward`` is an
 autograd Function over (pts, feats, views, pack): ``pack_weights`` is a
 differentiable ``torch.cat``
 of every Linear's ``weight.T`` and bias, so the packed weight gradient of K7
@@ -20,8 +24,9 @@ At float32 K6 splits every operand of the conditioning, trunk, feature and
 views products into two TF32 values (``zest_tpu``'s ``approx=False``, exact
 float32 on the TPU: three TF32 products keep ~22 bits of each operand), from
 a float32 operand pack made from the float32 pack on the card by one launch
-on every call (``pack_tc32``). The float32 K7 recomputes the forward with
-FMA sums, in another order than K6's.
+on every call (``pack_tc32``). The float32 K7's pass 1 recomputes the
+forward with FMA sums, in another order than K6's; its pass 2 splits the
+operands of the same products' weight gradients as K6 splits its own.
 
 A field built with ``bf16=True`` runs the kernels' bf16-operand mode
 (``zest_tpu``'s ``approx=True``): the kernels round the conditioning, trunk,
@@ -35,6 +40,7 @@ read [in][out] (``pack_bf16_bwd``), by one launch per call.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -442,6 +448,96 @@ def fused_nerf_backward_plain(field, pts, feats, views, g):
     return (*(t.grad for t in inputs), pack_grads(field))
 
 
+# the buffers K7 float32's pass 1 leaves per chunk, in the order of its
+# scratch (Scratch in csrc/fused_mlp.cu) and of the pass-2 entry's pointers
+_BUFS = ("cond", "z", "feature", "hv", "dz", "d_cond", "d_feature", "d_hv",
+         "g_heads")
+
+
+def _scratch_views(lib, field, scratch, rows):
+    """The buffers K7 float32's pass 1 left in ``scratch`` for a chunk of
+    ``rows`` points, as views by name (``_BUFS``): z and dz [depth, rows, W],
+    hv and d_hv [rows, W / 2], g_heads [rows, out_ch], the others [rows, W]
+    (their places: ``zt_fused_nerf_backward_layout``)."""
+    at = (ctypes.c_longlong * len(_BUFS))()
+    _build.check(lib.zt_fused_nerf_backward_layout(
+        rows, *_geometry(field), 1 if field.static else 2, at), "weight_grads")
+    W, depth = field.width, len(field.pts_linears)
+    dims = {"z": (depth, rows, W), "dz": (depth, rows, W),
+            "hv": (rows, W // 2), "d_hv": (rows, W // 2),
+            "g_heads": (rows, field.out_ch)}
+    views = {}
+    for name, offset in zip(_BUFS, at):
+        size = dims.get(name, (rows, W))
+        stride = [math.prod(size[i + 1:]) for i in range(len(size))]
+        views[name] = scratch.as_strided(size, stride, offset)
+    return views
+
+
+def weight_grads_plain(field, pts, feats, views, bufs, product=None):
+    """Twin of ``weight_grads``: the field's weight and bias gradients in
+    ``pack_weights``' layout from one chunk's inputs [n, ch] and the buffers
+    pass 1 left (``bufs``: the forward values cond, z [depth, n, W], feature
+    and hv, the output gradients dz [depth, n, W], d_cond, d_feature, d_hv,
+    and g_heads [n, out_ch], the heads' pre-activation gradients). The
+    trunk's inputs are rebuilt as relu(z * cond). ``product(x, d)`` takes
+    x^T d for the conditioning, trunk, feature and views layers (a float32
+    product by default); the heads' products are float32; each bias
+    gradient is the column sum of its d."""
+    product = product or (lambda x, d: x.T @ d)
+    cond, g = bufs["cond"], bufs["g_heads"]
+    h, ins = pts, []
+    for i, z in enumerate(bufs["z"]):
+        ins.append((pts,) if i == 0 else (pts, h) if i - 1 in field.skips
+                   else (h,))
+        h = torch.relu(z * cond)
+    grads = {}
+    for lin, xs, d in [(field.pts_bias, (feats,), bufs["d_cond"]),
+                       *zip(field.pts_linears, ins, bufs["dz"]),
+                       (field.feature_linear, (h,), bufs["d_feature"]),
+                       (field.views_linears[0], (bufs["feature"], views),
+                        bufs["d_hv"])]:
+        grads[id(lin)] = (product(torch.cat(xs, -1), d), d.sum(0))
+    heads = [(field.rgb_linear, bufs["hv"], g[:, :3]),
+             (field.alpha_linear, h, g[:, 3:4])]
+    heads += ([(field.w_linear, h, g[:, 4:])] if field.static else
+              [(field.sf_linear, h, g[:, 4:10]),
+               (field.prob_linear, h, g[:, 10:])])
+    for lin, x, d in heads:
+        grads[id(lin)] = (x.T @ d, d.sum(0))
+    return _pack([(slot, grads[id(lin)]) for slot, lin in _slots(field)])[0]
+
+
+def weight_grads(field, pts, feats, views, bufs, offsets, d_pack):
+    """K7 float32's pass 2 on one chunk: every weight and bias gradient of
+    the field from the chunk's inputs [n, ch] and the buffers its pass 1
+    left (``bufs``, as ``_scratch_views`` gives them), added into d_pack
+    (``pack_weights``' layout; ``offsets`` its table).
+
+    CPU tensors take the twin (``weight_grads_plain``); CUDA tensors launch
+    ``wgrad_tc32_kernel`` (the conditioning, trunk, feature and views
+    layers' products as 3xTF32 on the tensor cores, one launch) and
+    ``head_grads_kernel`` (the heads, float32), or raise.
+    """
+    if d_pack.device.type == "cpu":
+        d_pack += weight_grads_plain(field, pts, feats, views, bufs)
+        return
+    name = "weight_grads"
+    n = pts.shape[0]
+    tensors = (pts, feats, views, *(bufs[k] for k in _BUFS))
+    if any(t.shape[-2] != n for t in tensors):
+        raise ValueError(f"{name}: every buffer needs the chunk's {n} rows")
+    _build.require_cuda_f32(name, *tensors, d_pack)
+    _build.check(_build.library().zt_fused_nerf_weight_grads_tc32(
+        *(t.data_ptr() for t in tensors), (ctypes.c_int * _N_SLOTS)(*offsets),
+        d_pack.data_ptr(), n, *_geometry(field), 1 if field.static else 2,
+        _build.stream_ptr(pts)), name)
+    weight_grads.launches += 1
+
+
+weight_grads.launches = 0
+
+
 def _kept_values(lib, field, scratch, n, shape):
     """The forward values K7's bf16 mode left in its scratch (one chunk of
     n points), as float32 / bf16 views: cond, z (a list), hv, feature."""
@@ -505,8 +601,6 @@ def fused_nerf_backward(field, pts, feats, views, g, pack, offsets, wb=None,
     d_pack = torch.zeros_like(pack)
     inputs = (pts.data_ptr(), feats.data_ptr(), views.data_ptr(), g.data_ptr(),
               pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets))
-    outputs = (d_pts.data_ptr(), d_feats.data_ptr(), d_views.data_ptr(),
-               d_pack.data_ptr())
     shape = (*_geometry(field), 1 if field.static else 2)
     size = ctypes.c_longlong()
     if field.bf16:
@@ -518,21 +612,34 @@ def fused_nerf_backward(field, pts, feats, views, g, pack, offsets, wb=None,
         scratch = torch.empty(size.value, device=pts.device, dtype=torch.uint8)
         err = lib.zt_fused_nerf_backward_tc(
             *inputs, wb.data_ptr(), wbt.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), BF16_CHUNK_ROWS, *outputs,
+            scratch.numel(), BF16_CHUNK_ROWS,
+            *(t.data_ptr() for t in (d_pts, d_feats, d_views, d_pack)),
             None if recomputed is None else recomputed.data_ptr(),
             int(saved is not None), n, *shape, _build.stream_ptr(pts))
         if saved is not None:
             saved.update(_kept_values(lib, field, scratch, n, shape),
                          out=recomputed)
+        _build.check(err, name)
     else:
         _build.check(lib.zt_fused_nerf_backward_scratch(
             n, CHUNK_ROWS, *shape, ctypes.byref(size)), name)
         scratch = torch.empty(size.value, device=pts.device,
                               dtype=torch.float32)
-        err = lib.zt_fused_nerf_backward(
-            *inputs, scratch.data_ptr(), scratch.numel(), CHUNK_ROWS,
-            *outputs, n, *shape, _build.stream_ptr(pts))
-    _build.check(err, name)
+        stream = _build.stream_ptr(pts)
+        _build.check(lib.zt_fused_nerf_backward_tpack(
+            *inputs[4:], scratch.data_ptr(), scratch.numel(), *shape, stream),
+            name)
+        for c0 in range(0, n, CHUNK_ROWS):
+            rows = min(CHUNK_ROWS, n - c0)
+            part = [t[c0:c0 + rows] for t in (pts, feats, views, g, d_pts,
+                                             d_feats, d_views)]
+            _build.check(lib.zt_fused_nerf_backward(
+                *(t.data_ptr() for t in part[:4]), *inputs[4:],
+                scratch.data_ptr(), scratch.numel(),
+                *(t.data_ptr() for t in part[4:]), rows, *shape, stream), name)
+            weight_grads(field, *part[:3],
+                         _scratch_views(lib, field, scratch, rows), offsets,
+                         d_pack)
     fused_nerf_backward.launches += 1
     return d_pts, d_feats, d_views, d_pack
 

@@ -44,7 +44,6 @@ GROUPS = (("transpose_pack", "K7 field backward, weight transpose"),
           ("fused_nerf_bwd", "K7 field backward, pass 1"),
           ("wgrad_tc", "K7 field backward, pass 2 (weights)"),
           ("head_grads", "K7 field backward, pass 2 (weights)"),
-          ("wgrad_kernel", "K7 field backward, pass 2 (weights)"),
           ("fused_nerf", "K6 fused field"),
           ("trilinear_grad_volume", "K4 volume lookup d/d volume"),
           ("trilinear_grad_coords", "K5 volume lookup d/d coordinates"),
