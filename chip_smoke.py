@@ -72,7 +72,20 @@ sm_90a), then:
 11. runs the flagship eval and training step at 16 bits, as phases 5 and 8
     do, asserting the launches (K9 forward and backward once per step-0
     step and twice per chain step, K5 never) and timing s/image and
-    train_rays_per_sec beside the float32 ones.
+    train_rays_per_sec beside the float32 ones;
+12. quality: holds ``metrics.psnr`` and ``metrics.ssim`` on the card, on
+    the flagship 16-bit eval image against its target, to the same
+    functions in float64 on the CPU; then, with every launch counter reset,
+    runs ``train_loop.run_training`` for ``LOOP_STEPS`` steps of the
+    quality gate's configuration (``zest_tpu_torch.tools.quality_gate``,
+    precision 16, logs every 10 steps) into a temporary directory, asserts
+    that the loop launched every kernel of the 16-bit step exactly as many
+    times as that many step-0 steps of phase 11 do (K1, K2, K3, K4, K6
+    bf16, K7 bf16, K8, K9 and K9's backward), that ``metrics.csv`` holds
+    one row per log step with a finite ``train_loss``, and runs
+    ``validate`` on one image (finite val_PSNR and val_SSIM), printing the
+    loop's seconds per step and the peak memory. PSNR after so few steps
+    is not gated.
 
 The second-to-last line of stdout is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -105,6 +118,12 @@ TF32_FLOP_PER_S = 494.7e12   # TF32 operands, dense (tensor cores); 3xTF32
 F32_CLASS_FACTOR = 8
 F32_CLASS_FLOOR = 2.0 ** -20
 TRAIN_STEPS = 5              # timed flagship training steps, after warm-up
+LOOP_STEPS = 40              # training loop steps of the quality phase
+# metrics on the card (float32) against float64 on the CPU: PSNR relative;
+# SSIM of its range's bound (float32's E[x^2] - mu^2 cancels: 2e-5 relative,
+# 8e-6 absolute, from float64 on a noisy flagship-size image on the CPU)
+METRIC_PSNR_RTOL = 1e-5
+METRIC_SSIM_ATOL = 5e-5
 # bf16-operand field kernels against their twins: both round the same
 # operands, but a float32 sum taken in another order can flip one bf16
 # rounding of an activation, a change of 2^-8 of that operand
@@ -1425,6 +1444,87 @@ def small_16(dev):
             f"worst gradient difference {worst:.2f} of its limit")
 
 
+def quality(dev, system, batch, params, step_launches) -> None:
+    """Phase 12: the metrics on the card, the training loop of the quality
+    gate's configuration with its launches, its CSV log and a validation.
+    ``step_launches`` are one 16-bit step-0 step's launches (phase 11)."""
+    import csv
+    import math
+    import tempfile
+    from pathlib import Path
+    from zest_tpu_torch import metrics
+    from zest_tpu_torch.config import ZestConfig
+    from zest_tpu_torch.data.synthetic import SyntheticDataset
+    from zest_tpu_torch.system import unpreprocess
+    from zest_tpu_torch.tools import quality_gate
+    from zest_tpu_torch.train_loop import run_training, validate
+
+    maps = system.make_eval_step()(params, batch)
+    pred = torch.clamp(maps["rgb_map_ref"], 0.0, 1.0)
+    tgt = unpreprocess(batch["images"][-1])
+    for name, fn, limit in (("psnr", metrics.psnr, None),
+                            ("ssim", metrics.ssim, METRIC_SSIM_ATOL)):
+        got = float(fn(pred, tgt))
+        ref = float(fn(pred.cpu().double(), tgt.cpu().double()))
+        err = abs(got - ref)
+        if limit is None:
+            limit = METRIC_PSNR_RTOL * abs(ref)
+        else:
+            limit *= max(1.0, abs(ref))
+        ok = math.isfinite(got) and err <= limit
+        log(f"[quality] {name}: card {got:.8g}, CPU float64 {ref:.10g}, "
+            f"error {err:.3e} (limit {limit:.3e}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"metrics.{name} on the card: {got} against "
+                                 f"float64 {ref}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ZestConfig(**dict(quality_gate.CONFIG, precision=16,
+                                log_every=10, save_dir=tmp))
+        ds = SyntheticDataset(**quality_gate.SCENE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        state, loop_system = run_training(cfg, {"train": ds},
+                                          max_steps=LOOP_STEPS, quiet=True,
+                                          device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counters()
+        expected = {k: LOOP_STEPS * v for k, v in step_launches.items()}
+        log(f"[quality] run_training: {LOOP_STEPS} steps in {wall:.2f} s "
+            f"({wall / LOOP_STEPS:.4f} s/step, the first step and the frames' "
+            f"first build included), launches {got}")
+        if not loop_system.bf16 or got != expected:
+            raise AssertionError(f"the loop's launches {got}, expected "
+                                 f"{expected} (precision 16)")
+        run_dir = Path(tmp) / cfg.expname
+        with open(run_dir / "metrics.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        steps = [int(r["step"]) for r in rows]
+        want = list(range(cfg.log_every, LOOP_STEPS + 1, cfg.log_every))
+        losses = [float(r["train_loss"]) for r in rows]
+        if steps != want or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"metrics.csv: steps {steps}, train_loss "
+                                 f"{losses}")
+        log("[quality] metrics.csv: " + "; ".join(
+            f"step {r['step']} train_loss {float(r['train_loss']):.5g} "
+            f"train_PSNR {float(r['train_PSNR']):.4g} steps_per_sec "
+            f"{float(r['steps_per_sec']):.3f}" for r in rows))
+        t0 = time.perf_counter()
+        out = validate(cfg, loop_system, loop_system.make_eval_step(),
+                       state.params, ds, run_dir, LOOP_STEPS, max_images=1)
+        val_s = time.perf_counter() - t0
+        if not all(math.isfinite(v) for v in out.values()):
+            raise AssertionError(f"validate: {out}")
+        log(f"[quality] validate, 1 image in {val_s:.2f} s: val_PSNR "
+            f"{out['val_PSNR']:.4f}, val_SSIM {out['val_SSIM']:.4f}, val_loss "
+            f"{out['val_loss']:.5g}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (not gated "
+            f"after {LOOP_STEPS} steps)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1455,6 +1555,7 @@ def main() -> int:
                                  "flagship-16")
     train16, rays_s16 = flagship_train(cfg16, system16, batch16, params16,
                                        "train-16")
+    quality(dev, system16, batch16, params16, train16)
     log(f"[summary] flagship eval s/image: float32 {s_image:.3f}, precision "
         f"16 {s_image16:.3f}; train_rays_per_sec: float32 {rays_s:.1f}, "
         f"precision 16 {rays_s16:.1f}")

@@ -60,11 +60,14 @@ def test_eval_step_matches_zest_tpu():
 
 def test_port_imports_no_jax():
     """The port runs its eval step and one training step in a fresh
-    interpreter without JAX and without the JAX package ``zest_tpu``."""
+    interpreter without JAX and without the JAX package ``zest_tpu``; its
+    training loop, metrics and quality gate import neither."""
     script = textwrap.dedent("""
         import sys
         import torch
-        from zest_tpu_torch import presets, sampling
+        from zest_tpu_torch import metrics, presets, sampling, train_loop
+        from zest_tpu_torch.tools import quality_gate
+        from zest_tpu_torch.utils import visualize
         from zest_tpu_torch.system import TrainState, phase_for_step
         _, system, batch, params = presets.build(
             presets.SMALL, presets.SMALL_SCENE, "cpu")

@@ -1,9 +1,11 @@
-"""The port's profiling scripts: their interval and grouping arithmetic,
-their refusal to run without a CUDA device, and their --precision flag."""
+"""The port's profiling scripts and its quality gate: their interval and
+grouping arithmetic, their refusal to run without a CUDA device, and their
+--precision flag."""
 import pytest
 import torch
 
-from zest_tpu_torch.tools import probe_wgrad, profile_eval, profile_train
+from zest_tpu_torch.tools import (probe_wgrad, profile_eval, profile_train,
+                                  quality_gate)
 
 
 @pytest.mark.parametrize("intervals,busy", [
@@ -68,7 +70,7 @@ def test_train_kernel_groups(name, group):
     assert profile_eval.group_of(name, profile_train.GROUPS) == group
 
 
-@pytest.mark.parametrize("tool", [profile_eval, profile_train])
+@pytest.mark.parametrize("tool", [profile_eval, profile_train, quality_gate])
 def test_tools_refuse_without_cuda_at_either_precision(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tool.main(["--precision", "16"]) == 2

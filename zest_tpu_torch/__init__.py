@@ -12,15 +12,20 @@ find:
 - ``losses``                   — the scene-flow loss bundle of a training step
 - ``system``                   — ``ZestSystem``: its full-image eval step and
                                  its training step (clip, Adam, cosine LR)
+- ``train_loop``, ``metrics``  — the training loop, full-image validation,
+                                 the CSV metric log; PSNR and SSIM
 - ``convert``                  — ``zest_tpu`` param tree → this port's state dict
 - ``config``, ``data``         — the config dataclass and the synthetic scene
-                                 (standard library and NumPy only)
+                                 (standard library and NumPy only), and the
+                                 loop's prefetch thread (``data.pipeline``)
+- ``utils.visualize``          — depth colormaps and a PNG writer
 - ``presets``                  — the small and the flagship eval and training
                                  configurations with seeded weights, for
                                  checks and measurements
 - ``kernels``                  — hand-written CUDA kernels, forward and
                                  backward (sources in ``csrc/``), with their
                                  plain PyTorch twins
+- ``tools``                    — profiling scripts and the quality gate
 
 Nothing here imports JAX or ``zest_tpu``.
 """

@@ -1,11 +1,14 @@
 """The port's configuration: the fields of ``zest_tpu.config.ZestConfig`` that
-the eval and the training step read, with the same names and defaults.
+the eval step, the training step and the training loop read, with the same
+names and defaults.
 
 Standard library only. ``precision`` 16 (or ``bf16``) selects the 16-bit
 path of ``system.ZestSystem``. Fields the port does not support yet
 (``net_type`` other than v0, ``train_video``, ``use_color_volume``, patches,
-GAN, the depth and distortion regularizers) are kept so that
-``system.ZestSystem`` can refuse them by name.
+GAN, the depth and distortion regularizers; a checkpoint to resume from,
+gradient accumulation, LPIPS weights) are kept so that
+``system.ZestSystem`` and ``train_loop.run_training`` can refuse them by
+name.
 """
 from __future__ import annotations
 
@@ -15,6 +18,11 @@ from typing import Optional
 
 @dataclass
 class ZestConfig:
+    # the run: its name, where it writes, its seed (-1: seed 0)
+    expname: str = "exp"
+    save_dir: str = "runs"
+    seed_everything: int = -1
+
     # images and the cost-volume frustum pad
     img_h: int = 288
     img_w: int = 544
@@ -57,6 +65,13 @@ class ZestConfig:
     with_chain_loss: bool = False
     lrate: float = 5e-4
     num_epochs: int = 8
+    steps_per_epoch: int = 0     # 0 = the training set's length
+    max_train_steps: int = -1    # -1 = num_epochs * steps_per_epoch
+
+    # the loop: logs every log_every steps, validation every
+    # min(N_vis, ceil(num_epochs / N_vis)) epochs
+    log_every: int = 50
+    N_vis: int = 20
 
     # loss weights of the scene-flow bundle
     lambda_cyc: float = 0.1
@@ -68,6 +83,9 @@ class ZestConfig:
     lambda_blending_reg: float = 1e-3
 
     # training switches the port does not support yet
+    ckpt: Optional[str] = None
+    acc_grad: int = 1
+    lpips_weights: Optional[str] = None
     patch_size: int = -1
     gan_type: Optional[str] = None
     with_depth_loss_reg: bool = False

@@ -1,1 +1,2 @@
-"""Host-side inputs of the port (NumPy only)."""
+"""Host-side inputs of the port: the synthetic scene (NumPy only) and the
+training loop's prefetch thread."""

@@ -5,7 +5,8 @@ The same scene as ``zest_tpu.data.synthetic`` (smooth procedural images, a
 small camera arc, proj_mats of intrinsic/4 @ w2c relative to the first
 keyframe, identity neighbour proj_mats, the pixel grid as optical flow), cut
 to the keys the eval and training steps read. NumPy only; deterministic per
-(frame, seed).
+(frame, seed). Each dataset builds each normalized frame once and keeps it
+(read-only), since every sample stacks 13 of them at the flagship size.
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ class SyntheticDataset:
                                    [0, 0, 1]], np.float32)
         interval = max(num_frames // max(num_keyframes - 1, 1), 1)
         self.key_frames = list(range(0, num_frames, interval))[:num_keyframes]
+        self._frames: dict = {}
 
     def __len__(self):
         return self.num_frames
@@ -64,6 +66,15 @@ class SyntheticDataset:
         c2w[0, 3] = 0.05 * np.sin(2 * np.pi * frame / self.num_frames)
         c2w[1, 3] = 0.03 * np.cos(2 * np.pi * frame / self.num_frames)
         return c2w
+
+    def _image(self, frame):
+        """The normalized frame, built on first use."""
+        img = self._frames.get(frame)
+        if img is None:
+            img = _normalized_image(self.H, self.W, frame, self.seed)
+            img.setflags(write=False)
+            self._frames[frame] = img
+        return img
 
     def _proj_mat(self, w2c):
         intr = self.intrinsic.copy()
@@ -87,7 +98,7 @@ class SyntheticDataset:
                 proj_mats.append(np.eye(4, dtype=np.float32))
             else:
                 proj_mats.append(pm @ ref_proj_inv)
-            imgs.append(_normalized_image(H, W, vid, self.seed))
+            imgs.append(self._image(vid))
             w2cs.append(w2c)
             c2ws.append(c2w)
         n_views = len(imgs)
@@ -107,8 +118,7 @@ class SyntheticDataset:
             "intrinsics": np.stack([self.intrinsic] * n_views),
             "time": np.asarray(target, np.float32),
             "total_frames": np.asarray(nf, np.float32),
-            "nb_imgs": np.stack([_normalized_image(H, W, v, self.seed)
-                                 for v in nbs]).astype(np.float32),
+            "nb_imgs": np.stack([self._image(v) for v in nbs]),
             "nb_w2cs": np.stack([np.linalg.inv(self._pose(v))
                                  for v in nbs]).astype(np.float32),
             "nb_intr": np.stack([self.intrinsic] * len(nbs)),
