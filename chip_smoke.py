@@ -33,14 +33,23 @@ sm_90a), then:
    (the step's rays, encoding volumes and field inputs, a random output
    gradient), and times kernel, twin and library call; holds K6 on the
    step's three float32 field passes, each beside a float64 twin. K7's
-   float32 mode takes its weight gradients (pass 2) on the tensor cores as
-   3xTF32: its SASS must hold HMMA; every pass-2 launch of the three passes
-   is held to its twin on the same scratch buffers and timed beside it and
-   beside float32 ``torch.matmul`` of the same X^T dZ shapes (its row's
-   library time, timed only); and K7's weight gradients of the
-   conditioning, trunk, feature and views layers must be within max(8 x
-   the float32 twin's own norm-wise distance from a float64 twin, 2^-20) of
-   that float64 twin;
+   float32 mode runs three launches per chunk on the tensor cores as
+   3xTF32: the recompute (K6's float32 tile keeping the forward's values
+   in a scratch), the input gradients and the weight gradients (pass 2).
+   The three kernels' SASS must hold HMMA; every launch of the three
+   passes is held to its twin (the recompute on the same inputs, the other
+   two on the same scratch buffers) and timed beside it, the input
+   gradients beside float32 ``torch.matmul`` of the same d_z W^T shapes
+   and pass 2 beside that of the same X^T dZ shapes (their rows' library
+   times, timed only). K7 takes its gradient at K6's forward: the
+   recompute's output rows must equal K6's bit for bit and its forward
+   values the twin's; every input and leaf must be within 1e-4 of its
+   largest of the twin's backward at those values, and of the twin's own
+   gradient on the points where both forwards take the same ReLU branches
+   (the others, at most 0.5 % of the points or 5, are counted); and K7's input gradients and its weight
+   gradients of the conditioning, trunk, feature and views layers must be
+   within max(8 x the float32 twin's own norm-wise distance from a float64
+   twin, 2^-20) of that float64 twin, all at K7's forward values;
 7. runs the training step at a small configuration on CUDA and on the CPU
    from the same weights and draws, in both phases (motion-mask rays; the
    chain pass), and compares the loss, every log, every gradient and the
@@ -117,6 +126,13 @@ TF32_FLOP_PER_S = 494.7e12   # TF32 operands, dense (tensor cores); 3xTF32
 # product, ~11 bits of each operand, is ~1e-4 away)
 F32_CLASS_FACTOR = 8
 F32_CLASS_FLOOR = 2.0 ** -20
+# K7 float32's forward values (K6's) against the float32 twin's, norm-wise
+F32_VALUE_NORM = 1e-5
+# points at which K6's forward takes another ReLU branch than the twin's:
+# at most this share of a pass (~1 in 1,400 seen on flagship passes), or
+# F32_FLIPPED_FLOOR points
+F32_FLIPPED_SHARE = 0.005
+F32_FLIPPED_FLOOR = 5
 TRAIN_STEPS = 5              # timed flagship training steps, after warm-up
 LOOP_STEPS = 40              # training loop steps of the quality phase
 # metrics on the card (float32) against float64 on the CPU: PSNR relative;
@@ -169,6 +185,9 @@ def build() -> None:
         log(f"[build] {kernel}<256> dynamic shared memory per block: static "
             f"field {smem(256, 63, 40, 27)} bytes, dynamic field "
             f"{smem(256, 84, 24, 27)} bytes (one block per SM)")
+    log("[build] input_grads_tc32_kernel dynamic shared memory per block: "
+        + ", ".join(f"width {w} {lib.zt_fused_nerf_input_grads_tc32_smem(w)} "
+                    f"bytes" for w in (64, 128, 256)))
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -233,6 +252,8 @@ def counters():
             "gather_colors": color_gather.gather_colors,
             "fused_nerf_forward": fused_mlp.fused_nerf_forward,
             "fused_nerf_backward": fused_mlp.fused_nerf_backward,
+            "recompute": fused_mlp.recompute,
+            "input_grads": fused_mlp.input_grads,
             "weight_grads": fused_mlp.weight_grads,
             "gather_rows": dma_gather.gather_rows,
             "scatter_rows": dma_gather.scatter_rows}
@@ -350,8 +371,8 @@ def field_ops(field, n: int, passes: int, tf32: bool) -> tuple:
     per weight on n points: one multiply-add per weight and point in each
     product. Where the products run on the tensor cores only the heads keep
     float32 operands: the bf16-operand mode's products take bf16 operands,
-    the float32 mode's, with tf32 set (K6, K7's pass 2; K7's float32 pass 1
-    runs on the CUDA cores), three TF32 products each (3xTF32)."""
+    the float32 mode's, with tf32 set (K6 and every launch of K7), three
+    TF32 products each (3xTF32)."""
     macs = sum(m.weight.numel() for m in field.modules()
                if isinstance(m, torch.nn.Linear))
     if not (field.bf16 or tf32):
@@ -614,20 +635,73 @@ def hold_bf16_backward(name, label, field, flat, g, pack, offsets):
 
 
 def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets):
-    """K7's float32 mode on one pass, with a spy on its pass 2
-    (``fused_mlp.weight_grads``): each chunk's pass-2 launch is held to its
-    twin (``weight_grads_plain``) on the same scratch buffers, each leaf to
-    1e-4 of its largest, and timed beside it and beside float32
-    ``torch.matmul`` of the same X^T dZ shapes (row
-    ``fused_nerf_weight_grads``). Then K7's weight gradients of the
-    conditioning, trunk, feature and views layers against a float64 twin's
-    autograd: each within max(F32_CLASS_FACTOR x the float32 twin's own
-    norm-wise distance, F32_CLASS_FLOOR)."""
+    """K7's float32 mode on one pass, with a spy on each of its three
+    launches per chunk (``fused_mlp.recompute``, ``input_grads``,
+    ``weight_grads``): each is held to its twin, every output to 1e-4 of its
+    largest (the recompute on the chunk's inputs: ``recompute_plain``; the
+    other two on the same scratch buffers: ``input_grads_plain``,
+    ``weight_grads_plain``), and timed beside it (rows
+    ``fused_nerf_recompute``, ``fused_nerf_input_grads``,
+    ``fused_nerf_weight_grads``); the input gradients beside float32
+    ``torch.matmul`` of the same d_z W^T shapes, pass 2 beside that of the
+    same X^T dZ shapes. Then the whole backward is held as
+    ``hold_at_own_forward`` says. Returns its largest error."""
     from zest_tpu_torch.kernels import fused_mlp
-    real = fused_mlp.weight_grads
+    real = (fused_mlp.recompute, fused_mlp.input_grads, fused_mlp.weight_grads)
+    src = "zest_tpu_torch/csrc/"
+    replaces = "zest_tpu/kernels/fused_mlp.py:398"
+    depth = len(field.pts_linears)
 
-    def held(field, pts, feats, views, bufs, offsets, d_pack):
-        real(field, pts, feats, views, bufs, offsets, d_pack)
+    def recompute(field, pts, feats, views, g, pack, offsets, wt, bufs,
+                  out=None):
+        real[0](field, pts, feats, views, g, pack, offsets, wt, bufs, out)
+        kept = [bufs[k] for k in fused_mlp._KEPT]
+
+        def kern():
+            real[0](field, pts, feats, views, g, pack, offsets, wt, bufs)
+            return tuple(kept)
+
+        def plain():
+            ref = fused_mlp.recompute_plain(field, pts, feats, views, g)
+            return tuple(ref[k] for k in fused_mlp._KEPT)
+
+        n = pts.shape[0]
+        f32_ops, _, tf32_ops = field_ops(field, n, 1, True)
+        rows.check("fused_nerf_recompute", src + "fused_mlp_tc32.cu", replaces,
+                   "recompute", kern, plain, None, 1e-4, 3,
+                   nbytes(pts, feats, views, g, *kept) + nbytes(pack, wt),
+                   f32_ops, relative=True, flops_tf32=tf32_ops)
+
+    def input_grads(field, bufs, pack, offsets, *d_in):
+        real[1](field, bufs, pack, offsets, *d_in)
+        outs = [*d_in, *(bufs[k] for k in fused_mlp._DZ)]
+
+        def kern():
+            real[1](field, bufs, pack, offsets, *d_in)
+            return tuple(outs)
+
+        def plain():
+            ref = fused_mlp.input_grads_plain(field, bufs)
+            return tuple(ref[k] for k in (*fused_mlp._INPUTS, *fused_mlp._DZ))
+
+        # the products d_x = d_z @ W of the views, feature, trunk and
+        # conditioning layers, each with its output gradient
+        ds = [bufs["d_hv"], bufs["d_feature"], *bufs["dz"], bufs["d_cond"]]
+        ws = [field.views_linears[0].weight, field.feature_linear.weight,
+              *(lin.weight for lin in field.pts_linears),
+              field.pts_bias.weight]
+        ws = [w.detach() for w in ws]
+        n = d_in[0].shape[0]
+        f32_ops, _, tf32_ops = field_ops(field, n, 1, True)
+        reads = [bufs[k] for k in ("cond", "z", "hv", "g_heads")]
+        rows.check("fused_nerf_input_grads", src + "fused_mlp_tc32_dx.cu",
+                   replaces, "input_grads", kern, plain,
+                   lambda: [torch.matmul(d, w) for d, w in zip(ds, ws)],
+                   1e-4, 3, nbytes(*reads, *outs) + nbytes(pack), f32_ops,
+                   relative=True, flops_tf32=tf32_ops)
+
+    def weight_grads(field, pts, feats, views, bufs, offsets, d_pack):
+        real[2](field, pts, feats, views, bufs, offsets, d_pack)
         out = torch.zeros_like(d_pack)
 
         def leaves(d):
@@ -635,7 +709,7 @@ def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets):
 
         def kern():
             out.zero_()
-            real(field, pts, feats, views, bufs, offsets, out)
+            real[2](field, pts, feats, views, bufs, offsets, out)
             return leaves(out)
 
         cond, z, dz = bufs["cond"], bufs["z"], bufs["dz"]
@@ -647,9 +721,8 @@ def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets):
         ds = [bufs["d_cond"], *dz, bufs["d_feature"], bufs["d_hv"]]
         n = pts.shape[0]
         f32_ops, _, tf32_ops = field_ops(field, n, 1, True)
-        rows.check("fused_nerf_weight_grads",
-                   "zest_tpu_torch/csrc/fused_mlp_tc32_bwd.cu",
-                   "zest_tpu/kernels/fused_mlp.py:398", "weight_grads", kern,
+        rows.check("fused_nerf_weight_grads", src + "fused_mlp_tc32_bwd.cu",
+                   replaces, "weight_grads", kern,
                    lambda: leaves(fused_mlp.weight_grads_plain(
                        field, pts, feats, views, bufs)),
                    lambda: [torch.matmul(x.T, d) for x, d in zip(xs, ds)],
@@ -657,51 +730,164 @@ def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets):
                    + nbytes(d_pack), f32_ops, relative=True,
                    flops_tf32=tf32_ops)
 
-    held.launches = 0                  # the wrapper counts on its module name
-    fused_mlp.weight_grads = held
+    held = (recompute, input_grads, weight_grads)
+    for fn in held:
+        fn.launches = 0                # the wrappers count on their own names
+        setattr(fused_mlp, fn.__name__, fn)
+    saved = {}
     try:
-        got = fused_mlp.fused_nerf_backward(field, *flat, g, pack, offsets)[3]
+        got = fused_mlp.fused_nerf_backward(field, *flat, g, pack, offsets,
+                                            saved=saved)
     finally:
-        fused_mlp.weight_grads = real
-    twin = fused_mlp.fused_nerf_backward_plain(field, *flat, g)[3]
-    wide = float64_twin(field)
-    exact = fused_mlp.fused_nerf_backward_plain(
-        wide, *(t.double() for t in flat), g.double())[3]
-    torch.cuda.synchronize()
-    names = {m: f"{n}.weight" for n, m in field.named_modules()}
-    big = {names[m] for m in (field.pts_bias, *field.pts_linears,
-                              field.feature_linear, field.views_linears[0])}
+        for fn, orig in zip(held, real):
+            setattr(fused_mlp, fn.__name__, orig)
+    return hold_at_own_forward(name, label, field, flat, g, pack, offsets,
+                               got, saved)
+
+
+def hold_at_own_forward(name, label, field, flat, g, pack, offsets, got,
+                        saved):
+    """K7 float32's gradients ``got`` on one pass, taken at K6's forward
+    (the values in ``saved``), held four ways:
+
+    1. the recomputed output rows equal K6's bit for bit, and every forward
+       value K7 ran at (cond, each z_i, the feature layer's output, hv) is
+       within F32_VALUE_NORM norm-wise and 1e-4 of its largest of the
+       twin's forward (each one's distance from a float64 twin's forward is
+       logged beside the twin's own);
+    2. d_pts, d_feats, d_views and every leaf of d_pack within 1e-4 of its
+       largest against the twin's backward at those forward values
+       (``fused_nerf_backward_at_plain``);
+    3. the float64 gate at those values: d_pts, d_feats, d_views and each
+       weight gradient of the conditioning, trunk, feature and views layers
+       within max(F32_CLASS_FACTOR x the float32 twin's distance,
+       F32_CLASS_FLOOR) of the float64 twin's backward at the same values;
+    4. against the twin's gradient at its own forward (cuBLAS's), 1e-4 of
+       each input's and leaf's largest, on the points where K6's forward and
+       the twin's take the same ReLU branches everywhere (``branch_rows``):
+       K7 runs on those points alone, the twin's backward at its forward
+       values of the whole pass, restricted to them. At the other points a
+       gradient taken at one forward is not the gradient at the other; they
+       are counted, and may be at most max(F32_FLIPPED_FLOOR,
+       F32_FLIPPED_SHARE of the points).
+
+    Returns the largest error of check 4, of its reference's largest."""
+    from zest_tpu_torch.kernels import fused_mlp
+
+    def leafwise(fld, grads):
+        return list(grads[:3]) + [t for _, t in fused_mlp.pack_leaves(
+            fld, grads[3], offsets)]
 
     def dist(a, b):
         return float((a.double() - b).norm()) / max(float(b.norm()), 1e-300)
 
-    log(f"[backward] {name} {label}: weight gradients, norm-wise from a "
-        f"float64 twin: K7 (pass 2 as 3xTF32) | the float32 twin")
+    def peak(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    names = [*fused_mlp._INPUTS] + [k for k, _ in fused_mlp.pack_leaves(
+        field, got[3], offsets)]
+    layers = {f"{n}.weight" for n, m in field.named_modules()
+              if m in (field.pts_bias, *field.pts_linears,
+                       field.feature_linear, field.views_linears[0])}
     failures = []
-    for (leaf, a), (_, b), (_, c) in zip(
-            fused_mlp.pack_leaves(field, got, offsets),
-            fused_mlp.pack_leaves(field, twin, offsets),
-            fused_mlp.pack_leaves(wide, exact, offsets)):
-        if leaf not in big:
-            continue
-        k7, own = dist(a, c), dist(b, c)
-        limit = max(F32_CLASS_FACTOR * own, F32_CLASS_FLOOR)
-        log(f"[backward]   {leaf}: {k7:.3e} | {own:.3e} (limit {limit:.3e})")
-        if not k7 <= limit:
-            failures.append(f"{leaf} {k7:.3e} from float64, limit {limit:.3e}")
-    del got, twin, exact, wide
+    wide = float64_twin(field)
+    flat64 = [t.double() for t in flat]
+    with torch.no_grad():
+        same = torch.equal(saved["out"],
+                           fused_mlp.fused_nerf_forward(field, *flat))
+        fwd = fused_mlp.forward_values_plain(field, *flat)
+        fwd64 = fused_mlp.forward_values_plain(wide, *flat64)
+    if not same:
+        failures.append("the recomputed rows differ from K6's")
+    values = [("cond", saved["cond"], fwd["cond"], fwd64["cond"]),
+              ("feature", saved["feature"], fwd["feature"], fwd64["feature"]),
+              ("hv", saved["hv"], fwd["hv"], fwd64["hv"])]
+    values += [(f"z{i}", a, b, c) for i, (a, b, c) in enumerate(zip(
+        saved["z"], fwd["z"], fwd64["z"]))]
+    log(f"[backward] {name} {label}: the forward values K7 ran at, "
+        f"norm-wise / largest error of the largest from the twin's | "
+        f"norm-wise from float64: K7 (K6's forward) | the twin")
+    for what, a, b, c in values:
+        to_twin, top = dist(a, b), peak(a, b)
+        log(f"[backward]   {what}: {to_twin:.2e} / {top:.2e} | "
+            f"{dist(a, c):.3e} | {dist(b, c):.3e}")
+        if not (to_twin <= F32_VALUE_NORM and top <= 1e-4):
+            failures.append(f"forward value {what} {to_twin:.3e} norm-wise, "
+                            f"{top:.3e} of its largest from the twin's")
+    flipped = fused_mlp.branch_rows(saved, fwd)
+    n = flat[0].shape[0]
+    limit = max(F32_FLIPPED_FLOOR, F32_FLIPPED_SHARE * n)
+    if not int(flipped.sum()) <= limit:
+        failures.append(f"{int(flipped.sum())} of {n} points take another "
+                        f"ReLU branch than the twin's forward, limit {limit}")
+    del fwd64, values
+
+    # 2 and 3: at K7's own forward values
+    with torch.no_grad():
+        at = leafwise(field, fused_mlp.fused_nerf_backward_at_plain(
+            field, saved, *flat, g))
+        saved64 = {k: ([t.double() for t in v] if k == "z" else v.double())
+                   for k, v in saved.items()}
+        at64 = leafwise(wide, fused_mlp.fused_nerf_backward_at_plain(
+            wide, saved64, *flat64, g.double()))
+    del saved64
+    k7 = leafwise(field, got)
+    at_err = 0.0
+    log(f"[backward] {name} {label}: at K7's own forward values, per input "
+        f"and leaf: largest error of the largest against the twin's "
+        f"backward there | norm-wise from float64 there: K7 | the twin")
+    for leaf, a, b, c in zip(names, k7, at, at64):
+        e = peak(a, b)
+        at_err = max(at_err, e)
+        if not e <= 1e-4:
+            failures.append(f"{leaf} {e:.3e} of its largest from the twin's "
+                            f"backward at K7's forward values")
+        if leaf.startswith("d_") or leaf in layers:
+            mine, own = dist(a, c), dist(b, c)
+            limit = max(F32_CLASS_FACTOR * own, F32_CLASS_FLOOR)
+            log(f"[backward]   {leaf}: {e:.2e} | {mine:.3e} | {own:.3e} "
+                f"(limit {limit:.3e})")
+            if not mine <= limit:
+                failures.append(f"{leaf} {mine:.3e} from float64 at K7's "
+                                f"forward values, limit {limit:.3e}")
+    del at, at64, k7
+
+    # 4: the twin's gradient where both forwards take the same branches
+    keep = ~flipped
+    sub = [t[keep].contiguous() for t in (*flat, g)]
+    mine = leafwise(field, fused_mlp.fused_nerf_backward(field, *sub, pack,
+                                                         offsets))
+    with torch.no_grad():
+        twin = leafwise(field, fused_mlp.fused_nerf_backward_at_plain(
+            field, fused_mlp.kept_rows(fwd, keep), *sub))
+    del fwd
+    err = 0.0
+    for leaf, a, b in zip(names, mine, twin):
+        e = peak(a, b)
+        err = max(err, e)
+        if not (bool(torch.isfinite(a).all()) and e <= 1e-4):
+            failures.append(f"{leaf} {e:.3e} of its largest from the twin's "
+                            f"gradient where the branches agree")
+    log(f"[backward] {name} {label}: recomputed rows equal K6's: {same}; "
+        f"against the twin's backward at K7's forward "
+        f"values, largest error {at_err:.3e} of the largest (tol 1e-4); "
+        f"points where K6's forward and the twin's take another ReLU branch "
+        f"{int(flipped.sum())} of {n}; on the other {int(keep.sum())} against "
+        f"the twin's gradient at its own forward, largest error {err:.3e} of "
+        f"the largest (tol 1e-4)")
+    del mine, twin, sub, wide
     field.zero_grad(set_to_none=True)
     if failures:
         raise AssertionError(f"{name} {label}: " + "; ".join(failures))
+    return err
 
 
 def check_field_backward(rows, name, passes, gen, tol, paths,
-                         source="zest_tpu_torch/csrc/fused_mlp.cu"):
-    """K7 on the step's field passes against autograd through the twin, with
-    a random output gradient: at float32 d_pack is held leaf by leaf, each
-    weight and bias to tol of its own largest element; the bf16 mode as
-    ``hold_bf16_backward`` holds it. The time is the default chunks'
-    against the twin's autograd."""
+                         source="zest_tpu_torch/csrc/fused_mlp_tc32_dx.cu"):
+    """K7 on the step's field passes, with a random output gradient, held as
+    ``hold_float32_backward`` and ``hold_bf16_backward`` hold each mode
+    (every input and leaf of d_pack at float32 to 1e-4 of its largest). The
+    time is the default chunks' against the twin's autograd."""
     from zest_tpu_torch.kernels import fused_mlp
 
     def leafwise(field, offsets, grads):
@@ -715,26 +901,19 @@ def check_field_backward(rows, name, passes, gen, tol, paths,
         g = torch.randn((n, field.out_ch), generator=gen, device=flat[0].device)
         with torch.no_grad():
             pack, offsets = fused_mlp.pack_weights(field)
-        if field.bf16:
-            f32_ops, bf16_ops, tf32_ops = field_ops(field, n, 3, False)
-        else:                          # pass 1 SIMT, pass 2 3xTF32
-            pass1, pass2 = field_ops(field, n, 2, False), field_ops(field, n, 1,
-                                                                    True)
-            f32_ops, bf16_ops, tf32_ops = pass1[0] + pass2[0], 0, pass2[2]
+        # three passes of products: the recompute, the input and the weight
+        # gradients (bf16 operands, or 3xTF32)
+        f32_ops, bf16_ops, tf32_ops = field_ops(field, n, 3, not field.bf16)
         log(f"[backward] {name} {label}: {n} points")
         kern = lambda: leafwise(field, offsets, fused_mlp.fused_nerf_backward(
             field, *flat, g, pack, offsets))
         plain = lambda: leafwise(field, offsets,
                                  fused_mlp.fused_nerf_backward_plain(
                                      field, *flat, g))
-        verified = None
-        if field.bf16:
-            err = hold_bf16_backward(name, label, field, flat, g, pack,
-                                     offsets)
-            verified = (err, [tuple(t.shape) for t in flat])
-        else:
-            hold_float32_backward(rows, name, label, field, flat, g, pack,
-                                  offsets)
+        hold = hold_bf16_backward if field.bf16 else functools.partial(
+            hold_float32_backward, rows)
+        err = hold(name, label, field, flat, g, pack, offsets)
+        verified = (err, [tuple(t.shape) for t in flat])
         rows.check(name, source,
                    "zest_tpu/kernels/fused_mlp.py:398", "fused_nerf_backward",
                    kern, plain, None, tol, 2,
@@ -961,24 +1140,34 @@ def backward_kernels(rows, dev, cfg, system, batch):
             f"{shapes} max_abs_err {err:.3e} (tol 1e-4) -> ok")
         float32_class(f"training pass {label}", field, inputs, False)
 
-    # K7: the field backward on the three passes of a step; its float32
-    # pass 2 runs on the tensor cores
-    mma = sass_has_mma("wgrad_tc32_kernel")
-    log(f"[backward] tensor-core instructions (HMMA / HGMMA) in "
-        f"wgrad_tc32_kernel: {sorted(mma.values())}")
-    if len(mma) != 1 or min(mma.values()) == 0:
-        raise AssertionError(f"wgrad_tc32_kernel without HMMA: {mma}")
+    # K7: the field backward on the three passes of a step; at float32 its
+    # three launches per chunk run on the tensor cores
+    for kernel, count in (("recompute_tc32_kernel", 3),
+                          ("input_grads_tc32_kernel", 3),
+                          ("wgrad_tc32_kernel", 1)):
+        mma = sass_has_mma(kernel)
+        log(f"[backward] tensor-core instructions (HMMA / HGMMA) per "
+            f"instantiation of {kernel}: {sorted(mma.values())}")
+        if len(mma) != count or min(mma.values()) == 0:
+            raise AssertionError(f"{kernel} without HMMA: {mma}")
     check_field_backward(rows, "fused_nerf_backward", passes, gen, 1e-4,
                          ("eval", "train"))
-    row = rows.rows["fused_nerf_weight_grads"]
-    useful = row["flops_tf32"] / 3
-    log(f"[backward] K7 float32 pass 2 on the step's three passes: "
-        f"{row['ms']:.3f} ms, {useful / row['ms'] / 1e9:.1f} TFLOP/s of float32"
-        f" products ({3 * useful / row['ms'] / 1e9:.1f} TFLOP/s of TF32 "
-        f"products, 3xTF32); its twin {row['plain_ms']:.3f} ms; yardstick "
-        f"torch.matmul float32 of the same X^T dZ shapes (TF32 off): "
-        f"{row['library_ms']:.3f} ms, {useful / row['library_ms'] / 1e9:.1f} "
-        f"TFLOP/s (timed only); K7 float32 in all "
+    for what, kernel, yardstick in (
+            ("pass 1, the recompute", "fused_nerf_recompute", None),
+            ("pass 1, the input gradients", "fused_nerf_input_grads",
+             "d_z W^T"),
+            ("pass 2", "fused_nerf_weight_grads", "X^T dZ")):
+        row = rows.rows[kernel]
+        useful = row["flops_tf32"] / 3
+        lib = ("" if yardstick is None else
+               f"; yardstick torch.matmul float32 of the same {yardstick} "
+               f"shapes (TF32 off): {row['library_ms']:.3f} ms, "
+               f"{useful / row['library_ms'] / 1e9:.1f} TFLOP/s (timed only)")
+        log(f"[backward] K7 float32 {what} on the step's three passes: "
+            f"{row['ms']:.3f} ms, {useful / row['ms'] / 1e9:.1f} TFLOP/s of "
+            f"float32 products ({3 * useful / row['ms'] / 1e9:.1f} TFLOP/s of "
+            f"TF32 products, 3xTF32); its twin {row['plain_ms']:.3f} ms{lib}")
+    log(f"[backward] K7 float32 in all "
         f"{rows.rows['fused_nerf_backward']['ms']:.3f} ms")
 
     # K4 (d_vol) on the three lookups of a step, K5 (d_ndc) on the warped one;
@@ -1142,22 +1331,24 @@ def flagship_train(cfg, system, batch, params, tag="train"):
         first = time.perf_counter() - t0
         got = read_counters()
         # the field passes' points: static and dynamic R x S, t±1 2 R x S,
-        # the chain R x S; K7 float32 runs pass 2 once per chunk of each
+        # the chain R x S; K7 float32 runs its three launches once per
+        # chunk of each
         points = (cfg.batch_size + cfg.num_extra_samples * phase.extra_samples
                   ) * cfg.N_samples
+        k7_chunks = (2 + extra) * chunks(points) + chunks(2 * points)
         expected = dict(homo_warp_cm=n_src, homo_warp_cm_grad=n_src,
                         sample_volume=3 + extra, volume_grad=3 + extra,
                         coords_grad=1 + extra, gather_colors=2,
                         fused_nerf_forward=3 + extra,
-                        fused_nerf_backward=3 + extra,
-                        weight_grads=(2 + extra) * chunks(points)
-                        + chunks(2 * points), gather_rows=0, scatter_rows=0)
+                        fused_nerf_backward=3 + extra, recompute=k7_chunks,
+                        input_grads=k7_chunks, weight_grads=k7_chunks,
+                        gather_rows=0, scatter_rows=0)
         if system.bf16:
             # the warped lookups (t±1, the chain) are row gathers; K7's
-            # bf16 mode takes its weight gradients inside its own entry
+            # bf16 mode runs inside its own entry
             expected.update(sample_volume=2, volume_grad=2, coords_grad=0,
                             gather_rows=1 + extra, scatter_rows=1 + extra,
-                            weight_grads=0)
+                            recompute=0, input_grads=0, weight_grads=0)
         log(f"[{tag}] {step_tag} {tuple(phase)}: first run {first:.2f} s, "
             f"launches {got}")
         if got != expected:

@@ -60,8 +60,28 @@ the float32 pack's own layout) that one product reads, rounded to bf16, in
   order).
 - The wrapper routes the bf16 mode to the tensor-core entry
   (``zt_fused_nerf_backward_tc``), with the forward's bf16 pack when it is
-  given, and the float32 mode to the SIMT entry (checked with meta tensors
-  and a stand-in for the kernel library, which does not exist on the CPU).
+  given, and the float32 mode, per chunk, to its three entries: the
+  recompute on K6's float32 operand pack (made when it is not given), the
+  input gradients and the weight gradients (checked with meta tensors and a
+  stand-in for the kernel library, which does not exist on the CPU).
+
+K7's float32 mode, three launches per chunk of points: ``recompute`` (K6's
+float32 kernel leaving the forward's values in a scratch), ``input_grads``
+(the input gradients from them, as 3xTF32, their B operand the float32
+pack's own [in][out] weights) and ``weight_grads`` (pass 2).
+
+- On CPU tensors each wrapper takes its twin (``recompute_plain``,
+  ``input_grads_plain``, ``weight_grads_plain``), and the three in turn on
+  one chunk's buffers equal the twin's autograd, in float64, to 1e-9 of
+  each input's and each leaf's largest gradient.
+- The input gradients as the kernels compute them: K6's 3xTF32 forward
+  values, then every product d_z @ W as 3xTF32 over k8 steps of the output
+  width (``_mm_tf32``). d_pts, d_feats and d_views agree with the VJP of
+  ``zest_tpu``'s ``fused_nerf_apply(..., approx=False)`` (interpret mode)
+  at 1e-4 of each one's largest, and with a float64 twin's autograd at
+  2^-20 norm-wise (3e-7 to 4e-7 here), which one TF32 product per step
+  (3e-4 to 5e-4) misses; widths 64 and 256, both field layouts, with and
+  without the skip layer.
 """
 import copy
 from typing import Callable, NamedTuple
@@ -185,12 +205,13 @@ def test_pack_is_made_from_the_float32_pack(static, mode):
                        mode.plain(field, f32, offsets)[0])
 
 
-def _field_from_pack(field, pts, feats, views, mode=BF16_PACK,
-                     product=lambda x, w: round_bf16(x) @ w.T):
-    """The field as the tensor-core kernel computes it from mode's operand
-    pack: every input part zero padded as the pack's K parts are, each of
-    the conditioning, trunk, feature and views products product(x, w) with
-    w [out][K_pad] from the pack, float32 biases, cond and heads."""
+def _values_from_pack(field, pts, feats, views, mode=BF16_PACK,
+                      product=lambda x, w: round_bf16(x) @ w.T):
+    """The field's forward values as the tensor-core kernel computes them
+    from mode's operand pack: every input part zero padded as the pack's K
+    parts are, each of the conditioning, trunk, feature and views products
+    product(x, w) with w [out][K_pad] from the pack, float32 biases, cond
+    and heads. Returns cond, z (a list), feature, hv and the output rows."""
     pad = mode.pad
     mats = [m.float() for _, _, m in _matrices(field, mode=mode)]
 
@@ -200,10 +221,11 @@ def _field_from_pack(field, pts, feats, views, mode=BF16_PACK,
         return product(x, mats[i]) + lin.bias
 
     cond = mm(0, field.pts_bias, feats)
-    h = pts
+    h, z = pts, []
     for i, lin in enumerate(field.pts_linears):
         xs = (pts,) if i == 0 else (pts, h) if i - 1 in field.skips else (h,)
-        h = torch.relu(mm(1 + i, lin, *xs) * cond)
+        z.append(mm(1 + i, lin, *xs))
+        h = torch.relu(z[-1] * cond)
     if field.static:
         extras = [torch.sigmoid(field.w_linear(h))]
     else:
@@ -212,7 +234,13 @@ def _field_from_pack(field, pts, feats, views, mode=BF16_PACK,
     depth = len(field.pts_linears)
     feature = mm(depth + 1, field.feature_linear, h)
     hv = torch.relu(mm(depth + 2, field.views_linears[0], feature, views))
-    return torch.cat([field.rgb_linear(hv), field.alpha_linear(h)] + extras, -1)
+    out = torch.cat([field.rgb_linear(hv), field.alpha_linear(h)] + extras, -1)
+    return dict(cond=cond, z=z, feature=feature, hv=hv, out=out)
+
+
+def _field_from_pack(field, pts, feats, views, **kw):
+    """The output rows of ``_values_from_pack``."""
+    return _values_from_pack(field, pts, feats, views, **kw)["out"]
 
 
 @pytest.mark.parametrize("static", [True, False])
@@ -237,17 +265,17 @@ def test_pack_field_matches_approx_kernel(static):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-5)
 
 
-def _jax_field(static, width, seed):
+def _jax_field(static, width, seed, skips=(4,)):
     """A ``zest_tpu`` field and its variables (numpy), and the port's field
     (float32) with the same weights."""
     P, F_, V = LAYOUTS[static]
     jfield = JNeRFField(depth=8, width=width, in_ch_pts=P, in_ch_views=V,
-                        in_ch_feat=F_, sceneflow=True, static=static,
-                        use_mvs=True)
+                        in_ch_feat=F_, skips=skips, sceneflow=True,
+                        static=static, use_mvs=True)
     variables = jax.tree.map(np.asarray, jfield.init(
         jax.random.PRNGKey(seed), jnp.zeros((1, P)), jnp.zeros((1, F_)),
         jnp.zeros((1, V))))
-    field = NeRFField(8, width, P, V, F_, static=static)
+    field = NeRFField(8, width, P, V, F_, skips=skips, static=static)
     sd = from_jax_params({"nerf_static": variables})
     field.load_state_dict({k[len("nerf_static."):]: v for k, v in sd.items()
                            if k.startswith("nerf_static.")})
@@ -422,6 +450,113 @@ def test_one_tf32_weight_grad_product_is_not_float32_class(static, width):
     assert min(dist.values()) > 2.0 ** -20, dist
 
 
+def _chunk_buffers(field, n, dtype=torch.float32):
+    """One chunk's K7 float32 buffers by name, zeroed, in the shapes
+    ``_scratch_views`` gives them (the CPU has no kernel library for the
+    scratch's layout)."""
+    W, depth = field.width, len(field.pts_linears)
+    dims = {"z": (depth, n, W), "dz": (depth, n, W), "hv": (n, W // 2),
+            "d_hv": (n, W // 2), "g_heads": (n, field.out_ch)}
+    return {k: torch.zeros(dims.get(k, (n, W)), dtype=dtype)
+            for k in fused_mlp._BUFS}
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("skips", [(4,), ()])
+def test_float32_chunk_twins_match_autograd(width, static, skips):
+    """K7 float32's three launches on CPU tensors take their twins:
+    ``recompute``, ``input_grads`` and ``weight_grads`` in turn on one
+    chunk's buffers give the twin's autograd, in float64, to 1e-9 of each
+    input's and each leaf's largest gradient; the recomputed rows are the
+    twin's output bit for bit."""
+    P, F_, V = LAYOUTS[static]
+    torch.manual_seed(17)
+    field = NeRFField(8, width, P, V, F_, skips=skips, static=static).double()
+    rng = np.random.default_rng(18)
+    pts, feats, views, g = (torch.from_numpy(rng.normal(size=(200, c)))
+                            for c in (P, F_, V, field.out_ch))
+    with torch.no_grad():
+        pack, offsets = pack_weights(field)
+    bufs = _chunk_buffers(field, 200, torch.float64)
+    rows = torch.empty_like(g)
+    got = [torch.empty_like(t) for t in (pts, feats, views)]
+    d_pack = torch.zeros_like(pack)
+    fused_mlp.recompute(field, pts, feats, views, g, pack, offsets, None, bufs,
+                        rows)
+    fused_mlp.input_grads(field, bufs, pack, offsets, *got)
+    fused_mlp.weight_grads(field, pts, feats, views, bufs, offsets, d_pack)
+    with torch.no_grad():
+        assert torch.equal(rows, field(pts, feats, views))
+    ref = fused_nerf_backward_plain(field, pts, feats, views, g)
+    for name, a, b in zip(fused_mlp._INPUTS, got, ref):
+        assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max()), name
+    for (name, a), (_, b) in zip(pack_leaves(field, d_pack, offsets),
+                                 pack_leaves(field, ref[3], offsets)):
+        assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max()), name
+
+
+def _tf32_input_grads(field, inputs, g, terms):
+    """K7 float32's pass 1 as its kernels compute it: K6's float32 forward
+    values (``_values_from_pack``, 3xTF32: launch A is K6's kernel), then
+    ``input_grads_plain`` with every input-gradient product d_z @ W as
+    ``_mm_tf32`` with ``terms`` TF32 products over k8 steps of the output
+    width. Returns (its outputs, {input: norm-wise distance of its gradient
+    from a float64 twin's autograd})."""
+    ins = [torch.from_numpy(x) for x in inputs]
+    gt = torch.from_numpy(g)
+    with torch.no_grad():
+        vals = _values_from_pack(field, *ins, mode=TC32_PACK,
+                                 product=lambda x, w: _mm_tf32(x, w))
+        bufs = dict(cond=vals["cond"], z=torch.stack(vals["z"]),
+                    hv=vals["hv"], g_heads=fused_mlp.head_grads_plain(
+                        field, vals["out"], gt))
+    got = fused_mlp.input_grads_plain(field, bufs,
+                                      lambda d, w: _mm_tf32(d, w, terms))
+    wide = copy.deepcopy(field).double()
+    exact = fused_nerf_backward_plain(wide, *(t.double() for t in ins),
+                                      gt.double())
+    return got, {name: _norm_dist(got[name].numpy(), b.numpy())
+                 for name, b in zip(fused_mlp._INPUTS, exact)}
+
+
+def _tf32_dx_case(static, width, skips, terms):
+    jfield, variables, field = _jax_field(static, width, 19, skips)
+    rng = np.random.default_rng(20)
+    inputs = [rng.normal(size=(300, c)).astype(np.float32)
+              for c in LAYOUTS[static]]
+    g = rng.normal(size=(300, field.out_ch)).astype(np.float32)
+    return (*_tf32_input_grads(field, inputs, g, terms), inputs, g,
+            (jfield, variables))
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("skips", [(4,), ()])
+def test_3xtf32_input_grads_match_exact_kernel(static, width, skips):
+    """K7 float32's pass 1 with its products as 3xTF32 (K6's forward, then
+    the input gradients) holds the VJP of ``zest_tpu``'s ``approx=False``
+    kernel (interpret mode) in d_pts, d_feats and d_views at 1e-4 of each
+    one's largest, and a float64 twin at 2^-20 norm-wise."""
+    got, dist, inputs, g, (jfield, variables) = _tf32_dx_case(
+        static, width, skips, 3)
+    _, vjp = jax.vjp(lambda *x: fused_nerf_apply(jfield, variables, *x,
+                                                 approx=False),
+                     *map(jnp.asarray, inputs))
+    for name, b in zip(fused_mlp._INPUTS, vjp(jnp.asarray(g))):
+        b = np.asarray(b)
+        assert np.abs(got[name].numpy() - b).max() <= 1e-4 * np.abs(b).max(), \
+            name
+    assert max(dist.values()) <= 2.0 ** -20, dist
+
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+def test_one_tf32_input_grad_product_is_not_float32_class(static, width):
+    dist = _tf32_dx_case(static, width, (4,), 1)[1]
+    assert min(dist.values()) > 2.0 ** -20, dist
+
+
 def _bwd_matrices(field, scale=1.0):
     """[(Linear, first input row, the matrix read back [rows][out])] of the
     backward pack made from the float32 pack times scale"""
@@ -535,6 +670,56 @@ def test_backward_at_forward_values_matches_autograd(width, static, skips):
         assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max()), name
 
 
+
+@pytest.mark.parametrize("width", [64, 256])
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("skips", [(4,), ()])
+def test_float32_backward_at_forward_values_matches_autograd(width, static,
+                                                            skips):
+    """The twin's backward at given forward values in the float32 mode (no
+    rounding; what K7 float32 is held to at the values it ran at), at the
+    twin's own forward values, equals its autograd in float64 to 1e-9 of
+    each input's and each leaf's largest gradient."""
+    P, F_, V = LAYOUTS[static]
+    torch.manual_seed(21)
+    field = NeRFField(8, width, P, V, F_, skips=skips, static=static).double()
+    rng = np.random.default_rng(22)
+    pts, feats, views, g = (torch.from_numpy(rng.normal(size=(200, c)))
+                            for c in (P, F_, V, field.out_ch))
+    saved = forward_values_plain(field, pts, feats, views)
+    assert saved["feature"].dtype == torch.float64
+    got = fused_nerf_backward_at_plain(field, saved, pts, feats, views, g)
+    ref = fused_nerf_backward_plain(field, pts, feats, views, g)
+    for name, a, b in zip(("d_pts", "d_feats", "d_views"), got, ref):
+        assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max()), name
+    _, offsets = pack_weights(field)
+    for (name, a), (_, b) in zip(pack_leaves(field, got[3], offsets),
+                                 pack_leaves(field, ref[3], offsets)):
+        assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max()), name
+
+
+def test_branch_rows_finds_the_points_whose_relu_branches_differ():
+    """``branch_rows`` flags a point where one trunk unit's z * cond or one
+    hv changes sign between two sets of forward values, and no other; and
+    ``kept_rows`` selects the same points of every value."""
+    torch.manual_seed(23)
+    field = NeRFField(8, 64, *LAYOUTS[True][:1], LAYOUTS[True][2],
+                      LAYOUTS[True][1])
+    pts, feats, views = (torch.randn((50, c)) for c in (63, 40, 27))
+    a = forward_values_plain(field, pts, feats, views)
+    b = {k: [t.clone() for t in v] if k == "z" else v.clone()
+         for k, v in a.items()}
+    assert not fused_mlp.branch_rows(a, b).any()
+    b["z"][3][7, 5] = -b["z"][3][7, 5]
+    b["hv"][20, 1] = 1.0 - b["hv"][20, 1].sign()
+    rows = fused_mlp.branch_rows(a, b)
+    assert rows.nonzero().flatten().tolist() == [7, 20]
+    kept = fused_mlp.kept_rows(a, ~rows)
+    assert kept["hv"].shape == (48, 32) and len(kept["z"]) == 8
+    assert torch.equal(kept["z"][3], torch.cat([a["z"][3][:7],
+                                                a["z"][3][8:20],
+                                                a["z"][3][21:]]))
+
 class _Library:
     """Stands in for the kernel library: records each C entry called and
     returns 0 (success, and a zero length or size)."""
@@ -550,7 +735,7 @@ class _Library:
 
 
 @pytest.mark.parametrize("bf16,give_wb", [(True, False), (True, True),
-                                          (False, False)])
+                                          (False, False), (False, True)])
 def test_backward_routes_by_mode(bf16, give_wb, monkeypatch):
     lib = _Library()
     monkeypatch.setattr(_build, "library", lambda: lib)
@@ -563,7 +748,9 @@ def test_backward_routes_by_mode(bf16, give_wb, monkeypatch):
     n = 100
     pts, feats, views, g = (torch.empty((n, c), device="meta")
                             for c in (P, F_, V, field.out_ch))
-    wb = torch.empty(3, device="meta", dtype=torch.bfloat16) if give_wb else None
+    wb = (torch.empty(3, device="meta",
+                      dtype=torch.bfloat16 if bf16 else torch.float32)
+          if give_wb else None)
     grads = fused_mlp.fused_nerf_backward(field, pts, feats, views, g,
                                           pack.to("meta"), offsets, wb)
     assert [t.shape for t in grads] == [pts.shape, feats.shape, views.shape,
@@ -574,9 +761,13 @@ def test_backward_routes_by_mode(bf16, give_wb, monkeypatch):
         want += ["zt_fused_nerf_pack_bwd_tc_len", "zt_fused_nerf_pack_bwd_tc",
                  "zt_fused_nerf_backward_tc_scratch", "zt_fused_nerf_backward_tc"]
     else:
-        want = ["zt_fused_nerf_backward_scratch", "zt_fused_nerf_backward_tpack",
-                "zt_fused_nerf_backward", "zt_fused_nerf_backward_layout",
-                "zt_fused_nerf_weight_grads_tc32"]
+        want = ([] if give_wb else ["zt_fused_nerf_pack_tc32_len",
+                                    "zt_fused_nerf_pack_tc32"])
+        want += ["zt_fused_nerf_backward_scratch",
+                 "zt_fused_nerf_backward_layout",
+                 "zt_fused_nerf_recompute_tc32",
+                 "zt_fused_nerf_input_grads_tc32",
+                 "zt_fused_nerf_weight_grads_tc32"]
     assert lib.calls == want
 
 
@@ -595,7 +786,8 @@ def test_forward_routes_by_mode(bf16, monkeypatch):
     out, wb = fused_mlp._launch_forward(field, pts, feats, views,
                                         pack.to("meta"), offsets)
     assert out.shape == (n, field.out_ch)
-    assert (wb is not None) == bf16
+    # the operand pack K6 ran on, which the backward's recompute reads
+    assert wb.dtype == (torch.bfloat16 if bf16 else torch.float32)
     entry = "zt_fused_nerf_forward_tc" if bf16 else "zt_fused_nerf_forward_tc32"
     pack_entry = "zt_fused_nerf_pack_tc" if bf16 else "zt_fused_nerf_pack_tc32"
     assert lib.calls == [pack_entry + "_len", pack_entry, entry]

@@ -191,8 +191,13 @@ def test_from_jax_params_converts_gradient_trees():
 
 
 @pytest.mark.parametrize("name,group", [
-    ("(anonymous namespace)::transpose_pack_kernel(float const*, float*)",
-     "K7 field backward, weight transpose"),
+    ("void (anonymous namespace)::recompute_tc32_kernel<256>(float const*)",
+     "K7 field backward, pass 1 (recompute)"),
+    ("void (anonymous namespace)::fused_nerf_tc32_kernel<256>(float const*)",
+     "K6 fused field"),
+    ("void (anonymous namespace)::input_grads_tc32_kernel<256>("
+     "(anonymous namespace)::TcParamsOf<float>)",
+     "K7 field backward, pass 1 (input gradients)"),
     ("void (anonymous namespace)::fused_nerf_bwd_kernel<256>(float const*)",
      "K7 field backward, pass 1"),
     ("(anonymous namespace)::wgrad_tc32_kernel(Jobs, float*, long long, "

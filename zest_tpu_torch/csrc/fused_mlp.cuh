@@ -1,9 +1,10 @@
 // The fused field's float32 weight pack: the slots of its offsets table
-// (floats into the pack), shared by fused_mlp.cu (K7 float32) and the
-// tensor-core kernels fused_mlp_tc32.cu (K6 float32), fused_mlp_tc.cu (K6
-// bf16) and fused_mlp_tc_bwd.cu (K7 bf16), which read the biases and the
-// heads from it. The Python wrapper (kernels/fused_mlp.py) fills the same
-// slots.
+// (floats into the pack), shared by the tensor-core kernels
+// fused_mlp_tc32.cu (K6 float32, K7 float32's recompute), fused_mlp_tc32_dx.cu
+// and fused_mlp_tc32_bwd.cu (K7 float32's input and weight gradients),
+// fused_mlp_tc.cu (K6 bf16) and fused_mlp_tc_bwd.cu (K7 bf16), which read
+// weights, biases and heads from it. The Python wrapper
+// (kernels/fused_mlp.py) fills the same slots.
 #pragma once
 
 namespace {

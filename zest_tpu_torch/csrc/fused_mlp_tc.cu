@@ -153,7 +153,7 @@ int launch_tc(const float* pts, const float* feats, const float* views,
 }  // namespace
 
 // The bf16 pack of K6's bf16-operand mode, made on the card from the float32
-// pack (wpack / offsets: fused_mlp.cu's layout) into wbf16, which holds
+// pack (wpack / offsets: fused_mlp.cuh's slots) into wbf16, which holds
 // zt_fused_nerf_pack_tc_len elements: every matrix of the stream as
 // nn.Linear stores it, [out][K], K's parts zero padded to multiples of 16,
 // back to back (the plain version: kernels/fused_mlp.py:pack_bf16_plain).

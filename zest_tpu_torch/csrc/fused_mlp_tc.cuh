@@ -375,6 +375,59 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[2][NT][4],
       mma_tf32(acc[mt][j], ab[mt], bb[j][0], bb[j][1]);
 }
 
+// 3xTF32 as above, but each k8 step's three products summed from zero and
+// then added into acc by FADD, which rounds to nearest: the mma's own float32
+// sum drops low bits, and over a K of 256 (96 mma into one accumulator) that
+// moves a product ~5e-6 from float64 (PERF.md §6). The tiles go in
+// groups of kStepGroup, term by term within a group, so that a group's mma
+// do not wait on each other.
+constexpr int kStepGroup = 4;
+
+template <int NT>
+__device__ __forceinline__ void mma_3xtf32_step(float (&acc)[2][NT][4],
+                                                const Frags<NT>& f) {
+  constexpr int Q = 2 * NT;            // tiles: q = 2 j + mt
+  uint32_t ab[2][4], as[2][4], bb[NT][2], bs[NT][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(f.a[mt][e], ab[mt][e], as[mt][e]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      split_tf32(f.b[j / 2][2 * (j % 2) + e], bb[j][e], bs[j][e]);
+#pragma unroll
+  for (int q0 = 0; q0 < Q; q0 += kStepGroup) {
+    float t[kStepGroup][4];
+#pragma unroll
+    for (int u = 0; u < kStepGroup; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[u][e] = 0.f;
+#pragma unroll
+    for (int u = 0; u < kStepGroup; ++u)
+      if (q0 + u < Q)
+        mma_tf32(t[u], as[(q0 + u) % 2], bb[(q0 + u) / 2][0],
+                 bb[(q0 + u) / 2][1]);
+#pragma unroll
+    for (int u = 0; u < kStepGroup; ++u)
+      if (q0 + u < Q)
+        mma_tf32(t[u], ab[(q0 + u) % 2], bs[(q0 + u) / 2][0],
+                 bs[(q0 + u) / 2][1]);
+#pragma unroll
+    for (int u = 0; u < kStepGroup; ++u)
+      if (q0 + u < Q)
+        mma_tf32(t[u], ab[(q0 + u) % 2], bb[(q0 + u) / 2][0],
+                 bb[(q0 + u) / 2][1]);
+#pragma unroll
+    for (int u = 0; u < kStepGroup; ++u)
+      if (q0 + u < Q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[(q0 + u) % 2][(q0 + u) / 2][e] += t[u][e];
+  }
+}
+
 // bf16: one mma m16n8k16 per tile
 template <int NT>
 __device__ __forceinline__ void mma_bf16_frags(float (&acc)[2][NT][4],
@@ -393,10 +446,12 @@ __device__ __forceinline__ void mma_bf16_frags(float (&acc)[2][NT][4],
   }
 }
 
-template <typename T, int NT>
+template <typename T, bool kStepSum, int NT>
 __device__ __forceinline__ void mma_frags(float (&acc)[2][NT][4],
                                           const Frags<NT>& f) {
-  if constexpr (std::is_same_v<T, float>)
+  if constexpr (std::is_same_v<T, float> && kStepSum)
+    mma_3xtf32_step(acc, f);
+  else if constexpr (std::is_same_v<T, float>)
     mma_3xtf32(acc, f);
   else
     mma_bf16_frags(acc, f);
@@ -405,8 +460,8 @@ __device__ __forceinline__ void mma_frags(float (&acc)[2][NT][4],
 // acc = A @ B^T for matrix m of the stream, B [N][K] from the ring, A as in
 // load_frags. The warp's tile: rows m0w .. m0w + 31, columns n0w .. n0w +
 // 8 NT - 1. Within a slice the next mma step's fragments load while this
-// one's mma run.
-template <int SR, int NT, typename T>
+// one's mma run. kStepSum (float operands): mma_3xtf32_step.
+template <int SR, int NT, typename T, bool kStepSum = false>
 __device__ __forceinline__ void product(float (&acc)[2][NT][4],
                                         RingOf<T>& rg, const StreamOf<T>& st,
                                         int m, const T* a1, int lda1, int K1,
@@ -436,7 +491,7 @@ __device__ __forceinline__ void product(float (&acc)[2][NT][4],
       if (s + 1 < steps)
         load_frags(f[(s + 1) & 1], a1, lda1, K1, a2, lda2, k0 + D * (s + 1),
                    slot, D * (s + 1), m0w, n0w, lane);
-      mma_frags<T>(acc, f[s & 1]);
+      mma_frags<T, kStepSum>(acc, f[s & 1]);
     }
   }
 }
@@ -537,6 +592,7 @@ __device__ __forceinline__ void head_partials(const float (&x)[2][NT][4],
 // accumulator elements (row r of the block, columns col, col + 1): K6 keeps
 // nothing (this type); K7 writes them to its scratch.
 struct NoSave {
+  __device__ void cond(int, int, float, float) const {}
   // trunk layer i: z = h @ W_i + b_i, a = relu(z * cond), hb = a as stored
   // in h (Operand<T>::Pair)
   template <typename Pair>
@@ -589,6 +645,8 @@ __device__ __forceinline__ void forward_tile(
         for (int hf = 0; hf < 2; ++hf) {
           cond[mt][j][2 * hf] += bb.x;
           cond[mt][j][2 * hf + 1] += bb.y;
+          save.cond(m0w + 16 * mt + gq + 8 * hf, n0w + 8 * j + 2 * tq,
+                    cond[mt][j][2 * hf], cond[mt][j][2 * hf + 1]);
         }
     }
   }
@@ -683,6 +741,116 @@ __device__ __forceinline__ void forward_tile(
   head_partials<NTV, 3>(
       accv, [&](int o, int k) { return __ldg(wr + 3 * k + o); }, red, 0, m0w,
       n0v, wn, lane);
+}
+
+// ---------------------------------------------------------------------------
+// K7's pass 1 in both modes: the input gradients d_x = d_z @ W, in reverse
+// order (fused_mlp_tc_bwd.cu at bf16, fused_mlp_tc32_dx.cu at float32).
+
+constexpr int kGS = 12;                // float row stride of the heads' g'
+constexpr int kNarrowNT = 3;           // n8 tiles per warp, narrow products
+constexpr int kNarrow = 32 * kNarrowNT;  // widest pts / feats / views
+
+// One matrix of the input-gradient products: rows r0 .. r0 + rows - 1 of
+// the float32 pack's [in][out] weight in `slot`, K = out. In [in][out]
+// those rows are one contiguous run, and they are the B operand [N = in][K
+// = out] of d_x = d_z @ W as the ring takes it (bf16: from K7's backward
+// pack; float32: from the float32 pack itself).
+struct BMat {
+  int slot, r0, rows, K;
+};
+
+// The backward's matrices in the order pass 1 runs them: the views layer's
+// views part (d_views) and feature part (d_feature), the feature layer, the
+// trunk from the last layer down (the skip layer's pts part, then its h
+// part; layer 0's pts), the conditioning (d_feats). Returns their count.
+inline int bwd_mats(const Geo& g, BMat (&m)[kStreamMax]) {
+  int n = 0;
+  const int W = g.W;
+  m[n++] = BMat{kWv, W, g.V, W / 2};
+  m[n++] = BMat{kWv, 0, W, W / 2};
+  m[n++] = BMat{kWf, 0, W, W};
+  for (int i = g.depth - 1; i >= 0; --i) {
+    const int slot = kLayer0 + 2 * i;
+    if (i == 0) {
+      m[n++] = BMat{slot, 0, g.P, W};
+    } else if (i == g.skip + 1) {
+      m[n++] = BMat{slot, 0, g.P, W};
+      m[n++] = BMat{slot, g.P, W, W};
+    } else {
+      m[n++] = BMat{slot, 0, W, W};
+    }
+  }
+  m[n++] = BMat{kWb, 0, g.F, W};
+  return n;
+}
+
+// the block's rows of a [R][W] float32 scratch buffer (one contiguous run)
+// into L2, ahead of the epilogue that reads them
+template <int W>
+__device__ __forceinline__ void prefetch_rows(const float* buf, long long row0,
+                                              int tid) {
+  const char* p = reinterpret_cast<const char*>(buf + row0 * W);
+  for (int line = tid; line < kM * W * 4 / 128; line += kThreads)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p + 128 * line));
+}
+
+// a narrow product's real columns (< cols) and rows (< n) into dst [n][cols],
+// added to what is there when accumulate
+template <int NT>
+__device__ __forceinline__ void store_narrow(const float (&x)[2][NT][4],
+                                             float* dst, int cols,
+                                             long long row0, long long n,
+                                             int m0w, int n0, int lane,
+                                             bool accumulate) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long gr = row0 + m0w + 16 * mt + gq + 8 * (e >> 1);
+        const int col = n0 + 8 * j + 2 * tq + (e & 1);
+        if (col < cols && gr < n) {
+          float* p = dst + gr * cols + col;
+          *p = accumulate ? *p + x[mt][j][e] : x[mt][j][e];
+        }
+      }
+}
+
+// d_h += the alpha and extra heads' float32 input gradients: g'[r][3 + o] *
+// head weight o at column k, o < NH
+template <int NT, int NH, typename Prm>
+__device__ __forceinline__ void add_head_grads(float (&acc)[2][NT][4],
+                                               const Prm& prm,
+                                               int n_extra, const float* gs,
+                                               int m0w, int n0w, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  float gr[2][2][NH];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int o = 0; o < NH; ++o)
+        gr[mt][hf][o] = gs[(m0w + 16 * mt + gq + 8 * hf) * kGS + 3 + o];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int k = n0w + 8 * j + 2 * tq + c;
+#pragma unroll
+      for (int o = 0; o < NH; ++o) {
+        const float wv = head_weight(prm, n_extra, o, k);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            acc[mt][j][2 * hf + c] =
+                fmaf(gr[mt][hf][o], wv, acc[mt][j][2 * hf + c]);
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------

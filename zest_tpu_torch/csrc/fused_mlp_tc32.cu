@@ -4,9 +4,10 @@
 // (pallas_call at :376; its per-tile math is _forward_tile) in its
 // approx=False mode, "exact 6-pass f32" (Precision.HIGHEST on the TPU): the
 // port's default precision 32. The bf16-operand mode is fused_mlp_tc.cu, on
-// the same tile. The backward's float32 mode recomputes the forward on the
-// CUDA cores (pass 1, fused_mlp.cu) and takes its weight gradients on the
-// tensor cores as 3xTF32 too (pass 2, fused_mlp_tc32_bwd.cu).
+// the same tile. The backward's float32 mode recomputes the forward with
+// this kernel's tile (recompute_tc32_kernel, zt_fused_nerf_recompute_tc32)
+// and takes its input gradients (fused_mlp_tc32_dx.cu) and weight gradients
+// (fused_mlp_tc32_bwd.cu) on the tensor cores as 3xTF32 too.
 //
 // What it computes is the float32 twin's field (models/nerf.py, NeRFField
 // with bf16=False):
@@ -63,11 +64,13 @@
 // longer sequence than the integer split (114 ms with it), and running the
 // three terms tile by tile instead of term by term was slower.
 //
-// In a training step the backward's float32 mode (its pass 1, fused_mlp.cu,
-// SIMT) recomputes this forward with FMA sums in another order, so its gradient
-// is taken at activations that differ from the ones the loss saw by float32
-// rounding noise (PERF.md §7); a ReLU input within that noise of zero can
-// take the other branch there.
+// In a training step the backward's float32 mode recomputes this forward
+// with the same tile on the same operand pack (recompute_tc32_kernel: a
+// Save that writes cond, every z_i, the feature layer's output and hv to
+// K7's scratch, and the heads' pre-activation gradients in place of the
+// output rows), so its gradient is taken at the activations the loss saw,
+// bit for bit. fused_nerf_tc32_kernel keeps its signature and takes NoSave,
+// whose hooks are empty.
 #include "fused_mlp_tc.cuh"
 
 namespace {
@@ -80,14 +83,56 @@ __host__ __device__ inline size_t smem_bytes(int W, int Pp, int Fp, int Vp) {
                           kM * (Pp + Fp + Vp + 3 * kPad<float>));
 }
 
-template <int WIDTH>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_nerf_tc32_kernel(const float* __restrict__ pts,
-                       const float* __restrict__ feats,
-                       const float* __restrict__ views,
-                       TcParamsOf<float> prm, float* __restrict__ out,
-                       long long n, int P, int F, int V, int depth, int skip,
-                       int n_extra) {
+// What K7 float32's pass 1 keeps of the forward (launch A,
+// recompute_tc32_kernel): a chunk's scratch buffers, each [n][cols] float32 row-major as
+// zt_fused_nerf_backward_layout places them (cond, z [depth], the feature
+// layer's output, hv and the heads' pre-activation gradients g'), and the
+// chunk's output gradient g [n][out_ch] that g' is made from.
+struct Keep32 {
+  float *cond, *z, *feat, *hv, *gh;
+  const float* g;
+};
+
+// Launch A's Save: the forward tile's values at row r of the block (row0 + r
+// of the chunk) into the scratch; the rows past n are not written
+struct SaveScratch32 {
+  Keep32 k;
+  long long row0, n;
+  int W;
+  __device__ void put(float* buf, int ld, int r, int col, float a,
+                      float b) const {
+    if (row0 + r < n)
+      *reinterpret_cast<float2*>(buf + (row0 + r) * ld + col) =
+          make_float2(a, b);
+  }
+  __device__ void cond(int r, int col, float c0, float c1) const {
+    put(k.cond, W, r, col, c0, c1);
+  }
+  __device__ void trunk(int i, int r, int col, float z0, float z1, float,
+                        float, float2) const {
+    put(k.z + i * n * W, W, r, col, z0, z1);
+  }
+  __device__ void feature(int r, int col, float2 f) const {
+    put(k.feat, W, r, col, f.x, f.y);
+  }
+  __device__ void hv(int r, int col, float v0, float v1) const {
+    put(k.hv, W / 2, r, col, v0, v1);
+  }
+};
+
+// One block of 64 points of K6 (kKeep false: NoSave, the output rows into
+// out) or of K7 float32's recompute (kKeep: the forward's values and g'
+// into the scratch, the output rows into out if it is not null): one tile
+// for both, each its own kernel, so K6's keeps its signature and its code
+template <int WIDTH, bool kKeep>
+__device__ __forceinline__ void tc32_block(const float* __restrict__ pts,
+                                           const float* __restrict__ feats,
+                                           const float* __restrict__ views,
+                                           const TcParamsOf<float>& prm,
+                                           float* __restrict__ out,
+                                           const Keep32& keep, long long n,
+                                           int P, int F, int V, int depth,
+                                           int skip, int n_extra) {
   constexpr int W = WIDTH;
   constexpr int HS = W + kPad<float>;  // row stride of h
   const Geo g = make_geo(W, depth, skip, P, F, V, kQ);
@@ -109,8 +154,12 @@ fused_nerf_tc32_kernel(const float* __restrict__ pts,
   load_tile(vs, VS, g.Vp, views, V, row0, n, tid);
 
   float cond[2][W / 32][4], accv[2][W / 64][4];
-  forward_tile<W, W>(prm, g, rg, hs, xs, PS, fs, FS, vs, VS, red, cond, accv,
-                     n_extra, tid, NoSave{});
+  if constexpr (kKeep)
+    forward_tile<W, W>(prm, g, rg, hs, xs, PS, fs, FS, vs, VS, red, cond,
+                       accv, n_extra, tid, SaveScratch32{keep, row0, n, W});
+  else
+    forward_tile<W, W>(prm, g, rg, hs, xs, PS, fs, FS, vs, VS, red, cond,
+                       accv, n_extra, tid, NoSave{});
   __syncthreads();                     // every partial is in red
 
   // the block's output rows are contiguous in out: coalesced stores
@@ -121,8 +170,42 @@ fused_nerf_tc32_kernel(const float* __restrict__ pts,
     float v = 0.f;
 #pragma unroll
     for (int q = 0; q < 4; ++q) v += red[(q * kM + r) * kRed + c];
-    out[row0 * out_ch + e] = head_out(prm, n_extra, c, v);
+    if constexpr (kKeep) {
+      // g': rgb and alpha as given, the blend and probability through
+      // their sigmoid, the flow through its tanh
+      const float o = head_out(prm, n_extra, c, v);
+      const long long at = row0 * out_ch + e;
+      float gv = __ldg(keep.g + at);
+      if (c >= 4) gv *= (n_extra == 1 || c >= 10) ? o * (1.f - o) : 1.f - o * o;
+      keep.gh[at] = gv;
+      if (out != nullptr) out[at] = o;
+    } else {
+      out[row0 * out_ch + e] = head_out(prm, n_extra, c, v);
+    }
   }
+}
+
+template <int WIDTH>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_nerf_tc32_kernel(const float* __restrict__ pts,
+                       const float* __restrict__ feats,
+                       const float* __restrict__ views,
+                       TcParamsOf<float> prm, float* __restrict__ out,
+                       long long n, int P, int F, int V, int depth, int skip,
+                       int n_extra) {
+  tc32_block<WIDTH, false>(pts, feats, views, prm, out, Keep32{}, n, P, F, V,
+                           depth, skip, n_extra);
+}
+
+template <int WIDTH>
+__global__ void __launch_bounds__(kThreads, 1)
+recompute_tc32_kernel(const float* __restrict__ pts,
+                      const float* __restrict__ feats,
+                      const float* __restrict__ views, TcParamsOf<float> prm,
+                      float* __restrict__ out, Keep32 keep, long long n, int P,
+                      int F, int V, int depth, int skip, int n_extra) {
+  tc32_block<WIDTH, true>(pts, feats, views, prm, out, keep, n, P, F, V,
+                          depth, skip, n_extra);
 }
 
 // The operand pack from the float32 one: matrix blockIdx.y of the stream,
@@ -139,28 +222,66 @@ __global__ void pack_tc32_kernel(const float* __restrict__ w,
     dst[e] = packed_weight(src, t, e);
 }
 
-template <int WIDTH>
+template <int WIDTH, bool kKeep>
 int launch_tc32(const float* pts, const float* feats, const float* views,
-                const TcParamsOf<float>& prm, float* out, long long n, int P,
-                int F, int V, int depth, int skip, int n_extra,
-                cudaStream_t stream) {
+                const TcParamsOf<float>& prm, float* out, const Keep32& keep,
+                long long n, int P, int F, int V, int depth, int skip,
+                int n_extra, cudaStream_t stream) {
   const size_t smem =
       smem_bytes(WIDTH, pad_to(P, kQ), pad_to(F, kQ), pad_to(V, kQ));
   if (smem > static_cast<size_t>(kSmemLimit)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_nerf_tc32_kernel<WIDTH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned int blocks = static_cast<unsigned int>((n + kM - 1) / kM);
-  fused_nerf_tc32_kernel<WIDTH><<<blocks, kThreads, smem, stream>>>(
-      pts, feats, views, prm, out, n, P, F, V, depth, skip, n_extra);
+  cudaError_t err;
+  if constexpr (kKeep) {
+    err = cudaFuncSetAttribute(recompute_tc32_kernel<WIDTH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      recompute_tc32_kernel<WIDTH><<<blocks, kThreads, smem, stream>>>(
+          pts, feats, views, prm, out, keep, n, P, F, V, depth, skip,
+          n_extra);
+  } else {
+    err = cudaFuncSetAttribute(fused_nerf_tc32_kernel<WIDTH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      fused_nerf_tc32_kernel<WIDTH><<<blocks, kThreads, smem, stream>>>(
+          pts, feats, views, prm, out, n, P, F, V, depth, skip, n_extra);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// one launch of the kernel at the field's width, after the shape checks
+template <bool kKeep>
+int run_tc32(const float* pts, const float* feats, const float* views,
+             const float* wpack, const int* offsets, const float* wt,
+             float* out, const Keep32& keep, int n, int P, int F, int V,
+             int width, int depth, int skip, int n_extra, void* stream) {
+  TcParamsOf<float> prm;
+  Geo g;
+  if (n_extra < 1 || n_extra > 2 ||
+      !tc_params(prm, g, wpack, offsets, wt, P, F, V, width, depth, skip))
+    return cudaErrorInvalidValue;
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 64:
+      return launch_tc32<64, kKeep>(pts, feats, views, prm, out, keep, n, P,
+                                    F, V, depth, skip, n_extra, st);
+    case 128:
+      return launch_tc32<128, kKeep>(pts, feats, views, prm, out, keep, n, P,
+                                     F, V, depth, skip, n_extra, st);
+    default:
+      return launch_tc32<256, kKeep>(pts, feats, views, prm, out, keep, n, P,
+                                     F, V, depth, skip, n_extra, st);
+  }
 }
 
 }  // namespace
 
 // The operand pack of K6's float32 mode, made on the card from the float32
-// pack (wpack / offsets: fused_mlp.cu's layout) into wt, which holds
+// pack (wpack / offsets: fused_mlp.cuh's slots) into wt, which holds
 // zt_fused_nerf_pack_tc32_len floats: every matrix of the stream as
 // nn.Linear stores it, [out][K], K's parts zero padded to multiples of 8,
 // back to back (the plain version: kernels/fused_mlp.py:pack_tc32_plain).
@@ -197,24 +318,25 @@ ZT_API int zt_fused_nerf_forward_tc32(const float* pts, const float* feats,
                                       float* out, int n, int P, int F, int V,
                                       int width, int depth, int skip,
                                       int n_extra, void* stream) {
-  TcParamsOf<float> prm;
-  Geo g;
-  if (n_extra < 1 || n_extra > 2 ||
-      !tc_params(prm, g, wpack, offsets, wt, P, F, V, width, depth, skip))
-    return cudaErrorInvalidValue;
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (width) {
-    case 64:
-      return launch_tc32<64>(pts, feats, views, prm, out, n, P, F, V, depth,
-                             skip, n_extra, st);
-    case 128:
-      return launch_tc32<128>(pts, feats, views, prm, out, n, P, F, V, depth,
-                              skip, n_extra, st);
-    default:
-      return launch_tc32<256>(pts, feats, views, prm, out, n, P, F, V, depth,
-                              skip, n_extra, st);
-  }
+  return run_tc32<false>(pts, feats, views, wpack, offsets, wt, out,
+                         Keep32{}, n, P, F, V, width, depth, skip, n_extra,
+                         stream);
+}
+
+// K7 float32's recompute (pass 1, launch A) on one chunk of n points
+// (pointers at the chunk): K6's float32 forward, the same tile on the same
+// operand pack, leaving in the chunk's scratch buffers (each [n][cols],
+// zt_fused_nerf_backward_layout) cond, z [depth], the feature layer's output,
+// hv, and g' [n][out_ch], the heads' pre-activation gradients from g
+// [n][out_ch]; out, if not null, receives the output rows, K6's bit for bit.
+ZT_API int zt_fused_nerf_recompute_tc32(
+    const float* pts, const float* feats, const float* views, const float* g,
+    const float* wpack, const int* offsets, const float* wt, float* cond,
+    float* z, float* feat, float* hv, float* gh, float* out, int n, int P,
+    int F, int V, int width, int depth, int skip, int n_extra, void* stream) {
+  return run_tc32<true>(pts, feats, views, wpack, offsets, wt, out,
+                        Keep32{cond, z, feat, hv, gh, g}, n, P, F, V, width,
+                        depth, skip, n_extra, stream);
 }
 
 // bytes of dynamic shared memory a block of the kernel takes at these shapes

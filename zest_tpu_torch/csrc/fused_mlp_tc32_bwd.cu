@@ -6,8 +6,9 @@
 // adds every dW at :260) in its approx=False mode, exact float32
 // (Precision.HIGHEST on the TPU). The TPU kernel carries the sums from one
 // sequential grid step to the next; Hopper's blocks run in parallel, so pass
-// 1 (fused_mlp.cu, SIMT) leaves each chunk's product inputs and output
-// gradients in a scratch buffer, and this pass takes, for one chunk:
+// 1 (fused_mlp_tc32.cu's recompute and fused_mlp_tc32_dx.cu's input
+// gradients) leaves each chunk's product inputs and output gradients in a
+// scratch buffer, and this pass takes, for one chunk:
 //
 //   dWb = feats^T d_cond, dW_0 = pts^T dz_0 (and pts^T dz at layer skip+1),
 //   dW_i = relu(z_{i-1} * cond)^T dz_i, dWf = h_last^T d_feature,
@@ -24,8 +25,9 @@
 // big x small, then big x big go into one float32 accumulator with mma.sync
 // m16n8k8 TF32. That keeps ~22 bits of each operand, float32-class; one TF32
 // product keeps ~11. The trunk's inputs relu(z_{i-1} * cond) are rebuilt in
-// shared memory once the copy has landed, with pass 1's own multiply and
-// max, so they equal the activations pass 1 differentiated at bit for bit.
+// shared memory once the copy has landed, with the forward's own multiply
+// and max, so they equal the activations pass 1 differentiated at bit for
+// bit.
 //
 // Layout: a block takes a 128 x 128 tile of one matrix's dW over a split of
 // the chunk's points (split-K): 8 warps of 64 x 32 outputs (4 m16 x 4 n8
@@ -287,7 +289,7 @@ wgrad_tc32_kernel(const __grid_constant__ Jobs jobs, float* d_pack,
 }
 
 // The jobs of one chunk of n points. The scratch buffers are pass 1's
-// (fused_mlp.cu, carve): cond, z [depth][n][W], the feature layer's output
+// (zt_fused_nerf_backward_layout, fused_mlp_tc32_dx.cu): cond, z [depth][n][W], the feature layer's output
 // feat, dz [depth][n][W], d_cond, d_feature [n][W], d_hv [n][W / 2].
 struct Operands {
   const float *pts, *feats, *views, *cond, *z, *feat, *dz, *dcond, *dfeat,
@@ -339,7 +341,8 @@ int make_jobs(Jobs& jobs, const Operands& o, const int* off, long long n,
 }  // namespace
 
 // K7 float32's pass 2 on one chunk of n points, after pass 1
-// (zt_fused_nerf_backward) has left its scratch: pts [n][P], feats [n][F],
+// (zt_fused_nerf_recompute_tc32, zt_fused_nerf_input_grads_tc32) has left
+// its scratch: pts [n][P], feats [n][F],
 // views [n][V] are the chunk's inputs, cond .. gh its scratch buffers
 // (zt_fused_nerf_backward_layout; hv [n][W / 2], gh [n][out_ch] the heads'
 // pre-activation gradients). Every weight and bias gradient is added into

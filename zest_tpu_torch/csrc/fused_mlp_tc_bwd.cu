@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel zest_tpu/kernels/fused_mlp.py:_bwd_pallas
 // (pallas_call at :398; its per-tile math is _bwd_kernel, :233-355) in its
-// approx=True mode, the port's precision 16. The float32 mode is fused_mlp.cu
-// (pass 1, SIMT) and fused_mlp_tc32_bwd.cu (pass 2, 3xTF32).
+// approx=True mode, the port's precision 16. The float32 mode is
+// fused_mlp_tc32.cu and fused_mlp_tc32_dx.cu (pass 1) and
+// fused_mlp_tc32_bwd.cu (pass 2), all 3xTF32.
 //
 // What it computes is the gradient of the bf16 twin's field (models/nerf.py,
 // _BF16Linear): every product of the conditioning, the trunk, the feature
@@ -57,10 +58,6 @@
 
 namespace {
 
-constexpr int kGS = 12;                // float row stride of the heads' g'
-constexpr int kNarrowNT = 3;           // n8 tiles per warp, narrow products
-constexpr int kNarrow = 32 * kNarrowNT;  // widest pts / feats / views
-
 // A chunk's scratch, R rows (its points rounded up to the 64-point tile),
 // each buffer [R][cols] row-major; z, h and dz hold depth of them.
 struct BwdScratch {
@@ -110,39 +107,6 @@ long long carve(BwdScratch& s, void* base, long long R, const Geo& g,
   return at;
 }
 
-// One matrix of the backward pack: rows r0 .. r0 + rows - 1 of the float32
-// pack's [in][out] weight in `slot`, K = out. In [in][out] those rows are
-// one contiguous run, and they are the B operand [N = in][K = out] of
-// d_x = d_z @ W as the ring takes it.
-struct BMat {
-  int slot, r0, rows, K;
-};
-
-// The backward's matrices in the order pass 1 runs them: the views layer's
-// views part (d_views) and feature part (d_feature), the feature layer, the
-// trunk from the last layer down (the skip layer's pts part, then its h
-// part; layer 0's pts), the conditioning (d_feats). Returns their count.
-int bwd_mats(const Geo& g, BMat (&m)[kStreamMax]) {
-  int n = 0;
-  const int W = g.W;
-  m[n++] = BMat{kWv, W, g.V, W / 2};
-  m[n++] = BMat{kWv, 0, W, W / 2};
-  m[n++] = BMat{kWf, 0, W, W};
-  for (int i = g.depth - 1; i >= 0; --i) {
-    const int slot = kLayer0 + 2 * i;
-    if (i == 0) {
-      m[n++] = BMat{slot, 0, g.P, W};
-    } else if (i == g.skip + 1) {
-      m[n++] = BMat{slot, 0, g.P, W};
-      m[n++] = BMat{slot, g.P, W, W};
-    } else {
-      m[n++] = BMat{slot, 0, W, W};
-    }
-  }
-  m[n++] = BMat{kWb, 0, g.F, W};
-  return n;
-}
-
 // each backward matrix's first element in the backward pack; returns the
 // pack's length (every matrix is rows * K with K a multiple of 32, so each
 // starts on a 64-byte boundary)
@@ -181,6 +145,7 @@ struct SaveScratch {
   const BwdScratch& s;
   long long row0;
   int W, depth;
+  __device__ void cond(int, int, float, float) const {}  // kept in registers
   __device__ void trunk(int i, int r, int col, float z0, float z1, float a0,
                         float a1, __nv_bfloat162 hb) const {
     const long long e = (row0 + r) * W + col, layer = i * s.R * W;
@@ -259,74 +224,6 @@ __device__ __forceinline__ void store_bf16(const float (&x)[2][NT][4],
         *reinterpret_cast<__nv_bfloat162*>(hs + r * HS + col) = b;
         *reinterpret_cast<__nv_bfloat162*>(save + (row0 + r) * ld + col) = b;
       }
-}
-
-// the block's rows of a [R][W] float32 scratch buffer (one contiguous run)
-// into L2, ahead of the epilogue that reads them
-template <int W>
-__device__ __forceinline__ void prefetch_rows(const float* buf, long long row0,
-                                              int tid) {
-  const char* p = reinterpret_cast<const char*>(buf + row0 * W);
-  for (int line = tid; line < kM * W * 4 / 128; line += kThreads)
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p + 128 * line));
-}
-
-// a narrow product's real columns (< cols) and rows (< n) into dst [n][cols],
-// added to what is there when accumulate
-template <int NT>
-__device__ __forceinline__ void store_narrow(const float (&x)[2][NT][4],
-                                             float* dst, int cols,
-                                             long long row0, long long n,
-                                             int m0w, int n0, int lane,
-                                             bool accumulate) {
-  const int gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const long long gr = row0 + m0w + 16 * mt + gq + 8 * (e >> 1);
-        const int col = n0 + 8 * j + 2 * tq + (e & 1);
-        if (col < cols && gr < n) {
-          float* p = dst + gr * cols + col;
-          *p = accumulate ? *p + x[mt][j][e] : x[mt][j][e];
-        }
-      }
-}
-
-// d_h += the alpha and extra heads' float32 input gradients: g'[r][3 + o] *
-// head weight o at column k, o < NH
-template <int NT, int NH>
-__device__ __forceinline__ void add_head_grads(float (&acc)[2][NT][4],
-                                               const TcParams& prm,
-                                               int n_extra, const float* gs,
-                                               int m0w, int n0w, int lane) {
-  const int gq = lane >> 2, tq = lane & 3;
-  float gr[2][2][NH];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int o = 0; o < NH; ++o)
-        gr[mt][hf][o] = gs[(m0w + 16 * mt + gq + 8 * hf) * kGS + 3 + o];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int k = n0w + 8 * j + 2 * tq + c;
-#pragma unroll
-      for (int o = 0; o < NH; ++o) {
-        const float wv = head_weight(prm, n_extra, o, k);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf)
-            acc[mt][j][2 * hf + c] =
-                fmaf(gr[mt][hf][o], wv, acc[mt][j][2 * hf + c]);
-      }
-    }
 }
 
 // pass 1's shared memory: the forward's head partials and inputs, then the

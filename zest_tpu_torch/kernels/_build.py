@@ -60,15 +60,20 @@ SIGNATURES = {
                                        _P],
     # rows, P, F, V, width, depth, skip, n_extra, at (host long long[9])
     "zt_fused_nerf_backward_layout": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # wpack, offsets (host int*), scratch, scratch_len,
-    # P, F, V, width, depth, skip, n_extra, stream
-    "zt_fused_nerf_backward_tpack": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
-                                     _I, _P],
-    # pts, feats, views, g, wpack, offsets (host int*), scratch, scratch_len,
-    # d_pts, d_feats, d_views, n, P, F, V, width, depth, skip, n_extra,
+    # pts, feats, views, g, wpack, offsets (host int*), wt, cond, z, feat,
+    # hv, g_heads, out (or null), n, P, F, V, width, depth, skip, n_extra,
     # stream
-    "zt_fused_nerf_backward": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "zt_fused_nerf_recompute_tc32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                     _I, _P],
+    # wpack, offsets (host int*), cond, z, hv, g_heads, dz, d_cond,
+    # d_feature, d_hv, d_pts, d_feats, d_views, n, P, F, V, width, depth,
+    # skip, n_extra, stream
+    "zt_fused_nerf_input_grads_tc32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _P],
+    # width -> bytes of dynamic shared memory per block of input_grads
+    "zt_fused_nerf_input_grads_tc32_smem": [_I],
     # pts, feats, views, cond, z, feat, hv, dz, d_cond, d_feature, d_hv,
     # g_heads, offsets (host int*), d_pack,
     # n, P, F, V, width, depth, skip, n_extra, stream
@@ -130,7 +135,9 @@ def build() -> Path:
         h.update(s.read_bytes())
     out = BUILD_DIR / f"libzest_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
-        build_info.update(path=str(out), seconds=0.0)
+        log = out.with_suffix(".log")
+        build_info.update(path=str(out), seconds=0.0,
+                          ptxas=log.read_text() if log.exists() else "")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()

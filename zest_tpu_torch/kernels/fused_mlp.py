@@ -6,14 +6,17 @@ Replaces ``zest_tpu/kernels/fused_mlp.py:_fwd_pallas`` (K6, the forward
 custom VJP). K6 runs on the tensor cores in both modes, on one tile
 (``csrc/fused_mlp_tc.cuh``): at float32 as 3xTF32 (``csrc/fused_mlp_tc32.cu``),
 in the bf16-operand mode with bf16 operands (``csrc/fused_mlp_tc.cu``). K7
-at float32 is two passes per chunk of points: pass 1 on the CUDA cores
-(``csrc/fused_mlp.cu``, SIMT) recomputes the forward and takes the input
-gradients, leaving every weight gradient's operands in a scratch buffer;
-pass 2 (``weight_grads``, ``csrc/fused_mlp_tc32_bwd.cu``) takes the weight
-gradients from it on the tensor cores as 3xTF32. K7's bf16-operand mode
-runs on the tensor cores (``csrc/fused_mlp_tc_bwd.cu``) and recomputes the
-forward with K6's own device code. Every product of the field runs inside
-them. ``fused_nerf_forward`` is an
+at float32 is three launches per chunk of points, all on the tensor cores
+as 3xTF32, each behind a wrapper with its own launch counter and plain
+twin: ``recompute`` (launch A) is K6's own float32 tile with a hook that
+leaves the forward's values in a scratch buffer (``csrc/fused_mlp_tc32.cu``),
+so the gradient is taken at K6's forward bit for bit; ``input_grads``
+(launch B, ``csrc/fused_mlp_tc32_dx.cu``) takes the input gradients from
+them and leaves every layer's output gradient beside them; ``weight_grads``
+(pass 2, ``csrc/fused_mlp_tc32_bwd.cu``) takes the weight gradients from the
+scratch. K7's bf16-operand mode runs on the tensor cores
+(``csrc/fused_mlp_tc_bwd.cu``) and recomputes the forward with K6's own
+device code. Every product of the field runs inside them. ``fused_nerf_forward`` is an
 autograd Function over (pts, feats, views, pack): ``pack_weights`` is a
 differentiable ``torch.cat``
 of every Linear's ``weight.T`` and bias, so the packed weight gradient of K7
@@ -24,9 +27,10 @@ At float32 K6 splits every operand of the conditioning, trunk, feature and
 views products into two TF32 values (``zest_tpu``'s ``approx=False``, exact
 float32 on the TPU: three TF32 products keep ~22 bits of each operand), from
 a float32 operand pack made from the float32 pack on the card by one launch
-on every call (``pack_tc32``). The float32 K7's pass 1 recomputes the
-forward with FMA sums, in another order than K6's; its pass 2 splits the
-operands of the same products' weight gradients as K6 splits its own.
+on every call (``pack_tc32``). The float32 K7 splits the operands of the
+same products' input and weight gradients as K6 splits its own; its input
+gradients read the float32 pack itself, whose [in][out] layout is their B
+operand.
 
 A field built with ``bf16=True`` runs the kernels' bf16-operand mode
 (``zest_tpu``'s ``approx=True``): the kernels round the conditioning, trunk,
@@ -50,14 +54,11 @@ from ..models.nerf import round_bf16
 WIDTHS = (64, 128, 256)          # kernel instantiations
 MAX_LAYERS = 16                  # kMaxLayers in csrc/fused_mlp.cuh
 MAX_NARROW = 96                  # widest pts / feats / views (kNarrow)
-SMEM_LIMIT = 232448              # bytes of shared memory a block may opt into
 # offsets-table slots, as the Slot enum in csrc/fused_mlp.cuh numbers them
 _WB, _LAYER0 = 0, 2
 _WA = _LAYER0 + 2 * MAX_LAYERS
 _WF, _WV, _WR, _WX1, _WX2 = _WA + 2, _WA + 4, _WA + 6, _WA + 8, _WA + 10
 _N_SLOTS = _WA + 12
-_TILE = 32
-_SMEM_EXTRA = 16 + 8             # kGS + kES floats per point in the backward
 CHUNK_ROWS = 65536               # points per float32 backward chunk
 # points per bf16-mode backward chunk: ~21 KB of scratch per point at width
 # 256, and a 16-bit training step's largest call (284,672 points) in one
@@ -266,16 +267,12 @@ def pack_bf16_bwd(field, pack, offsets):
     return wbt
 
 
-def _check(name, field, pts, feats, views, extra_smem=0):
+def _check(name, field, pts, feats, views):
     P, F, V = field.in_ch_pts, field.in_ch_feat, field.in_ch_views
     if field.width not in WIDTHS:
         raise ValueError(f"{name}: width {field.width} not in {WIDTHS}")
     if len(field.pts_linears) > MAX_LAYERS or len(field.skips) > 1:
         raise ValueError(f"{name}: at most {MAX_LAYERS} layers and one skip")
-    smem = 4 * _TILE * (2 * field.width + P + F + V + extra_smem)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: {smem} bytes of shared memory per block "
-                         f"exceed {SMEM_LIMIT}")
     lead = pts.shape[:-1]
     if (pts.shape[-1], feats.shape[-1], views.shape[-1]) != (P, F, V) or \
             feats.shape[:-1] != lead or views.shape[:-1] != lead:
@@ -285,10 +282,10 @@ def _check(name, field, pts, feats, views, extra_smem=0):
 
 
 def _launch_forward(field, pts, feats, views, pack, offsets):
-    """K6 on [n, ch] contiguous inputs → ([n, out_ch], the bf16 pack or
-    None): the tensor-core kernel of the field's mode, 3xTF32 on a float32
-    operand pack (``pack_tc32``) or bf16 on the bf16 pack (``pack_bf16``),
-    each made from ``pack`` by one launch."""
+    """K6 on [n, ch] contiguous inputs → ([n, out_ch], its operand pack):
+    the tensor-core kernel of the field's mode, 3xTF32 on a float32 operand
+    pack (``pack_tc32``) or bf16 on the bf16 pack (``pack_bf16``), each made
+    from ``pack`` by one launch."""
     n = pts.shape[0]
     out = torch.empty((n, field.out_ch), device=pts.device, dtype=torch.float32)
     lib = _build.library()
@@ -296,14 +293,13 @@ def _launch_forward(field, pts, feats, views, pack, offsets):
               pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets))
     shape = (n, *_geometry(field), 1 if field.static else 2,
              _build.stream_ptr(pts))
-    wb = None
     if field.bf16:
         wb = pack_bf16(field, pack, offsets)
         err = lib.zt_fused_nerf_forward_tc(*inputs, wb.data_ptr(),
                                            out.data_ptr(), *shape)
     else:
-        wt = pack_tc32(field, pack, offsets)
-        err = lib.zt_fused_nerf_forward_tc32(*inputs, wt.data_ptr(),
+        wb = pack_tc32(field, pack, offsets)
+        err = lib.zt_fused_nerf_forward_tc32(*inputs, wb.data_ptr(),
                                              out.data_ptr(), *shape)
     _build.check(err, "fused_nerf_forward")
     fused_nerf_forward.launches += 1
@@ -352,12 +348,12 @@ fused_nerf_forward.launches = 0
 
 
 def forward_values_plain(field, pts, feats, views):
-    """The forward values that K7's bf16 mode keeps (``fused_nerf_backward``'s
-    ``saved``), from the bf16 twin's own arithmetic: cond, every trunk
-    layer's z_i (before the product with cond), the feature layer's output
-    rounded to bf16, hv, and the output rows."""
+    """The forward values that K7 keeps, from the twin's own arithmetic in
+    the field's mode: cond, every trunk layer's z_i (before the product with
+    cond), the feature layer's output (rounded to bf16 in the bf16 mode, as
+    its ``saved`` holds it), hv, and the output rows."""
     with torch.no_grad():
-        mm = field._bf16_product
+        mm = field._bf16_product if field.bf16 else (lambda lin, x: lin(x))
         cond = mm(field.pts_bias, feats)
         h, z = pts, []
         for i, lin in enumerate(field.pts_linears):
@@ -368,72 +364,54 @@ def forward_values_plain(field, pts, feats, views):
         feature = mm(field.feature_linear, h)
         hv = torch.relu(mm(field.views_linears[0], torch.cat([feature, views],
                                                              -1)))
-        return dict(cond=cond, z=z, feature=feature.to(torch.bfloat16), hv=hv,
+        if field.bf16:
+            feature = feature.to(torch.bfloat16)
+        return dict(cond=cond, z=z, feature=feature, hv=hv,
                     out=field(pts, feats, views))
+
+
+
+def branch_rows(a, b):
+    """The points at which two sets of forward values (as
+    ``forward_values_plain`` gives them) take another ReLU branch anywhere:
+    a trunk unit's z * cond > 0, or hv > 0. Where they do, a gradient taken
+    at one differs from one taken at the other by far more than rounding.
+    Returns a bool tensor [n]."""
+    rows = ((a["hv"] > 0) != (b["hv"] > 0)).any(-1)
+    for za, zb in zip(a["z"], b["z"]):
+        rows |= ((za * a["cond"] > 0) != (zb * b["cond"] > 0)).any(-1)
+    return rows
+
+
+def kept_rows(values, rows):
+    """Forward values (as ``forward_values_plain`` gives them) at the points
+    selected by ``rows``."""
+    return {k: [t[rows] for t in v] if k == "z" else v[rows]
+            for k, v in values.items()}
 
 
 @torch.no_grad()
 def fused_nerf_backward_at_plain(field, saved, pts, feats, views, g):
-    """The bf16 twin's backward evaluated at given forward values (``saved``,
-    as ``forward_values_plain`` or K7's bf16 mode gives them), so that every
-    ReLU mask, every bf16-rounded activation and every head activation is
-    the one those values imply: the plain version of K7's bf16 mode at K6's
-    own forward. Each product as ``_BF16Linear``'s backward computes it
-    (output gradient and input rounded to bf16, float32 sums, the bias
-    gradient the float32 sum); the heads in float32. Returns (d_pts,
-    d_feats, d_views, d_pack) with d_pack in ``pack_weights``' layout."""
-    cond, zs, hv, out = saved["cond"], saved["z"], saved["hv"], saved["out"]
-    feature = saved["feature"].to(cond.dtype)
-    grads = {}
-
-    def back(lin, d, *xs):
-        """d_x of lin's bf16 product for its output gradient d; records
-        lin's weight and bias gradients"""
-        gr = round_bf16(d)
-        grads[id(lin)] = (gr.T @ round_bf16(torch.cat(xs, -1)), d.sum(0))
-        return gr @ round_bf16(lin.weight)
-
-    def head(lin, d, x):
-        grads[id(lin)] = (d.T @ x, d.sum(0))
-        return d @ lin.weight
-
-    h, ins = pts, []
-    for i, z in enumerate(zs):
-        ins.append((pts,) if i == 0 else (pts, h) if i - 1 in field.skips
-                   else (h,))
-        h = torch.relu(z * cond)
-    g_rgb, g_alpha = g[:, :3], g[:, 3:4]
-    d_h = head(field.alpha_linear, g_alpha, h)
-    heads = ([(field.w_linear, False)] if field.static
-             else [(field.sf_linear, True), (field.prob_linear, False)])
-    col = 4
-    for lin, is_tanh in heads:
-        e = out[:, col:col + lin.out_features]
-        ge = g[:, col:col + lin.out_features]
-        ge = ge * (1 - e * e if is_tanh else e * (1 - e))
-        d_h = d_h + head(lin, ge, h)
-        col += lin.out_features
-    d_hv = head(field.rgb_linear, g_rgb, hv) * (hv > 0)
-    W = field.width
-    d_x = back(field.views_linears[0], d_hv, feature, views)
-    d_feature, d_views = d_x[:, :W], d_x[:, W:]
-    d_h = d_h + back(field.feature_linear, d_feature, h)
-    d_cond = torch.zeros_like(cond)
-    d_pts = torch.zeros_like(pts)
-    for i in reversed(range(len(zs))):
-        d_a = d_h * (zs[i] * cond > 0)
-        d_cond = d_cond + d_a * zs[i]
-        d_x = back(field.pts_linears[i], d_a * cond, *ins[i])
-        if i == 0:
-            d_pts = d_pts + d_x
-        elif i - 1 in field.skips:
-            d_pts, d_h = d_pts + d_x[:, :field.in_ch_pts], d_x[:, field.in_ch_pts:]
-        else:
-            d_h = d_x
-    d_feats = back(field.pts_bias, d_cond, feats)
-    return d_pts, d_feats, d_views, _pack(
-        [(slot, (grads[id(lin)][0].T, grads[id(lin)][1]))
-         for slot, lin in _slots(field)])[0]
+    """The twin's backward in the field's mode evaluated at given forward
+    values (``saved``, as ``forward_values_plain`` or K7 gives them), so
+    that every ReLU mask, every bf16-rounded activation and every head
+    activation is the one those values imply: the plain version of K7 at
+    K6's own forward. In the bf16 mode each product as ``_BF16Linear``'s
+    backward computes it (output gradient and input rounded to bf16, float32
+    sums, the bias gradient the float32 sum), in the float32 mode in the
+    field's dtype; the heads unrounded: ``input_grads_plain``, then
+    ``weight_grads_plain``. Returns (d_pts, d_feats, d_views, d_pack) with
+    d_pack in ``pack_weights``' layout."""
+    rnd = round_bf16 if field.bf16 else (lambda t: t)
+    cond = saved["cond"]
+    bufs = dict(cond=cond, z=torch.stack(list(saved["z"])), hv=saved["hv"],
+                feature=saved["feature"].to(cond.dtype),
+                g_heads=head_grads_plain(field, saved["out"], g))
+    bufs.update(input_grads_plain(field, bufs,
+                                  lambda d, w: rnd(d) @ rnd(w).T))
+    return (bufs["d_pts"], bufs["d_feats"], bufs["d_views"],
+            weight_grads_plain(field, pts, feats, views, bufs,
+                               lambda x, d: rnd(x).T @ rnd(d)))
 
 
 def fused_nerf_backward_plain(field, pts, feats, views, g):
@@ -449,9 +427,14 @@ def fused_nerf_backward_plain(field, pts, feats, views, g):
 
 
 # the buffers K7 float32's pass 1 leaves per chunk, in the order of its
-# scratch (Scratch in csrc/fused_mlp.cu) and of the pass-2 entry's pointers
+# scratch (zt_fused_nerf_backward_layout, csrc/fused_mlp_tc32_dx.cu) and of
+# the pass-2 entry's pointers: recompute writes the forward's (_KEPT),
+# input_grads the output gradients (_DZ)
 _BUFS = ("cond", "z", "feature", "hv", "dz", "d_cond", "d_feature", "d_hv",
          "g_heads")
+_KEPT = ("cond", "z", "feature", "hv", "g_heads")
+_DZ = ("dz", "d_cond", "d_feature", "d_hv")
+_INPUTS = ("d_pts", "d_feats", "d_views")
 
 
 def _scratch_views(lib, field, scratch, rows):
@@ -472,6 +455,151 @@ def _scratch_views(lib, field, scratch, rows):
         stride = [math.prod(size[i + 1:]) for i in range(len(size))]
         views[name] = scratch.as_strided(size, stride, offset)
     return views
+
+
+def head_grads_plain(field, out, g):
+    """The heads' pre-activation gradients g' [n, out_ch] from the output
+    rows ``out`` and the output gradient g: rgb and alpha as given, the
+    blend and the probability through their sigmoid, the flow through its
+    tanh."""
+    e = out[:, 4:]
+    if field.static:
+        scale = e * (1 - e)
+    else:
+        scale = torch.cat([1 - e[:, :6] * e[:, :6],
+                           e[:, 6:] * (1 - e[:, 6:])], -1)
+    return torch.cat([g[:, :4], g[:, 4:] * scale], -1)
+
+
+@torch.no_grad()
+def recompute_plain(field, pts, feats, views, g):
+    """Twin of ``recompute``: the float32 twin's forward values that K7
+    float32 keeps for a chunk's inputs [n, ch], by ``_KEPT``'s names (cond,
+    z [depth, n, W], the feature layer's output, hv, and g_heads from the
+    output gradient g, ``head_grads_plain``), and the output rows as
+    ``out``."""
+    values = forward_values_plain(field, pts, feats, views)
+    return dict(cond=values["cond"], z=torch.stack(values["z"]),
+                feature=values["feature"], hv=values["hv"],
+                g_heads=head_grads_plain(field, values["out"], g),
+                out=values["out"])
+
+
+def recompute(field, pts, feats, views, g, pack, offsets, wt, bufs,
+              out=None):
+    """K7 float32's pass 1, launch A, on one chunk: K6's float32 forward of
+    the chunk's inputs [n, ch] on K6's operand pack ``wt`` (``pack_tc32`` of
+    ``pack``, the float32 pack, and ``offsets``, its table), leaving in
+    ``bufs`` (``_scratch_views``) cond, z, the feature layer's output, hv,
+    and g_heads from the output gradient g [n, out_ch]; ``out`` [n,
+    out_ch], if given, receives the output rows, K6's bit for bit.
+
+    CPU tensors take the twin (``recompute_plain``); CUDA tensors launch
+    ``recompute_tc32_kernel`` (K6's tile with its scratch hook), or raise.
+    """
+    if pts.device.type == "cpu":
+        values = recompute_plain(field, pts, feats, views, g)
+        for name in _KEPT:
+            bufs[name].copy_(values[name])
+        if out is not None:
+            out.copy_(values["out"])
+        return
+    name = "recompute"
+    n = pts.shape[0]
+    tensors = (pts, feats, views, g, *(bufs[k] for k in _KEPT),
+               *([] if out is None else [out]))
+    if any(t.shape[-2] != n for t in tensors):
+        raise ValueError(f"{name}: every buffer needs the chunk's {n} rows")
+    _build.require_cuda_f32(name, *tensors, pack, wt)
+    _build.check(_build.library().zt_fused_nerf_recompute_tc32(
+        *(t.data_ptr() for t in tensors[:4]), pack.data_ptr(),
+        (ctypes.c_int * _N_SLOTS)(*offsets), wt.data_ptr(),
+        *(bufs[k].data_ptr() for k in _KEPT),
+        None if out is None else out.data_ptr(), n, *_geometry(field),
+        1 if field.static else 2, _build.stream_ptr(pts)), name)
+    recompute.launches += 1
+
+
+recompute.launches = 0
+
+
+@torch.no_grad()
+def input_grads_plain(field, bufs, product=None):
+    """Twin of ``input_grads``: the backward of one chunk in reverse order,
+    from the forward values in ``bufs`` (cond, z [depth, n, W], hv,
+    g_heads). Each input-gradient product d_x = d_z @ W is ``product(d,
+    w)`` = d @ w^T, w the Linear's ``weight.T`` ([in][out], the float32
+    pack's layout; a float32 product by default); the masks, the products
+    with cond and the heads are float32. Returns a dict: d_pts, d_feats,
+    d_views and the buffers it leaves for pass 2 (``_DZ``: dz [depth, n, W],
+    d_cond, d_feature, d_hv)."""
+    product = product or (lambda d, w: d @ w.T)
+    cond, zs, g = bufs["cond"], bufs["z"], bufs["g_heads"]
+    P, W = field.in_ch_pts, field.width
+
+    def back(lin, d):
+        return product(d, lin.weight.T)
+
+    heads = [field.alpha_linear]
+    heads += ([field.w_linear] if field.static
+              else [field.sf_linear, field.prob_linear])
+    d_hv = (g[:, :3] @ field.rgb_linear.weight) * (bufs["hv"] > 0)
+    d_x = back(field.views_linears[0], d_hv)
+    d_feature, d_views = d_x[:, :W], d_x[:, W:]
+    d_h = back(field.feature_linear, d_feature) + g[:, 3:] @ torch.cat(
+        [lin.weight for lin in heads])
+    d_cond = torch.zeros_like(cond)
+    d_pts = cond.new_zeros((cond.shape[0], P))
+    dz = [None] * len(zs)
+    for i in reversed(range(len(zs))):
+        d_a = d_h * (zs[i] * cond > 0)
+        d_cond = d_cond + d_a * zs[i]
+        dz[i] = d_a * cond
+        d_x = back(field.pts_linears[i], dz[i])
+        if i == 0:
+            d_pts = d_pts + d_x
+        elif i - 1 in field.skips:
+            d_pts, d_h = d_pts + d_x[:, :P], d_x[:, P:]
+        else:
+            d_h = d_x
+    return dict(d_pts=d_pts, d_feats=back(field.pts_bias, d_cond),
+                d_views=d_views, dz=torch.stack(dz), d_cond=d_cond,
+                d_feature=d_feature, d_hv=d_hv)
+
+
+def input_grads(field, bufs, pack, offsets, d_pts, d_feats, d_views):
+    """K7 float32's pass 1, launch B, on one chunk after ``recompute``:
+    d_pts, d_feats and d_views [n, ch] are written, and dz, d_cond,
+    d_feature and d_hv into ``bufs`` for pass 2. ``pack`` is the float32
+    pack (``offsets`` its table), whose [in][out] weights are the products'
+    B operands.
+
+    CPU tensors take the twin (``input_grads_plain``); CUDA tensors launch
+    ``input_grads_tc32_kernel`` (every product as 3xTF32 on the tensor
+    cores), or raise.
+    """
+    if d_pts.device.type == "cpu":
+        got = input_grads_plain(field, bufs)
+        for name, t in zip(_INPUTS, (d_pts, d_feats, d_views)):
+            t.copy_(got[name])
+        for name in _DZ:
+            bufs[name].copy_(got[name])
+        return
+    name = "input_grads"
+    n = d_pts.shape[0]
+    tensors = (*(bufs[k] for k in ("cond", "z", "hv", "g_heads", *_DZ)),
+               d_pts, d_feats, d_views)
+    if any(t.shape[-2] != n for t in tensors):
+        raise ValueError(f"{name}: every buffer needs the chunk's {n} rows")
+    _build.require_cuda_f32(name, *tensors, pack)
+    _build.check(_build.library().zt_fused_nerf_input_grads_tc32(
+        pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets),
+        *(t.data_ptr() for t in tensors), n, *_geometry(field),
+        1 if field.static else 2, _build.stream_ptr(d_pts)), name)
+    input_grads.launches += 1
+
+
+input_grads.launches = 0
 
 
 def weight_grads_plain(field, pts, feats, views, bufs, product=None):
@@ -563,12 +691,15 @@ def fused_nerf_backward(field, pts, feats, views, g, pack, offsets, wb=None,
     [n, out_ch] → (d_pts, d_feats, d_views, d_pack), d_pack in the layout of
     ``pack`` (``pack_weights``).
 
-    In the bf16-operand mode, wb is K6's bf16 pack of ``pack`` (the forward
-    made it; made here when None), and ``recomputed`` ([n, out_ch] float32,
-    optional) receives the output rows that the backward recomputed, which
-    equal K6's bit for bit. A dict given as ``saved`` (with n at most
-    ``BF16_CHUNK_ROWS``) receives the forward values the backward ran at, as
+    wb is K6's operand pack of ``pack`` in the field's mode (bf16 or
+    float32, the one the forward ran on; made here when None), and ``recomputed`` ([n,
+    out_ch] float32, optional) receives the output rows that the backward
+    recomputed, which equal K6's bit for bit in both modes. A dict given as
+    ``saved`` (in the bf16-operand mode with n at most ``BF16_CHUNK_ROWS``)
+    receives the forward values the backward ran at, as
     ``forward_values_plain`` gives them, for ``fused_nerf_backward_at_plain``.
+    At float32 each chunk of ``CHUNK_ROWS`` points runs ``recompute``,
+    ``input_grads`` and ``weight_grads``.
 
     CPU tensors take the twin (the module's own weights); CUDA tensors
     launch the kernels or raise.
@@ -576,7 +707,7 @@ def fused_nerf_backward(field, pts, feats, views, g, pack, offsets, wb=None,
     if pts.device.type == "cpu":
         return fused_nerf_backward_plain(field, pts, feats, views, g)
     name = "fused_nerf_backward"
-    _check(name, field, pts, feats, views, _SMEM_EXTRA)
+    _check(name, field, pts, feats, views)
     P, F, V = field.in_ch_pts, field.in_ch_feat, field.in_ch_views
     if max(P, F, V) > MAX_NARROW:
         raise ValueError(f"{name}: inputs wider than {MAX_NARROW} channels")
@@ -585,13 +716,11 @@ def fused_nerf_backward(field, pts, feats, views, g, pack, offsets, wb=None,
         raise ValueError(f"{name}: expected [n, ch] inputs and g of "
                          f"[{n}, {field.out_ch}], got {tuple(pts.shape)}, "
                          f"{tuple(g.shape)}")
-    if recomputed is not None and (not field.bf16 or
-                                   recomputed.shape != (n, field.out_ch)):
-        raise ValueError(f"{name}: recomputed rows are the bf16 mode's, "
-                         f"[{n}, {field.out_ch}]")
-    if saved is not None and (not field.bf16 or n > BF16_CHUNK_ROWS):
-        raise ValueError(f"{name}: the forward values are kept in the bf16 "
-                         f"mode and for one chunk ({BF16_CHUNK_ROWS} points)")
+    if recomputed is not None and recomputed.shape != (n, field.out_ch):
+        raise ValueError(f"{name}: recomputed rows are [{n}, {field.out_ch}]")
+    if saved is not None and field.bf16 and n > BF16_CHUNK_ROWS:
+        raise ValueError(f"{name}: the bf16 mode keeps the forward values of "
+                         f"one chunk ({BF16_CHUNK_ROWS} points)")
     if saved is not None and recomputed is None:
         recomputed = torch.empty((n, field.out_ch), device=pts.device)
     _build.require_cuda_f32(name, pts, feats, views, g, pack,
@@ -599,11 +728,12 @@ def fused_nerf_backward(field, pts, feats, views, g, pack, offsets, wb=None,
     lib = _build.library()
     d_pts, d_feats, d_views = (torch.empty_like(t) for t in (pts, feats, views))
     d_pack = torch.zeros_like(pack)
-    inputs = (pts.data_ptr(), feats.data_ptr(), views.data_ptr(), g.data_ptr(),
-              pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets))
     shape = (*_geometry(field), 1 if field.static else 2)
     size = ctypes.c_longlong()
     if field.bf16:
+        inputs = (pts.data_ptr(), feats.data_ptr(), views.data_ptr(),
+                  g.data_ptr(), pack.data_ptr(),
+                  (ctypes.c_int * _N_SLOTS)(*offsets))
         if wb is None:
             wb = pack_bf16(field, pack, offsets)
         wbt = pack_bf16_bwd(field, pack, offsets)
@@ -621,25 +751,31 @@ def fused_nerf_backward(field, pts, feats, views, g, pack, offsets, wb=None,
                          out=recomputed)
         _build.check(err, name)
     else:
+        if wb is None:
+            wb = pack_tc32(field, pack, offsets)
         _build.check(lib.zt_fused_nerf_backward_scratch(
             n, CHUNK_ROWS, *shape, ctypes.byref(size)), name)
         scratch = torch.empty(size.value, device=pts.device,
                               dtype=torch.float32)
-        stream = _build.stream_ptr(pts)
-        _build.check(lib.zt_fused_nerf_backward_tpack(
-            *inputs[4:], scratch.data_ptr(), scratch.numel(), *shape, stream),
-            name)
+        kept = []
         for c0 in range(0, n, CHUNK_ROWS):
             rows = min(CHUNK_ROWS, n - c0)
-            part = [t[c0:c0 + rows] for t in (pts, feats, views, g, d_pts,
-                                             d_feats, d_views)]
-            _build.check(lib.zt_fused_nerf_backward(
-                *(t.data_ptr() for t in part[:4]), *inputs[4:],
-                scratch.data_ptr(), scratch.numel(),
-                *(t.data_ptr() for t in part[4:]), rows, *shape, stream), name)
-            weight_grads(field, *part[:3],
-                         _scratch_views(lib, field, scratch, rows), offsets,
+            pts_c, feats_c, views_c, g_c, *d_c = (
+                t[c0:c0 + rows] for t in (pts, feats, views, g, d_pts,
+                                          d_feats, d_views))
+            bufs = _scratch_views(lib, field, scratch, rows)
+            recompute(field, pts_c, feats_c, views_c, g_c, pack, offsets, wb,
+                      bufs, None if recomputed is None
+                      else recomputed[c0:c0 + rows])
+            input_grads(field, bufs, pack, offsets, *d_c)
+            weight_grads(field, pts_c, feats_c, views_c, bufs, offsets,
                          d_pack)
+            if saved is not None:
+                kept.append({k: bufs[k].clone() for k in _KEPT[:4]})
+        if saved is not None:
+            saved.update({k: torch.cat([c[k] for c in kept], -2)
+                          for k in _KEPT[:4]}, out=recomputed)
+            saved["z"] = list(saved["z"])
     fused_nerf_backward.launches += 1
     return d_pts, d_feats, d_views, d_pack
 

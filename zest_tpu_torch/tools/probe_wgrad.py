@@ -1,4 +1,5 @@
-"""K7 float32's pass 2 (the weight gradients) alone, on one CUDA card.
+"""K7 float32's launches on one chunk, on one CUDA card: pass 2 (the weight
+gradients) against float64, and the time of each launch.
 
     python -m zest_tpu_torch.tools.probe_wgrad [--points N]
 
@@ -9,7 +10,9 @@ for every weight of the conditioning, trunk, feature and views layers, the
 norm-wise distance of pass 2 (``weight_grads``) and of its float32 twin
 (``weight_grads_plain``) from the twin evaluated in float64 on the same
 buffers. That holds the kernel's own sums to float64 apart from pass 1's
-forward. Then pass 2's time per chunk (CUDA events, mean of 5 launches).
+forward. Then the time per chunk of pass 1's recompute (launch A), its
+input gradients (launch B) and pass 2 on the same chunk (CUDA events, mean
+of 5 launches each).
 To compare variants of the kernel, run it from each tree in turns in one
 chip call: each builds its own library. TF32 is off.
 """
@@ -68,15 +71,24 @@ def main(argv=()) -> int:
                 fused_mlp.pack_leaves(wide, exact, offs)):
             if name in big:
                 print(f"  {name}: {dist(a, c):.3e} | {dist(b, c):.3e}")
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(LAUNCHES):
-            real(field_, p, f, v, bufs, offs, out)
-        end.record()
-        end.synchronize()
-        print(f"pass 2: {start.elapsed_time(end) / LAUNCHES:.3f} ms per chunk "
-              f"({torch.cuda.get_device_name(0)})")
+        wt = fused_mlp.pack_tc32(field_, pack, offs)
+        d_in = [torch.empty_like(t) for t in (p, f, v)]
+        for what, launch in (
+                ("pass 1, the recompute", lambda: fused_mlp.recompute(
+                    field_, p, f, v, g, pack, offs, wt, bufs)),
+                ("pass 1, the input gradients", lambda: fused_mlp.input_grads(
+                    field_, bufs, pack, offs, *d_in)),
+                ("pass 2", lambda: real(field_, p, f, v, bufs, offs, out))):
+            launch()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(LAUNCHES):
+                launch()
+            end.record()
+            end.synchronize()
+            print(f"{what}: {start.elapsed_time(end) / LAUNCHES:.3f} ms per "
+                  f"chunk ({torch.cuda.get_device_name(0)})")
 
     probe.launches = 0                 # the wrapper counts on its module name
     fused_mlp.weight_grads = probe

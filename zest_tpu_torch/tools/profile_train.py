@@ -36,12 +36,13 @@ from zest_tpu_torch.tools.profile_eval import busy_union_us, group_of
 REPS = 15
 _LIB = "cuDNN conv / deconv + batch norm"
 # (substring of the kernel symbol, group label), first match wins
-GROUPS = (("transpose_pack", "K7 field backward, weight transpose"),
-          ("round_pack", "K6 / K7 bf16 weight rounding"),
+GROUPS = (("round_pack", "K6 / K7 bf16 weight rounding"),
           ("pack_tc32", "K6 float32 weight pack"),
           ("row_gather", "K9 row gather"),
           ("row_scatter", "K9 row gather backward (scatter-add)"),
           ("fused_nerf_bwd", "K7 field backward, pass 1"),
+          ("recompute_tc32", "K7 field backward, pass 1 (recompute)"),
+          ("input_grads_tc32", "K7 field backward, pass 1 (input gradients)"),
           ("wgrad_tc", "K7 field backward, pass 2 (weights)"),
           ("head_grads", "K7 field backward, pass 2 (weights)"),
           ("fused_nerf", "K6 fused field"),
