@@ -14,7 +14,8 @@ sm_90a), then:
 3. holds each forward kernel against its plain PyTorch twin on the card, on
    the first chunk's inputs of the flagship eval (both fields' inputs as
    ``render_rays`` builds them, [16384, 128, ch]), and times kernel, twin and
-   the one library call that computes the same function, with CUDA events.
+   the one library call that computes the same function, with CUDA events;
+   K3 must equal its twin bit for bit on the chunk.
    The field K6 runs on the tensor cores at float32 as 3xTF32: its SASS must
    hold HMMA at every width, its float32 operand pack must equal its twin
    bit for bit, and on the chunk it must be within max(8 x the float32
@@ -31,7 +32,9 @@ sm_90a), then:
 6. holds each backward kernel (warp K2, volume K4, coordinates K5, field K7)
    against its twin's autograd at the flagship training step's own inputs
    (the step's rays, encoding volumes and field inputs, a random output
-   gradient), and times kernel, twin and library call; holds K6 on the
+   gradient), and times kernel, twin and library call; holds K3 on the
+   step's three lookups and times them there (device time), beside the
+   same points taken as [n, 3]; holds K6 on the
    step's three float32 field passes, each beside a float64 twin. K7's
    float32 mode runs three launches per chunk on the tensor cores as
    3xTF32: the recompute (K6's float32 tile keeping the forward's values
@@ -975,6 +978,13 @@ def forward_kernels(rows, dev, cfg, system, batch):
                lambda: F.grid_sample(vol_ncdhw, grid3, align_corners=True),
                1e-5, 20, 32 * volume_cells(ndc, vol.shape[:3]) + nbytes(ndc)
                + 32 * n, 128 * n)
+    # each point's arithmetic is F.grid_sample's: bit for bit
+    with torch.no_grad():
+        same = torch.equal(sample_volume(vol, ndc), sample_volume_plain(vol, ndc))
+    log(f"[kernel] trilinear_sample on the eval chunk bitwise equal to its "
+        f"twin: {same}")
+    if not same:
+        raise AssertionError("K3 differs from its twin on the eval chunk")
 
     # K8: the 8 source views at the chunk's projected points
     V = imgs_un.shape[0] - 1
@@ -1200,6 +1210,27 @@ def backward_kernels(rows, dev, cfg, system, batch):
                        lambda: lib([False, True]), 1e-5, 5,
                        32 * volume_cells(ndc, vol.shape[:3]) + nbytes(ndc, g)
                        + 12 * n, 8 * 40 * n, relative=True)
+
+    # K3 on the step's three lookups, whose rays are random pixels: their
+    # neighbouring lanes buy no locality there. Device time (the profiler's
+    # kernel durations: CUDA events around such short launches time the
+    # host), beside the same points taken as [n, 3], which gives a warp 32
+    # consecutive samples of a ray as the one-point-per-thread kernel did
+    from zest_tpu_torch.tools.probe_trilinear import device_ms
+    looks = list(lookups())
+    for label, vol, ndc in looks:
+        err, _ = rows.verify(
+            "trilinear_sample", lambda: trilinear.sample_volume(vol, ndc),
+            lambda: trilinear.sample_volume_plain(vol, ndc), 1e-5)
+        log(f"[backward] K3 on the {label} lookup {tuple(ndc.shape)}: "
+            f"max_abs_err {err:.3e} -> ok")
+    with torch.no_grad():
+        ms_rays = device_ms(lambda: [trilinear.sample_volume(vol, ndc)
+                                     for _, vol, ndc in looks])
+        ms_flat = device_ms(lambda: [trilinear.sample_volume(vol, ndc.view(-1, 3))
+                                     for _, vol, ndc in looks])
+    log(f"[backward] K3 on the step's three lookups: {ms_rays:.4f} ms of "
+        f"device time; as [n, 3] (lanes along samples): {ms_flat:.4f} ms")
 
     # K2: d_src of source view 1 over the 128 planes. Bytes: g at the items
     # with a tap inside the source (no other g reaches d_src), the grid, and

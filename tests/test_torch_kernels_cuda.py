@@ -478,6 +478,116 @@ def test_volume_backward_kernels_match_autograd(dev, n_points):
     assert _rel_err(n_.grad, d_ndc) <= 1e-5
 
 
+def _ray_ndc(dev, rays, samples, dims, jitter, seed, neighbours=False):
+    """ndc [rays, samples, 3] of rays crossing the volume's depth about one
+    z plane per sample (jittered by up to `jitter` of a step) while drifting
+    in x and y, some leaving the volume: K4's neighbouring lanes then mostly
+    share cells, and its merge is exercised. The rays start at random
+    pixels, or (neighbours) along a row a third of a voxel apart, as a
+    render's chunk does."""
+    rng = np.random.default_rng(seed)
+    D = dims[0]
+    t = (np.arange(samples) + jitter * rng.random((rays, samples))) / samples
+    z = t * samples / (D - 1) * 0.98 + 0.004
+    xy0 = rng.random((rays, 1, 2)) * 1.2 - 0.1
+    drift = rng.normal(0.0, 0.05, (rays, 1, 2))
+    if neighbours:
+        xy0[:, 0, 0] = np.arange(rays) / (3.0 * (dims[2] - 1)) - 0.05
+        xy0[:, 0, 1] = xy0[0, 0, 1]
+        drift[:] = drift[0]
+    xy = xy0 + drift * t[..., None]
+    return torch.from_numpy(np.concatenate([xy, z[..., None]], -1)
+                            .astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(37, 29), (1,), (12345,), (70, 128),
+                                   (3, 5, 40)])
+def test_trilinear_kernel_bitwise_equal_to_twin(dev, shape):
+    """K3's blocks take 32 rays by 4 samples: ray and sample counts that
+    fill no block evenly, [n, 3] inputs (rays of one sample, taken as rows
+    of 2 points), leading dimensions folded into rays; a fifth of the points
+    outside the volume. Each point's arithmetic is F.grid_sample's, so the
+    output is its bit for bit."""
+    g = _gen(dev, 11)
+    vol = torch.randn((16, 12, 20, 8), generator=g, device=dev)
+    ndc = torch.rand((*shape, 3), generator=g, device=dev) * 1.4 - 0.2
+    before = sample_volume.launches
+    out = sample_volume(vol, ndc)
+    assert sample_volume.launches == before + 1
+    ref = sample_volume_plain(vol, ndc)
+    torch.cuda.synchronize()
+    assert out.shape == (*shape, 8)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("rays,samples", [(100, 64), (37, 29)])
+@pytest.mark.parametrize("neighbours", [True, False])
+def test_trilinear_kernel_bitwise_on_rays(dev, rays, samples, neighbours):
+    """K3 on rays that cross the volume as a render's do, neighbouring ones
+    (a row of pixels) and random ones, at ray and sample counts that fill
+    no block evenly."""
+    dims = (32, 24, 40)
+    g = _gen(dev, 12)
+    vol = torch.randn((*dims, 8), generator=g, device=dev)
+    ndc = _ray_ndc(dev, rays, samples, dims, 0.0, 13, neighbours)
+    out = sample_volume(vol, ndc)
+    assert torch.equal(out, sample_volume_plain(vol, ndc))
+
+
+def _volume_backward_case(dev, vol, ndc, seed):
+    cot = torch.randn((*ndc.shape[:-1], 8), generator=_gen(dev, seed),
+                      device=dev)
+    v_, n_ = (t.clone().requires_grad_(True) for t in (vol, ndc))
+    launches = trilinear.volume_grad.launches
+    (sample_volume(v_, n_) * cot).sum().backward()
+    assert trilinear.volume_grad.launches == launches + 1
+    d_vol, d_ndc = trilinear.sample_volume_grads_plain(vol, ndc, cot)
+    assert _rel_err(v_.grad, d_vol) <= 1e-5
+    assert _rel_err(n_.grad, d_ndc) <= 1e-5
+    return v_.grad
+
+
+def test_volume_backward_kernel_one_cell(dev):
+    """Every point falls in one cell: all lanes of every warp add to the
+    same 8 corners, the most contended atomics and no merge."""
+    g = _gen(dev, 19)
+    vol = torch.randn((9, 7, 11, 8), generator=g, device=dev)
+    frac = torch.rand((3000, 3), generator=g, device=dev) * 0.98 + 0.01
+    cell = torch.tensor([4.0, 3.0, 5.0], device=dev)   # (x, y, z) of the cell
+    ndc = (cell + frac) / torch.tensor([10.0, 6.0, 8.0], device=dev)
+    d_vol = _volume_backward_case(dev, vol, ndc.contiguous(), 20)
+    assert int((d_vol.abs().sum(-1) > 0).sum()) == 8
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2, None])
+def test_volume_backward_kernel_on_cell_faces(dev, axis):
+    """Points on cell faces: fx, fy or fz (or all three) exactly 0, the
+    sizes less one being powers of two so that the unnormalized coordinate
+    is an integer; the corners of weight 0 are still in range."""
+    dims = (5, 9, 17)                                  # D, Hv, Wv
+    g = _gen(dev, 21)
+    vol = torch.randn((*dims, 8), generator=g, device=dev)
+    scale = torch.tensor([16.0, 8.0, 4.0], device=dev)  # Wv-1, Hv-1, D-1
+    p = torch.rand((2000, 3), generator=g, device=dev) * scale
+    if axis is None:
+        p = p.floor()
+    else:
+        p[:, axis] = p[:, axis].floor()
+    _volume_backward_case(dev, vol, (p / scale).contiguous(), 22)
+
+
+@pytest.mark.parametrize("jitter", [0.0, 1.0])
+def test_volume_backward_kernel_on_rays(dev, jitter):
+    """Rays whose next sample is mostly one z plane up, as a render's: K4
+    hands a point's upper corners to the next lane, which adds them with
+    its own lower ones; every tap must still be added once."""
+    dims = (64, 20, 30)
+    g = _gen(dev, 23)
+    vol = torch.randn((*dims, 8), generator=g, device=dev)
+    _volume_backward_case(dev, vol, _ray_ndc(dev, 50, 64, dims, jitter, 24),
+                          25)
+
+
 def test_volume_backward_skips_coords_without_grad(dev):
     g = _gen(dev, 8)
     vol = torch.randn((8, 8, 8, 8), generator=g, device=dev, requires_grad=True)

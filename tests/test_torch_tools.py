@@ -1,11 +1,13 @@
 """The port's profiling scripts and its quality gate: their interval and
 grouping arithmetic, their refusal to run without a CUDA device, and their
 --precision flag."""
+import numpy as np
 import pytest
 import torch
 
-from zest_tpu_torch.tools import (probe_wgrad, profile_eval, profile_train,
-                                  quality_gate)
+from zest_tpu_torch.kernels import trilinear
+from zest_tpu_torch.tools import (probe_trilinear, probe_wgrad, profile_eval,
+                                  profile_train, quality_gate)
 
 
 @pytest.mark.parametrize("intervals,busy", [
@@ -21,6 +23,9 @@ def test_busy_union(intervals, busy):
 @pytest.mark.parametrize("name,group", [
     ("void fused_nerf_kernel<256>(float const*)", "K6 fused field"),
     ("trilinear_sample_kernel", "K3 volume lookup"),
+    ("(anonymous namespace)::trilinear_sample_kernel(float4 const*, float "
+     "const*, float4*, int, int, long long, int, int, int)",
+     "K3 volume lookup"),
     ("color_gather_kernel", "K8 color gather"),
     ("plane_sweep_warp_kernel", "K1 warp"),
     ("sm90_xmma_fprop_implicit_gemm_cudnn", "cuDNN conv / deconv + batch norm"),
@@ -90,3 +95,68 @@ def test_probe_wgrad_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert probe_wgrad.main() == 2
     assert probe_wgrad.main(["--points", "1000"]) == 2
+
+
+def test_probe_trilinear_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe_trilinear.main() == 2
+
+
+def _ray_points(rays, samples, dims, jitter, seed):
+    """ndc [rays, samples, 3] of rays that cross the volume's depth in
+    `samples` even steps (jittered by up to `jitter` of a step) while
+    drifting slowly in x and y, some of them leaving the volume."""
+    rng = np.random.default_rng(seed)
+    D, _, _ = dims
+    t = (np.arange(samples) + jitter * rng.random((rays, samples))) / samples
+    z = t * samples / (D - 1) * 0.98 + 0.004
+    xy0 = rng.random((rays, 1, 2)) * 1.2 - 0.1
+    xy = xy0 + rng.normal(0.0, 0.05, (rays, 1, 2)) * t[..., None]
+    return torch.from_numpy(np.concatenate([xy, z[..., None]], -1)
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("jitter", [0.0, 1.0])
+def test_k4_merge_model_sums_every_tap_once(jitter):
+    """The probe's model of K4 (a point's upper corners handed to the next
+    lane where its point lies one z plane up) gives the autograd twin's
+    d_vol, on rays whose consecutive samples mostly share cells and on
+    random points, and issues fewer atomics than taps where they share."""
+    dims = (17, 9, 13)
+    g = torch.Generator().manual_seed(3)
+    ndc = _ray_points(40, 16, dims, jitter, 4)
+    cot = torch.randn((*ndc.shape[:-1], 8), generator=g)
+    vol = torch.randn((*dims, 8), generator=g)
+    ref = trilinear.sample_volume_grads_plain(vol, ndc, cot)[0]
+    work = probe_trilinear.k4_atomics(ndc, dims, cot)
+    assert float((work["d_vol"] - ref.double()).abs().max()) <= 1e-5 * float(
+        ref.abs().max())
+    assert work["points"] == 40 * 16
+    assert work["atomics"] < 0.8 * work["taps"]
+    assert work["cells_per_warp"] <= work["atomics"] <= work["taps"]
+    rnd = torch.rand((333, 3), generator=g) * 1.4 - 0.2
+    cot = torch.randn((333, 8), generator=g)
+    ref = trilinear.sample_volume_grads_plain(vol, rnd, cot)[0]
+    work = probe_trilinear.k4_atomics(rnd, dims, cot)
+    assert float((work["d_vol"] - ref.double()).abs().max()) <= 1e-5 * float(
+        ref.abs().max())
+
+
+def test_lines_per_load_counts_distinct_lines():
+    """A 128-byte line holds 4 cells of 8 floats. On hand-built points,
+    lanes along a ray's samples one z plane apart touch 32 lines per load;
+    lanes across 32 rays one cell apart in x touch 8 (x0 = 0..31) or 9
+    (x0 + 1 = 1..32)."""
+    dims = (40, 4, 128)
+    R, S = 32, 32
+    x = torch.arange(R, dtype=torch.float32)[:, None].expand(R, S) + 0.5
+    z = torch.arange(S, dtype=torch.float32)[None, :].expand(R, S) + 0.5
+    y = torch.full((R, S), 1.5)
+    ndc = torch.stack([x / (dims[2] - 1), y / (dims[1] - 1),
+                       z / (dims[0] - 1)], -1)
+    assert probe_trilinear.lines_per_load(ndc, dims, (1, 32)) == 32.0
+    assert probe_trilinear.lines_per_load(ndc, dims, (32, 1)) == 8.5
+    # 8 rays (2 or 3 lines) at each of 4 planes
+    assert probe_trilinear.lines_per_load(ndc, dims, (8, 4)) == 10.0
+    # ragged: 30 rays of 30 samples fill no warp of 8 x 4 evenly
+    assert probe_trilinear.lines_per_load(ndc[:30, :30], dims, (8, 4)) > 0

@@ -1,41 +1,98 @@
 // Trilinear encoding-volume lookup at ray points: forward (K3), and its two
 // gradients (K4 d/d volume, K5 d/d coordinates) further down.
 //
-// Replaces the TPU kernel zest_tpu/kernels/trilinear.py:_fwd_pallas
-// (pallas_call at :279, reached from sample_volume_zbanded). The TPU form
-// slices a z band per sample index and runs separable two-hot matmuls with a
-// runtime band check and an XLA fallback; a GPU gathers natively, so here
-// each thread owns one point and reads its 8 corners directly — no band, no
-// fallback.
-//
-// Semantics: vol [D, Hv, Wv, 8] channels-last, ndc [n, 3] as (x, y, z) in
-// [0, 1]; out [n, 8]. Equal to F.grid_sample(vol, ndc*2-1) with zeros padding
-// and align_corners=True: the kernel forms ndc*2-1 and unnormalizes it the
-// way PyTorch does, so both see the same coordinate.
-//
-// What bounds it on an H100: memory latency of the scattered corner reads.
-// Each corner is 8 channels = 32 contiguous bytes, read as two float4 loads;
-// the flagship volume (128x120x176x8 f32, 86 MB) is larger than the 50 MB L2,
-// but neighbouring rays of a chunk hit neighbouring voxels, so most corner
-// reads are L2 hits. The output (32 B per point) is stored as two float4.
+// Semantics: vol [D, Hv, Wv, 8] channels-last, ndc [R, S, 3] (R rays of S
+// samples) as (x, y, z) in [0, 1]; out [R, S, 8]. Equal to
+// F.grid_sample(vol, ndc*2-1) with zeros padding and align_corners=True:
+// every kernel forms ndc*2-1 and unnormalizes it the way PyTorch does
+// (taps_of), so both see the same coordinate. Each corner is 8 channels = 32
+// contiguous bytes, read or added as two float4.
 #include "common.cuh"
 
 namespace {
 
-__global__ void trilinear_sample_kernel(const float4* __restrict__ vol,
-                                        const float* __restrict__ ndc,
-                                        float4* __restrict__ out, int n, int D,
-                                        int Hv, int Wv) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float x = zt::clamp_far(zt::unnormalize(ndc[3 * i] * 2.f - 1.f, Wv), Wv);
-  const float y = zt::clamp_far(zt::unnormalize(ndc[3 * i + 1] * 2.f - 1.f, Hv), Hv);
-  const float z = zt::clamp_far(zt::unnormalize(ndc[3 * i + 2] * 2.f - 1.f, D), D);
-  const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
-  const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f),
-            z0 = static_cast<int>(z0f);
-  const float fx = x - x0f, fy = y - y0f, fz = z - z0f;
+constexpr int kThreads = 256;
 
+// Point (x, y, z)'s unnormalized, clamped coordinate and its floor, formed
+// the same way by the three kernels.
+struct Taps {
+  int x0, y0, z0;
+  float fx, fy, fz;
+};
+
+__device__ __forceinline__ Taps taps_of(float nx, float ny, float nz, int D,
+                                        int Hv, int Wv) {
+  const float x = zt::clamp_far(zt::unnormalize(nx * 2.f - 1.f, Wv), Wv);
+  const float y = zt::clamp_far(zt::unnormalize(ny * 2.f - 1.f, Hv), Hv);
+  const float z = zt::clamp_far(zt::unnormalize(nz * 2.f - 1.f, D), D);
+  const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
+  return {static_cast<int>(x0f), static_cast<int>(y0f), static_cast<int>(z0f),
+          x - x0f, y - y0f, z - z0f};
+}
+
+// The trilinear weight of corner (dz, dy, dx) of a point with fractions
+// (fx, fy, fz), multiplied in the order F.grid_sample multiplies it.
+__device__ __forceinline__ float corner_weight(int dz, int dy, int dx, float fx,
+                                              float fy, float fz) {
+  return (dx ? fx : 1.f - fx) * (dy ? fy : 1.f - fy) * (dz ? fz : 1.f - fz);
+}
+
+__device__ __forceinline__ bool inside(int zi, int yi, int xi, int D, int Hv,
+                                       int Wv) {
+  return zi >= 0 && zi < D && yi >= 0 && yi < Hv && xi >= 0 && xi < Wv;
+}
+
+__device__ __forceinline__ long long cell_of(int zi, int yi, int xi, int Hv,
+                                             int Wv) {
+  return (static_cast<long long>(zi) * Hv + yi) * Wv + xi;
+}
+
+// K3: the lookup.
+//
+// Replaces the TPU kernel zest_tpu/kernels/trilinear.py:_fwd_pallas
+// (pallas_call at :279, reached from sample_volume_zbanded). The TPU form
+// slices a z band per sample index and runs separable two-hot matmuls with a
+// runtime band check and an XLA fallback; a GPU gathers natively: no band,
+// no fallback.
+//
+// Why the layout: with one thread per point in memory order, a warp held 32
+// consecutive samples of one ray, whose corners lie on 32 different z
+// planes (676 KB apart at the flagship), so each of a point's 16 16-byte
+// corner loads touched 30.1 distinct 128-byte lines per warp instruction
+// on the flagship eval chunk (tools/probe_trilinear.py, lines_per_load).
+// Here a warp's lanes are 16 neighbouring rays at 2 consecutive samples,
+// each ray's two samples in neighbouring lanes, and a block is two such
+// warps side by side over two sample pairs: 32 rays x 4 samples. On an eval
+// chunk, whose rays are consecutive pixels of one image row, a load then
+// spans 2 z planes and 3.9 lines, while each thread still reads its point
+// and writes its output in place (24 B and 64 B contiguous per ray and
+// warp). On the training step's random rays the lanes buy no locality (28
+// lines per load, 24 in memory order) and cost none either. Fewer planes
+// per load at the price of staging the points and the output through
+// shared memory (32 rays at one sample) measured slower (PERF.md §6). A
+// point's arithmetic is taps_of, corner_weight and the same multiply-adds
+// in (z, y, x) corner order as F.grid_sample's, so the output is its bit
+// for bit.
+//
+// What bounds it on an H100: reading the points and writing the output,
+// 0.044 ms of the eval chunk's 0.064 with no corner loaded, 1.5x their
+// 0.028 ms at 3.35 TB/s; then the corner loads.
+constexpr int kWarpRays = 16, kWarpSamples = 2;              // a warp's lanes
+constexpr int kBlockRays = 2 * kWarpRays, kBlockSamples = 2 * kWarpSamples;
+constexpr int kSampleThreads = kBlockRays * kBlockSamples;   // one point each
+
+__global__ void __launch_bounds__(kSampleThreads)
+trilinear_sample_kernel(const float4* __restrict__ vol,
+                        const float* __restrict__ ndc, float4* __restrict__ out,
+                        int R, int S, long long n, int D, int Hv, int Wv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r = static_cast<long long>(blockIdx.x) * kBlockRays +
+                      (warp & 1) * kWarpRays + lane / kWarpSamples;
+  const int s = blockIdx.y * kBlockSamples + (warp >> 1) * kWarpSamples +
+                lane % kWarpSamples;
+  const long long i = r * S + s;
+  if (r >= R || s >= S || i >= n) return;
+  const Taps t = taps_of(ndc[3 * i], ndc[3 * i + 1], ndc[3 * i + 2], D, Hv, Wv);
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 b = a;
   // corner order (z, y, x) = 000, 001, 010, 011, 100, ... as F.grid_sample
@@ -43,34 +100,16 @@ __global__ void trilinear_sample_kernel(const float4* __restrict__ vol,
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
-    const int zi = z0 + dz, yi = y0 + dy, xi = x0 + dx;
-    if (zi < 0 || zi >= D || yi < 0 || yi >= Hv || xi < 0 || xi >= Wv) continue;
-    const float wgt = (dx ? fx : 1.f - fx) * (dy ? fy : 1.f - fy) *
-                      (dz ? fz : 1.f - fz);
-    const long long v = ((static_cast<long long>(zi) * Hv + yi) * Wv + xi) * 2;
+    const int zi = t.z0 + dz, yi = t.y0 + dy, xi = t.x0 + dx;
+    if (!inside(zi, yi, xi, D, Hv, Wv)) continue;
+    const float wgt = corner_weight(dz, dy, dx, t.fx, t.fy, t.fz);
+    const long long v = cell_of(zi, yi, xi, Hv, Wv) * 2;
     const float4 c0 = __ldg(vol + v), c1 = __ldg(vol + v + 1);
     a.x += c0.x * wgt; a.y += c0.y * wgt; a.z += c0.z * wgt; a.w += c0.w * wgt;
     b.x += c1.x * wgt; b.y += c1.y * wgt; b.z += c1.z * wgt; b.w += c1.w * wgt;
   }
-  out[2 * static_cast<long long>(i)] = a;
-  out[2 * static_cast<long long>(i) + 1] = b;
-}
-
-// Shared by the three kernels: point i's unnormalized, clamped coordinate
-// and its floor, formed exactly as the forward forms them.
-struct Taps {
-  int x0, y0, z0;
-  float fx, fy, fz;
-};
-
-__device__ __forceinline__ Taps taps_of(const float* ndc, int i, int D, int Hv,
-                                        int Wv) {
-  const float x = zt::clamp_far(zt::unnormalize(ndc[3 * i] * 2.f - 1.f, Wv), Wv);
-  const float y = zt::clamp_far(zt::unnormalize(ndc[3 * i + 1] * 2.f - 1.f, Hv), Hv);
-  const float z = zt::clamp_far(zt::unnormalize(ndc[3 * i + 2] * 2.f - 1.f, D), D);
-  const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
-  return {static_cast<int>(x0f), static_cast<int>(y0f), static_cast<int>(z0f),
-          x - x0f, y - y0f, z - z0f};
+  out[2 * i] = a;
+  out[2 * i + 1] = b;
 }
 
 // K4: d_vol += g * (trilinear weight) at each in-range corner.
@@ -78,34 +117,98 @@ __device__ __forceinline__ Taps taps_of(const float* ndc, int i, int D, int Hv,
 // Replaces zest_tpu/kernels/trilinear.py:_bwd_pallas (pallas_call at :303),
 // the adjoint of the lookup in the volume. The TPU form accumulates banded
 // per-sample mini-volumes with transposed two-hot matmuls and segment-adds
-// them with a one-hot matmul; here each thread owns one point and scatters
-// its 8-channel gradient times the 8 corner weights into the zeroed d_vol
-// with atomicAdd (64 atomics per point, out-of-range corners skipped: zeros
-// padding). What bounds it on an H100: the atomics in L2. d_vol (86 MB at
-// the flagship) is written by the caller's zero fill and by the atomics;
-// neighbouring points of one ray hit neighbouring voxels, so contention is
-// low but the 32-byte corner rows are read-modify-written in L2.
-__global__ void trilinear_grad_volume_kernel(const float4* __restrict__ g,
-                                             const float* __restrict__ ndc,
-                                             float* __restrict__ d_vol, int n,
-                                             int D, int Hv, int Wv) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Taps t = taps_of(ndc, i, D, Hv, Wv);
-  const float4 g0 = __ldg(g + 2 * static_cast<long long>(i));
-  const float4 g1 = __ldg(g + 2 * static_cast<long long>(i) + 1);
+// them with a one-hot matmul; here each thread owns one point (lanes are
+// consecutive samples of a ray, as they lie in memory) and adds its
+// 8-channel gradient times each in-range corner's weight into the zeroed
+// d_vol (zeros padding: out-of-range corners add nothing).
+//
+// What bounds it on an H100: the atomics' transactions in L2, since a
+// warp's 32 lanes add to ~24 distinct lines per corner. The one-point form
+// issued 64 scalar atomicAdd per point: 0.570-0.582 ms on the flagship
+// training step's three lookups, their zero fills included
+// (tools/probe_trilinear.py). Here each corner is two 16-byte vector
+// atomics (atomicAdd(float4*), red.global.add.v4.f32 on sm_90): 16 per
+// point. And where a ray's next sample lies one z plane further (z0 + 1)
+// and within one voxel in y and x, the common case at 128 samples over 128
+// planes, the next sample's lower corners are this sample's upper corners:
+// the next lane adds this lane's value to its own (one shuffle of the
+// neighbour's cell, fractions and gradient) and this lane skips those
+// atomics. Only the upper corners are handed on and only the lower ones
+// receive, so no value moves twice. On the flagship step's rays a warp's
+// 256 in-range corner taps fall in 131.8 distinct cells; the hand-on leaves
+// 6.07 corners (12.1 vector atomics) per point of its 8 taps, and the three
+// lookups take 0.211-0.225 ms. The rest of the coincidences (two samples in
+// one plane, or two planes apart, as the jitter puts them) are left to the
+// atomics. The caller's zero fill of d_vol (86.5 MB at the flagship) is
+// part of the work.
+__global__ void __launch_bounds__(kThreads)
+trilinear_grad_volume_kernel(const float4* __restrict__ g,
+                             const float* __restrict__ ndc,
+                             float4* __restrict__ d_vol, int n, int D, int Hv,
+                             int Wv) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool valid = i < n;
+  Taps t{0, 0, 0, 0.f, 0.f, 0.f};
+  float4 g0 = make_float4(0.f, 0.f, 0.f, 0.f), g1 = g0;
+  if (valid) {
+    t = taps_of(ndc[3 * i], ndc[3 * i + 1], ndc[3 * i + 2], D, Hv, Wv);
+    g0 = __ldg(g + 2 * i);
+    g1 = __ldg(g + 2 * i + 1);
+  }
+  // the neighbours' floor cells: is the previous (next) lane's point one z
+  // plane below (above) this one, within one voxel in y and x?
+  const int p_ok = __shfl_up_sync(kAll, static_cast<int>(valid), 1);
+  const int pz = __shfl_up_sync(kAll, t.z0, 1), py = __shfl_up_sync(kAll, t.y0, 1),
+            px = __shfl_up_sync(kAll, t.x0, 1);
+  const int n_ok = __shfl_down_sync(kAll, static_cast<int>(valid), 1);
+  const int nz = __shfl_down_sync(kAll, t.z0, 1), ny = __shfl_down_sync(kAll, t.y0, 1),
+            nx = __shfl_down_sync(kAll, t.x0, 1);
+  const bool from_prev = lane > 0 && valid && p_ok && pz + 1 == t.z0 &&
+                         abs(t.y0 - py) <= 1 && abs(t.x0 - px) <= 1;
+  const bool to_next = lane < 31 && valid && n_ok && t.z0 + 1 == nz &&
+                       abs(ny - t.y0) <= 1 && abs(nx - t.x0) <= 1;
+  // the previous point's fractions and gradient, where any lane takes them
+  float pfx = 0.f, pfy = 0.f, pfz = 0.f;
+  float4 pg0 = make_float4(0.f, 0.f, 0.f, 0.f), pg1 = pg0;
+  if (__any_sync(kAll, from_prev)) {
+    pfx = __shfl_up_sync(kAll, t.fx, 1);
+    pfy = __shfl_up_sync(kAll, t.fy, 1);
+    pfz = __shfl_up_sync(kAll, t.fz, 1);
+    pg0.x = __shfl_up_sync(kAll, g0.x, 1); pg0.y = __shfl_up_sync(kAll, g0.y, 1);
+    pg0.z = __shfl_up_sync(kAll, g0.z, 1); pg0.w = __shfl_up_sync(kAll, g0.w, 1);
+    pg1.x = __shfl_up_sync(kAll, g1.x, 1); pg1.y = __shfl_up_sync(kAll, g1.y, 1);
+    pg1.z = __shfl_up_sync(kAll, g1.z, 1); pg1.w = __shfl_up_sync(kAll, g1.w, 1);
+  }
+  if (!valid) return;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
     const int zi = t.z0 + dz, yi = t.y0 + dy, xi = t.x0 + dx;
-    if (zi < 0 || zi >= D || yi < 0 || yi >= Hv || xi < 0 || xi >= Wv) continue;
-    const float wgt = (dx ? t.fx : 1.f - t.fx) * (dy ? t.fy : 1.f - t.fy) *
-                      (dz ? t.fz : 1.f - t.fz);
-    float* p = d_vol + ((static_cast<long long>(zi) * Hv + yi) * Wv + xi) * 8;
-    atomicAdd(p, g0.x * wgt); atomicAdd(p + 1, g0.y * wgt);
-    atomicAdd(p + 2, g0.z * wgt); atomicAdd(p + 3, g0.w * wgt);
-    atomicAdd(p + 4, g1.x * wgt); atomicAdd(p + 5, g1.y * wgt);
-    atomicAdd(p + 6, g1.z * wgt); atomicAdd(p + 7, g1.w * wgt);
+    if (!inside(zi, yi, xi, D, Hv, Wv)) continue;
+    if (dz == 1 && to_next) {
+      // the next point's lower corner (dy - (ny - y0), dx - (nx - x0)) is
+      // this cell: the next lane adds it
+      const unsigned ly = dy - (ny - t.y0), lx = dx - (nx - t.x0);
+      if (ly <= 1u && lx <= 1u) continue;
+    }
+    const float wgt = corner_weight(dz, dy, dx, t.fx, t.fy, t.fz);
+    float4 u0 = make_float4(g0.x * wgt, g0.y * wgt, g0.z * wgt, g0.w * wgt);
+    float4 u1 = make_float4(g1.x * wgt, g1.y * wgt, g1.z * wgt, g1.w * wgt);
+    if (dz == 0 && from_prev) {
+      // this cell is the previous point's upper corner (uy, ux) if both are
+      // 0 or 1
+      const unsigned uy = t.y0 - py + dy, ux = t.x0 - px + dx;
+      if (uy <= 1u && ux <= 1u) {
+        const float pw = corner_weight(1, uy, ux, pfx, pfy, pfz);
+        u0.x += pg0.x * pw; u0.y += pg0.y * pw; u0.z += pg0.z * pw; u0.w += pg0.w * pw;
+        u1.x += pg1.x * pw; u1.y += pg1.y * pw; u1.z += pg1.z * pw; u1.w += pg1.w * pw;
+      }
+    }
+    float4* p = d_vol + cell_of(zi, yi, xi, Hv, Wv) * 2;
+    atomicAdd(p, u0);     // red.global.add.v4.f32 (sm_90)
+    atomicAdd(p + 1, u1);
   }
 }
 
@@ -118,8 +221,8 @@ __global__ void trilinear_grad_volume_kernel(const float4* __restrict__ g,
 // and forms d/d(x, y, z) of the blend, as F.grid_sample's grid gradient does
 // (an out-of-range corner adds nothing), times d(coordinate)/d(ndc) = size - 1
 // for ndc * 2 - 1 under align_corners=True. What bounds it on an H100: the
-// latency of the scattered 32-byte corner reads, as in K3, plus the gradient
-// read; it writes 12 bytes per point.
+// latency of the scattered 32-byte corner reads, as in K3's one-point form,
+// plus the gradient read; it writes 12 bytes per point.
 __global__ void trilinear_grad_coords_kernel(const float4* __restrict__ vol,
                                              const float* __restrict__ ndc,
                                              const float4* __restrict__ g,
@@ -127,7 +230,7 @@ __global__ void trilinear_grad_coords_kernel(const float4* __restrict__ vol,
                                              int D, int Hv, int Wv) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Taps t = taps_of(ndc, i, D, Hv, Wv);
+  const Taps t = taps_of(ndc[3 * i], ndc[3 * i + 1], ndc[3 * i + 2], D, Hv, Wv);
   const float4 g0 = __ldg(g + 2 * static_cast<long long>(i));
   const float4 g1 = __ldg(g + 2 * static_cast<long long>(i) + 1);
   float gx = 0.f, gy = 0.f, gz = 0.f;
@@ -135,8 +238,8 @@ __global__ void trilinear_grad_coords_kernel(const float4* __restrict__ vol,
   for (int k = 0; k < 8; ++k) {
     const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
     const int zi = t.z0 + dz, yi = t.y0 + dy, xi = t.x0 + dx;
-    if (zi < 0 || zi >= D || yi < 0 || yi >= Hv || xi < 0 || xi >= Wv) continue;
-    const long long v = ((static_cast<long long>(zi) * Hv + yi) * Wv + xi) * 2;
+    if (!inside(zi, yi, xi, D, Hv, Wv)) continue;
+    const long long v = cell_of(zi, yi, xi, Hv, Wv) * 2;
     const float4 c0 = __ldg(vol + v), c1 = __ldg(vol + v + 1);
     const float s = c0.x * g0.x + c0.y * g0.y + c0.z * g0.z + c0.w * g0.w +
                     c1.x * g1.x + c1.y * g1.y + c1.z * g1.z + c1.w * g1.w;
@@ -154,14 +257,25 @@ __global__ void trilinear_grad_coords_kernel(const float4* __restrict__ vol,
 
 }  // namespace
 
+// vol [D, Hv, Wv, 8], ndc [R, S, 3] -> out [R, S, 8]; vol and out 16-byte
+// aligned. Rays of one sample are taken as rows of 2 consecutive points
+// (any grouping of the points gives the same output).
 ZT_API int zt_trilinear_sample(const float* vol, const float* ndc, float* out,
-                               int n, int D, int Hv, int Wv, void* stream) {
-  constexpr int kThreads = 256;
+                               int R, int S, int D, int Hv, int Wv,
+                               void* stream) {
+  if (R < 0 || S < 0) return cudaErrorInvalidValue;
+  const long long n = static_cast<long long>(R) * S;
+  if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (S < kWarpSamples || S > 65535LL * kBlockSamples) {
+    S = kWarpSamples;
+    R = static_cast<int>((n + S - 1) / S);
+  }
   if (n > 0) {
-    trilinear_sample_kernel<<<zt::blocks_for(n, kThreads), kThreads, 0,
+    const dim3 grid(zt::blocks_for(R, kBlockRays), zt::blocks_for(S, kBlockSamples));
+    trilinear_sample_kernel<<<grid, kSampleThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(vol), ndc,
-        reinterpret_cast<float4*>(out), n, D, Hv, Wv);
+        reinterpret_cast<float4*>(out), R, S, n, D, Hv, Wv);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -169,11 +283,11 @@ ZT_API int zt_trilinear_sample(const float* vol, const float* ndc, float* out,
 ZT_API int zt_trilinear_grad_volume(const float* g, const float* ndc,
                                     float* d_vol, int n, int D, int Hv, int Wv,
                                     void* stream) {
-  constexpr int kThreads = 256;
   if (n > 0) {
     trilinear_grad_volume_kernel<<<zt::blocks_for(n, kThreads), kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(g), ndc, d_vol, n, D, Hv, Wv);
+        reinterpret_cast<const float4*>(g), ndc,
+        reinterpret_cast<float4*>(d_vol), n, D, Hv, Wv);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -181,7 +295,6 @@ ZT_API int zt_trilinear_grad_volume(const float* g, const float* ndc,
 ZT_API int zt_trilinear_grad_coords(const float* vol, const float* ndc,
                                     const float* g, float* d_ndc, int n, int D,
                                     int Hv, int Wv, void* stream) {
-  constexpr int kThreads = 256;
   if (n > 0) {
     trilinear_grad_coords_kernel<<<zt::blocks_for(n, kThreads), kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(

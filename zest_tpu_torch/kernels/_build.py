@@ -31,8 +31,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # src, grid, out, D, h, w, C, P, stream
     "zt_plane_sweep_warp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # vol, ndc, out, n_points, D, Hv, Wv, stream
-    "zt_trilinear_sample": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # vol, ndc, out, R rays, S samples, D, Hv, Wv, stream
+    "zt_trilinear_sample": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # images, xy, out, V, N, H, W, stream
     "zt_color_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     # wpack, offsets(host int*), wt, P, F, V, width, depth, skip, stream

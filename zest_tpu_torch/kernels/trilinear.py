@@ -50,14 +50,23 @@ def _check(name, vol, ndc, *others):
         raise ValueError(f"{name}: vol and g must be 16-byte aligned")
 
 
+def rays_and_samples(ndc) -> tuple:
+    """(R, S) of ndc [..., S, 3] as K3 tiles it: R rays of S samples, the
+    samples contiguous; ndc [n, 3] is n rays of one sample."""
+    n = ndc.numel() // 3
+    S = ndc.shape[-2] if ndc.dim() >= 3 else 1
+    return (n // S if S else 0), S
+
+
 def _launch_sample(vol, ndc):
     """K3 → [..., 8]."""
     D, Hv, Wv, C = vol.shape
     out = torch.empty((*ndc.shape[:-1], C), device=vol.device,
                       dtype=torch.float32)
+    R, S = rays_and_samples(ndc)
     err = _build.library().zt_trilinear_sample(
-        vol.data_ptr(), ndc.data_ptr(), out.data_ptr(), ndc.numel() // 3, D,
-        Hv, Wv, _build.stream_ptr(vol))
+        vol.data_ptr(), ndc.data_ptr(), out.data_ptr(), R, S, D, Hv, Wv,
+        _build.stream_ptr(vol))
     _build.check(err, "sample_volume")
     sample_volume.launches += 1
     return out
