@@ -14,8 +14,10 @@ sm_90a), then:
 3. holds each forward kernel against its plain PyTorch twin on the card, on
    the first chunk's inputs of the flagship eval (both fields' inputs as
    ``render_rays`` builds them, [16384, 128, ch]), and times kernel, twin and
-   the one library call that computes the same function, with CUDA events;
-   K3 must equal its twin bit for bit on the chunk.
+   the one library call that computes the same function: by device time
+   (the profiler's kernel durations) for K1, K3 and K8, whose kernels run
+   under 1 ms, with CUDA events for K6; K3 must equal its twin bit for bit
+   on the chunk.
    The field K6 runs on the tensor cores at float32 as 3xTF32: its SASS must
    hold HMMA at every width, its float32 operand pack must equal its twin
    bit for bit, and on the chunk it must be within max(8 x the float32
@@ -32,7 +34,9 @@ sm_90a), then:
 6. holds each backward kernel (warp K2, volume K4, coordinates K5, field K7)
    against its twin's autograd at the flagship training step's own inputs
    (the step's rays, encoding volumes and field inputs, a random output
-   gradient), and times kernel, twin and library call; holds K3 on the
+   gradient), and times kernel, twin and library call (device time for K2,
+   K4 and K5); K5 at the t±1 points, whose 4 lanes per point load its
+   corner rows; holds K3 on the
    step's three lookups and times them there (device time), beside the
    same points taken as [n, 3]; holds K6 on the
    step's three float32 field passes, each beside a float64 twin. K7's
@@ -76,9 +80,9 @@ sm_90a), then:
    and to the twin's backward at the forward values it ran at, which are
    held to the twin's forward; each leaf's distance to a float64 twin
    logged beside the float32 twin's) at the training passes;
-   K9's backward is timed against the same
-   work by the library (zeros, ``index_add_``, one rounding) and, on a line
-   of its own, its bare launch against bare ``index_add_``;
+   K9 and its backward are timed by device time, the backward against the
+   same work by the library (zeros, ``index_add_``, one rounding) and, on a
+   line of its own, its bare launch against bare ``index_add_``;
 10. runs the small eval and training step at 16 bits on CUDA and on the CPU
     (each quantity within twice the CPU's own 16-vs-32 difference);
 11. runs the flagship eval and training step at 16 bits, as phases 5 and 8
@@ -99,9 +103,11 @@ sm_90a), then:
     loop's seconds per step and the peak memory. PSNR after so few steps
     is not gated.
 
-The second-to-last line of stdout is a JSON object with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``. Any failure raises, so the
-script exits non-zero and prints no result; so does a machine without CUDA.
+The second-to-last line of stdout is a JSON object with one entry per kernel
+(``timing``: "device" for the rows timed by the profiler's kernel durations,
+K1-K5, K8, K9 and K9's backward; "events" for CUDA events); the last line is
+``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
+non-zero and prints no result; so does a machine without CUDA.
 Nothing here imports JAX or the JAX package ``zest_tpu``: the configurations,
 the synthetic scene and the seeded weights are the port's own
 (``zest_tpu_torch.presets``).
@@ -205,6 +211,15 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn) -> float:
+    """Mean device time of fn(): the profiler's kernel durations
+    (``probe_trilinear.device_ms``). Rows whose kernel runs under 1 ms take
+    it: there a wrapper's host side takes about as long as the kernel, and
+    CUDA events around a loop of calls time the host."""
+    from zest_tpu_torch.tools.probe_trilinear import device_ms as profiled
+    return profiled(fn)
 
 
 def nbytes(*tensors) -> int:
@@ -312,29 +327,34 @@ class Rows:
 
     def check(self, name, source, replaces, counter, kern, plain, library,
               tol, iters, moved_bytes, flops, relative=False, flops_bf16=0,
-              paths=("eval", "train"), verified=None, flops_tf32=0):
+              paths=("eval", "train"), verified=None, flops_tf32=0,
+              timing="events"):
         """``verify``, then time kern, plain and library; flops count
         float32 operations, flops_bf16 those on bf16 operands, flops_tf32
         those on TF32 operands; paths names the runs whose launches the row
         reports (eval first); verified, if given, is the (error, shapes) of
-        a check the caller made instead of ``verify``."""
+        a check the caller made instead of ``verify``; timing "events" times
+        the three with ``cuda_ms`` over iters calls, "device" (kernels under
+        1 ms) with ``device_ms``."""
         err, shapes = verified or self.verify(name, kern, plain, tol,
                                               relative)
+        timer = {"events": functools.partial(cuda_ms, iters=iters),
+                 "device": device_ms}[timing]
         with torch.no_grad():
-            ms = cuda_ms(kern, iters)
-            plain_ms = cuda_ms(plain, iters)
-            lib_ms = cuda_ms(library, iters) if library is not None else None
+            ms = timer(kern)
+            plain_ms = timer(plain)
+            lib_ms = timer(library) if library is not None else None
         bound_ms = 1e3 * max(moved_bytes / HBM_BYTES_PER_S,
                              ops_seconds(flops, flops_bf16, flops_tf32))
         log(f"[kernel] {name}: shapes {shapes} max_abs_err {err:.3e} "
             f"(tol {tol:g}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"library {'-' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
-            f"{bound_ms:.3f} ms -> ok")
+            f"{bound_ms:.3f} ms ({timing} time) -> ok")
         row = self.rows.setdefault(name, dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            counter=counter, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-            bytes=0, flops=0, flops_bf16=0, flops_tf32=0, paths=paths,
-            library_ms=0.0 if library is not None else None))
+            counter=counter, timing=timing, max_abs_err=0.0, ms=0.0,
+            plain_ms=0.0, bytes=0, flops=0, flops_bf16=0, flops_tf32=0,
+            paths=paths, library_ms=0.0 if library is not None else None))
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
         row["plain_ms"] += plain_ms
@@ -365,7 +385,7 @@ class Rows:
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=max(b_ms, o_ms),
                 bound_by="bytes" if b_ms >= o_ms else "operations",
-                library_ms=r["library_ms"]))
+                library_ms=r["library_ms"], timing=r["timing"]))
         return rows
 
 
@@ -961,7 +981,7 @@ def forward_kernels(rows, dev, cfg, system, batch):
                lambda: homo_warp_cm_plain(src, grid),
                lambda: F.grid_sample(src_nchw, grid_flat, align_corners=True),
                1e-5, 20, nbytes(src, grid) + 4 * D * 35 * Hp * Wp,
-               8 * D * 35 * Hp * Wp)
+               8 * D * 35 * Hp * Wp, timing="device")
 
     # K3: an encoding volume at the chunk's ray points
     vol = torch.randn((128, h + 2 * cfg.pad, w + 2 * cfg.pad, 8), generator=gen,
@@ -977,7 +997,7 @@ def forward_kernels(rows, dev, cfg, system, batch):
                lambda: sample_volume_plain(vol, ndc),
                lambda: F.grid_sample(vol_ncdhw, grid3, align_corners=True),
                1e-5, 20, 32 * volume_cells(ndc, vol.shape[:3]) + nbytes(ndc)
-               + 32 * n, 128 * n)
+               + 32 * n, 128 * n, timing="device")
     # each point's arithmetic is F.grid_sample's: bit for bit
     with torch.no_grad():
         same = torch.equal(sample_volume(vol, ndc), sample_volume_plain(vol, ndc))
@@ -1005,7 +1025,8 @@ def forward_kernels(rows, dev, cfg, system, batch):
                lambda: F.grid_sample(imgs_nchw, grid8, padding_mode="border",
                                      align_corners=True),
                1e-5, 20, 12 * image_pixels(xy, H, W) + nbytes(xy)
-               + 12 * xy.shape[0] * xy.shape[1], 24 * xy.shape[0] * xy.shape[1])
+               + 12 * xy.shape[0] * xy.shape[1], 24 * xy.shape[0] * xy.shape[1],
+               timing="device")
 
     # K6: both fields on the chunk's inputs, on the tensor cores as 3xTF32
     mma = sass_has_mma("fused_nerf_tc32_kernel")
@@ -1201,7 +1222,7 @@ def backward_kernels(rows, dev, cfg, system, batch):
                    lambda: trilinear.volume_grad(vol.shape, ndc, g),
                    lambda: trilinear.sample_volume_grads_plain(vol, ndc, g)[0],
                    lambda: lib([True, False]), 1e-5, 5,
-                   nbytes(ndc, g, vol), 128 * n, relative=True)
+                   nbytes(ndc, g, vol), 128 * n, relative=True, timing="device")
         if label == "t-1 / t+1":
             rows.check("trilinear_grad_coords", "zest_tpu_torch/csrc/trilinear.cu",
                        "zest_tpu/kernels/trilinear.py:353", "coords_grad",
@@ -1209,14 +1230,13 @@ def backward_kernels(rows, dev, cfg, system, batch):
                        lambda: trilinear.sample_volume_grads_plain(vol, ndc, g)[1],
                        lambda: lib([False, True]), 1e-5, 5,
                        32 * volume_cells(ndc, vol.shape[:3]) + nbytes(ndc, g)
-                       + 12 * n, 8 * 40 * n, relative=True)
+                       + 12 * n, 8 * 40 * n, relative=True, timing="device")
 
     # K3 on the step's three lookups, whose rays are random pixels: their
     # neighbouring lanes buy no locality there. Device time (the profiler's
     # kernel durations: CUDA events around such short launches time the
     # host), beside the same points taken as [n, 3], which gives a warp 32
     # consecutive samples of a ray as the one-point-per-thread kernel did
-    from zest_tpu_torch.tools.probe_trilinear import device_ms
     looks = list(lookups())
     for label, vol, ndc in looks:
         err, _ = rows.verify(
@@ -1255,7 +1275,7 @@ def backward_kernels(rows, dev, cfg, system, batch):
                lambda: torch.ops.aten.grid_sampler_2d_backward(
                    g_lib, src_nchw, grid_flat, 0, 0, True, [True, False]),
                1e-5, 5, 4 * C * items + nbytes(grid, src), 8 * C * items,
-               relative=True)
+               relative=True, timing="device")
     del static_vol, dyn_vol, rays, passes, warped, g
     torch.cuda.empty_cache()
 
@@ -1547,7 +1567,7 @@ def bf16_kernels(rows, dev, cfg, system, batch):
                lambda: dma_gather.gather_rows(tab, idx),
                lambda: dma_gather.take_rows_plain(tab, idx),
                lambda: torch.index_select(tab, 0, idx_flat), 0.0, 20,
-               16 * touched + nbytes(idx, g), 0, paths=paths)
+               16 * touched + nbytes(idx, g), 0, paths=paths, timing="device")
     # the library side does the same work: a zero float32 table, the
     # scatter, one rounding to bf16 (g32 is made outside the timed call).
     # Atomics add in another order than index_add_, and both round the
@@ -1560,10 +1580,11 @@ def bf16_kernels(rows, dev, cfg, system, batch):
                lambda: dma_gather.scatter_rows_plain(g, idx, m),
                lambda: torch.zeros((m, C), device=dev).index_add_(
                    0, idx_flat, g32).to(torch.bfloat16), 2.0 ** -8, 5,
-               nbytes(g, idx, tab), g.numel(), relative=True, paths=paths)
+               nbytes(g, idx, tab), g.numel(), relative=True, paths=paths,
+               timing="device")
     acc = torch.zeros((m, C), device=dev)
-    bare_ms = cuda_ms(lambda: dma_gather.scatter_add_rows(acc, g, idx), 5)
-    lib_ms = cuda_ms(lambda: acc.index_add_(0, idx_flat, g32), 5)
+    bare_ms = device_ms(lambda: dma_gather.scatter_add_rows(acc, g, idx))
+    lib_ms = device_ms(lambda: acc.index_add_(0, idx_flat, g32))
     log(f"[bf16] row scatter-add launch alone: kernel {bare_ms:.3f} ms, "
         f"index_add_ {lib_ms:.3f} ms (into a zeroed float32 table)")
 
@@ -1577,9 +1598,9 @@ def bf16_kernels(rows, dev, cfg, system, batch):
                          lambda: dma_gather.scatter_rows_plain(g_path, idx, m),
                          2.0 ** -8, relative=True)
     g_path32 = g_path.reshape(-1, C).float()
-    path_ms = cuda_ms(lambda: dma_gather.scatter_rows(g_path, idx, m), 5)
-    lib_path_ms = cuda_ms(lambda: torch.zeros((m, C), device=dev).index_add_(
-        0, idx_flat, g_path32).to(torch.bfloat16), 5)
+    path_ms = device_ms(lambda: dma_gather.scatter_rows(g_path, idx, m))
+    lib_path_ms = device_ms(lambda: torch.zeros((m, C), device=dev).index_add_(
+        0, idx_flat, g_path32).to(torch.bfloat16))
     log(f"[bf16] row scatter-add on the main path's cotangent ({zero:.1%} zero "
         f"rows): max_abs_err {err:.3e} (tol 2^-8 of the largest), kernel "
         f"{path_ms:.3f} ms, zeros + index_add_ + round {lib_path_ms:.3f} ms")

@@ -20,8 +20,8 @@ small eval slice: rtol = atol = 1e-4, since cuDNN and the CPU order the
 convolution sums differently.
 
 The backward kernels: K2 (warp) and K4 (volume) add with atomics in an order
-that changes from run to run, K5 (coordinates) sums 8 corners in another
-order than F.grid_sample, and K7 (field) sums the weight gradients over the
+that changes from run to run, K5 (coordinates) sums a point's corners over
+4 lanes, in another order than F.grid_sample, and K7 (field) sums the weight gradients over the
 points in tiles and chunks: each is held to 1e-5 (the gathers) or 1e-4 (the
 field) of its output's scale, never bit for bit; K7's weight gradient leaf
 by leaf, each weight and each bias to 1e-4 of its own largest element.
@@ -597,6 +597,96 @@ def test_volume_backward_skips_coords_without_grad(dev):
     assert trilinear.coords_grad.launches == launches
     with torch.no_grad():
         assert sample_volume(vol, ndc).grad_fn is None
+
+
+def _coords_case(dev, vol, ndc, seed):
+    """K5 alone (``coords_grad``) against the twin's d_ndc, to 1e-5 of its
+    largest, in one launch. Returns K5's d_ndc and the output gradient."""
+    cot = torch.randn((*ndc.shape[:-1], 8), generator=_gen(dev, seed),
+                      device=dev)
+    before = trilinear.coords_grad.launches
+    got = trilinear.coords_grad(vol, ndc, cot)
+    assert trilinear.coords_grad.launches == before + 1
+    ref = trilinear.sample_volume_grads_plain(vol, ndc, cot)[1]
+    assert got.shape == ndc.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, ref) <= 1e-5
+    return got, cot
+
+
+@pytest.mark.parametrize("n_points", [1, 7, 8, 12345, 200001])
+def test_coords_grad_kernel_point_counts(dev, n_points):
+    """K5 gives a point 4 lanes, a warp 8 points and a block 64, and the
+    blocks stride over the points: counts short of a warp (1, 7), one warp
+    (8), no whole block (12,345) and several strides of the grid (200,001);
+    the lanes of the missing points still join the shuffles. A fifth of the
+    points lie outside the volume."""
+    g = _gen(dev, 31)
+    vol = torch.randn((16, 12, 20, 8), generator=g, device=dev)
+    ndc = torch.rand((n_points, 3), generator=g, device=dev) * 1.4 - 0.2
+    _coords_case(dev, vol, ndc, 32)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2, None])
+def test_coords_grad_kernel_on_cell_faces(dev, axis):
+    """Points on cell faces: fx, fy or fz (or all three) exactly 0, the
+    sizes less one being powers of two so that the unnormalized coordinate
+    is an integer; floorf picks the corners, and the derivative there is
+    F.grid_sample's."""
+    dims = (5, 9, 17)                                  # D, Hv, Wv
+    g = _gen(dev, 33)
+    vol = torch.randn((*dims, 8), generator=g, device=dev)
+    scale = torch.tensor([16.0, 8.0, 4.0], device=dev)  # Wv-1, Hv-1, D-1
+    p = torch.rand((2000, 3), generator=g, device=dev) * scale
+    if axis is None:
+        p = p.floor()
+    else:
+        p[:, axis] = p[:, axis].floor()
+    _coords_case(dev, vol, (p / scale).contiguous(), 34)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("side", ["low", "high"])
+def test_coords_grad_kernel_straddles_faces(dev, axis, side):
+    """Points across one face of the volume along x, y or z: between -1.5
+    and 0 (floor -1: the lower corner out of range and the upper in; below
+    -1 both out) or between size - 1 and size + 0.5 (floor size - 1: the
+    upper corner out), the other coordinates inside. Along x a lane's own
+    corner is out while its row neighbour's is in."""
+    dims = (9, 7, 11)                                  # D, Hv, Wv
+    size = (dims[2], dims[1], dims[0])[axis]
+    g = _gen(dev, 35 + axis)
+    vol = torch.randn((*dims, 8), generator=g, device=dev)
+    scale = torch.tensor([dims[2] - 1.0, dims[1] - 1.0, dims[0] - 1.0],
+                         device=dev)
+    p = torch.rand((3000, 3), generator=g, device=dev) * scale
+    u = torch.rand(3000, generator=g, device=dev)
+    p[:, axis] = u * 1.5 - 1.5 if side == "low" else size - 1.0 + u * 1.5
+    _coords_case(dev, vol, (p / scale).contiguous(), 38)
+
+
+@pytest.mark.parametrize("jitter,neighbours", [(1.0, False), (0.0, True)])
+def test_coords_grad_kernel_on_rays(dev, jitter, neighbours):
+    """Rays crossing the volume as a render's do (random pixels with
+    jittered depths, or a row of pixels), some leaving it."""
+    dims = (64, 20, 30)
+    g = _gen(dev, 39)
+    vol = torch.randn((*dims, 8), generator=g, device=dev)
+    _coords_case(dev, vol, _ray_ndc(dev, 50, 64, dims, jitter, 40, neighbours),
+                 41)
+
+
+def test_coords_grad_kernel_same_for_both_layouts(dev):
+    """ndc as [R, S, 3] and as [n, 3]: each point's sums are its own, so
+    the two outputs are equal bit for bit."""
+    dims = (32, 24, 40)
+    g = _gen(dev, 42)
+    vol = torch.randn((*dims, 8), generator=g, device=dev)
+    ndc = _ray_ndc(dev, 37, 29, dims, 1.0, 43)
+    rays, cot = _coords_case(dev, vol, ndc, 44)
+    flat = trilinear.coords_grad(vol, ndc.reshape(-1, 3), cot.reshape(-1, 8))
+    torch.cuda.synchronize()
+    assert torch.equal(rays.reshape(-1, 3), flat)
 
 
 def _leaves_within(field, got, ref, tol):

@@ -160,3 +160,32 @@ def test_lines_per_load_counts_distinct_lines():
     assert probe_trilinear.lines_per_load(ndc, dims, (8, 4)) == 10.0
     # ragged: 30 rays of 30 samples fill no warp of 8 x 4 evenly
     assert probe_trilinear.lines_per_load(ndc[:30, :30], dims, (8, 4)) > 0
+
+
+@pytest.mark.parametrize("x,lines", [
+    (4.5, {1: 16.0, 2: 8.0, 4: 4.0, 8: 4.0}),    # a row in one line
+    (7.5, {1: 16.0, 2: 8.0, 4: 8.0, 8: 8.0}),    # a row across two lines
+    (-0.5, {1: 8.0, 2: 4.0, 4: 4.0, 8: 4.0}),    # corner x0 = -1 out of range
+    (127.5, {1: 8.0, 2: 4.0, 4: 4.0, 8: 4.0}),   # x0 = Wv - 1: x0 + 1 out
+])
+@pytest.mark.parametrize("n", [32, 7])
+def test_k5_lines_counts_line_requests_per_point(x, lines, n):
+    """A 128-byte line holds 4 cells of 8 floats, a row (the corners x0 and
+    x0 + 1 of one (z, y)) 64 bytes. Points two z planes apart share no line.
+    One thread per point loads a float4 of one corner per load: 16 loads, a
+    line each (8 where half the corners are out of range). Four lanes per
+    point load a row per load: 4 loads, one line each, or two where the row
+    crosses a line (x0 % 4 == 3). Counts that fill no warp give the same."""
+    dims = (80, 4, 128)
+    z = 2.0 * torch.arange(n, dtype=torch.float32) + 0.5
+    ndc = torch.stack([torch.full((n,), x / (dims[2] - 1)),
+                       torch.full((n,), 1.5 / (dims[1] - 1)),
+                       z / (dims[0] - 1)], -1)
+    for lanes, want in lines.items():
+        assert probe_trilinear.k5_lines(ndc, dims, lanes) == want
+    # every point at one place whose rows each lie in one line: each load
+    # touches one line for the whole warp
+    same = torch.tensor([[4.5 / (dims[2] - 1), 1.5 / (dims[1] - 1), 0.5 / 79]]
+                        ).expand(32, 3)
+    for lanes in (1, 4):
+        assert probe_trilinear.k5_lines(same, dims, lanes) == 0.5

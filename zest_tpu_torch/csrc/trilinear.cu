@@ -7,6 +7,8 @@
 // every kernel forms ndc*2-1 and unnormalizes it the way PyTorch does
 // (taps_of), so both see the same coordinate. Each corner is 8 channels = 32
 // contiguous bytes, read or added as two float4.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -217,42 +219,90 @@ trilinear_grad_volume_kernel(const float4* __restrict__ g,
 //
 // Replaces zest_tpu/kernels/trilinear.py:_coords_pallas (pallas_call at
 // :353), which contracts derivative two-hot matrices against banded volume
-// slices. Here each thread owns one point, reads its 8 corners as K3 does
-// and forms d/d(x, y, z) of the blend, as F.grid_sample's grid gradient does
-// (an out-of-range corner adds nothing), times d(coordinate)/d(ndc) = size - 1
-// for ndc * 2 - 1 under align_corners=True. What bounds it on an H100: the
-// latency of the scattered 32-byte corner reads, as in K3's one-point form,
-// plus the gradient read; it writes 12 bytes per point.
-__global__ void trilinear_grad_coords_kernel(const float4* __restrict__ vol,
-                                             const float* __restrict__ ndc,
-                                             const float4* __restrict__ g,
-                                             float* __restrict__ d_ndc, int n,
-                                             int D, int Hv, int Wv) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Taps t = taps_of(ndc[3 * i], ndc[3 * i + 1], ndc[3 * i + 2], D, Hv, Wv);
-  const float4 g0 = __ldg(g + 2 * static_cast<long long>(i));
-  const float4 g1 = __ldg(g + 2 * static_cast<long long>(i) + 1);
-  float gx = 0.f, gy = 0.f, gz = 0.f;
+// slices. Here the blend's d/d(x, y, z) is taken as F.grid_sample's grid
+// gradient takes it (an out-of-range corner adds nothing), times
+// d(coordinate)/d(ndc) = size - 1 for ndc * 2 - 1 under align_corners=True.
+//
+// Why the layout: with one thread per point in memory order, a warp held 32
+// consecutive samples of one ray, whose corners lie on 32 different z
+// planes, and each thread issued 16 separate 16-byte corner loads: 13.1 L1
+// line requests per point on the flagship training step's t+-1 points
+// (tools/probe_trilinear.py, k5_lines). A point's two corners at x0 and
+// x0 + 1 of one (z, y) are one 64-byte row of the [D, Hv, Wv, 8] volume,
+// and a point has four such rows. Here kCoordLanes = 4 lanes share a point
+// (a warp holds 8): lane j loads the float4 at byte 16 j of each row, which
+// is corner dx = j >> 1's half j & 1 of the channels, masked by that
+// corner's own range test, and dots it with the same half of g. Each lane
+// sums its share of the three derivative sums over the four rows, and two
+// xor shuffles add the four shares; lanes 0-2 write x, y and z, 12
+// contiguous bytes per point. That is 4.2 line requests per point. Lanes of
+// a point past n take part in the shuffles with zero shares. The grid holds
+// as many blocks as stay resident, or fewer, each walking the same number
+// of 64-point strides (a grid of one block per 64 points measured 5 %
+// slower). taps_of and the weight products are the one-point form's; the
+// sum over corners runs in another order (the twin's to 1e-5 of the
+// largest, never bit for bit).
+//
+// What bounds it on an H100 (device time at the t+-1 points, PERF.md §6):
+// 0.0275 -> 0.0217 ms against a bound of 0.011. The corner loads now take
+// about 0.013 ms of it (0.024 in the one-point form): with every point
+// moved outside the volume, so that no corner is loaded, it takes 0.0084
+// ms against the one-point form's 0.0033, since a thread keeps a quarter
+// of the points in flight. Handing a point's upper rows to the lanes of the
+// point below by shuffles, 2 or 8 lanes per point, two points per pass,
+// reading the next pass's coordinates a pass ahead, or one lane reading
+// the coordinates of 32 points for four passes of 8 were all slower
+// (0.0221-0.0313 ms).
+constexpr int kCoordLanes = 4;                                // per point
+constexpr int kCoordPoints = kThreads / kCoordLanes;          // per block
+
+__global__ void __launch_bounds__(kThreads)
+trilinear_grad_coords_kernel(const float4* __restrict__ vol,
+                             const float* __restrict__ ndc,
+                             const float4* __restrict__ g,
+                             float* __restrict__ d_ndc, long long n, int D,
+                             int Hv, int Wv) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int j = threadIdx.x % kCoordLanes;
+  const int dx = j >> 1, half = j & 1;       // this lane's float4 of a row
+  // a warp's first point bounds the loop, so all 32 lanes run every pass
+  const long long warp_first =
+      (static_cast<long long>(blockIdx.x) * kThreads + (threadIdx.x & ~31u)) /
+      kCoordLanes;
+  const long long stride = static_cast<long long>(gridDim.x) * kCoordPoints;
+  for (long long first = warp_first; first < n; first += stride) {
+    const long long i = first + (threadIdx.x & 31) / kCoordLanes;
+    float gx = 0.f, gy = 0.f, gz = 0.f;
+    if (i < n) {
+      const Taps t = taps_of(ndc[3 * i], ndc[3 * i + 1], ndc[3 * i + 2], D, Hv,
+                             Wv);
+      const float4 gh = __ldg(g + 2 * i + half);
+      const int xi = t.x0 + dx;
+      const float wx = dx ? t.fx : 1.f - t.fx, sx = dx ? 1.f : -1.f;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
-    const int zi = t.z0 + dz, yi = t.y0 + dy, xi = t.x0 + dx;
-    if (!inside(zi, yi, xi, D, Hv, Wv)) continue;
-    const long long v = cell_of(zi, yi, xi, Hv, Wv) * 2;
-    const float4 c0 = __ldg(vol + v), c1 = __ldg(vol + v + 1);
-    const float s = c0.x * g0.x + c0.y * g0.y + c0.z * g0.z + c0.w * g0.w +
-                    c1.x * g1.x + c1.y * g1.y + c1.z * g1.z + c1.w * g1.w;
-    const float wx = dx ? t.fx : 1.f - t.fx, sx = dx ? 1.f : -1.f;
-    const float wy = dy ? t.fy : 1.f - t.fy, sy = dy ? 1.f : -1.f;
-    const float wz = dz ? t.fz : 1.f - t.fz, sz = dz ? 1.f : -1.f;
-    gx += s * sx * wy * wz;
-    gy += s * wx * sy * wz;
-    gz += s * wx * wy * sz;
+      for (int r = 0; r < 4; ++r) {           // rows (z, y) = 00, 01, 10, 11
+        const int dz = r >> 1, dy = r & 1;
+        const int zi = t.z0 + dz, yi = t.y0 + dy;
+        if (!inside(zi, yi, xi, D, Hv, Wv)) continue;
+        const float4 c = __ldg(vol + cell_of(zi, yi, xi, Hv, Wv) * 2 + half);
+        const float s = c.x * gh.x + c.y * gh.y + c.z * gh.z + c.w * gh.w;
+        const float wy = dy ? t.fy : 1.f - t.fy, sy = dy ? 1.f : -1.f;
+        const float wz = dz ? t.fz : 1.f - t.fz, sz = dz ? 1.f : -1.f;
+        gx += s * sx * wy * wz;
+        gy += s * wx * sy * wz;
+        gz += s * wx * wy * sz;
+      }
+    }
+    // the point's four shares
+    for (int m = 1; m < kCoordLanes; m <<= 1) {
+      gx += __shfl_xor_sync(kAll, gx, m);
+      gy += __shfl_xor_sync(kAll, gy, m);
+      gz += __shfl_xor_sync(kAll, gz, m);
+    }
+    if (i < n && j < 3)
+      d_ndc[3 * i + j] = j == 0 ? gx * (Wv - 1) : j == 1 ? gy * (Hv - 1)
+                                                         : gz * (D - 1);
   }
-  d_ndc[3 * static_cast<long long>(i)] = gx * (Wv - 1);
-  d_ndc[3 * static_cast<long long>(i) + 1] = gy * (Hv - 1);
-  d_ndc[3 * static_cast<long long>(i) + 2] = gz * (D - 1);
 }
 
 }  // namespace
@@ -295,8 +345,24 @@ ZT_API int zt_trilinear_grad_volume(const float* g, const float* ndc,
 ZT_API int zt_trilinear_grad_coords(const float* vol, const float* ndc,
                                     const float* g, float* d_ndc, int n, int D,
                                     int Hv, int Wv, void* stream) {
+  if (n < 0) return cudaErrorInvalidValue;
   if (n > 0) {
-    trilinear_grad_coords_kernel<<<zt::blocks_for(n, kThreads), kThreads, 0,
+    // as many blocks as fit on the card at once, or fewer; each walks the
+    // same number of strides of kCoordPoints points
+    static int per_sm = 0;
+    if (per_sm == 0) {
+      const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, trilinear_grad_coords_kernel, kThreads, 0);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const long long needed = zt::blocks_for(n, kCoordPoints);
+    const long long resident = std::max(1LL, static_cast<long long>(per_sm) * sms);
+    const long long passes = (needed + resident - 1) / resident;
+    trilinear_grad_coords_kernel<<<zt::blocks_for(needed, static_cast<int>(passes)),
+                                   kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(vol), ndc,
         reinterpret_cast<const float4*>(g), d_ndc, n, D, Hv, Wv);

@@ -17,9 +17,12 @@ the volume (the points read and the output written, no corner loaded) and
 on the same points as [n, 3]. Beside them, counted from the same points:
 the distinct 128-byte lines of the volume one warp-wide corner load
 touches for several shapes of a warp's lanes over rays and samples
-(``lines_per_load``), and K4's corner taps, vector atomics and distinct
-cells per warp (``k4_atomics``). The last line is one JSON object of the
-times.
+(``lines_per_load``), K4's corner taps, vector atomics and distinct cells
+per warp (``k4_atomics``), and K5's line requests per point with 1, 2, 4
+or 8 lanes per point (``k5_lines``; 1 is the one-point form, 4 the
+kernel's), printed beside K5's and K4's time on the t±1 lookup and K5's
+time with those points moved outside the volume. The last line is one
+JSON object of the times and K5's line requests.
 
 It calls only the kernels' public wrappers, so to compare two trees run it
 from each in turns in one chip call: each builds its own library. TF32 is
@@ -41,6 +44,7 @@ from zest_tpu_torch.kernels import fused_mlp, trilinear
 from zest_tpu_torch.system import phase_for_step
 
 LAUNCHES = 50
+SETTLE = 16      # uncounted kernels that open each profiled session
 WARP = 32
 
 
@@ -91,6 +95,26 @@ def lines_per_load(ndc, dims, lanes=(1, WARP)) -> float:
     warps = line.reshape(R // wr, wr, S // ws, ws, 8).permute(0, 2, 4, 1, 3)
     n = _distinct(warps.reshape(-1, wr * ws))
     return float(n[n > 0].double().mean())
+
+
+def k5_lines(ndc, dims, lanes: int) -> float:
+    """Mean L1 line requests per point of K5's corner loads at ndc [..., 3]:
+    the distinct 128-byte lines of the volume that each warp-wide 16-byte
+    load touches, summed over the warp's loads and divided by the points.
+    A point's 16 float4 are q = (dz, dy, dx, half) in binary; ``lanes``
+    lanes share a point (consecutive points in a warp of 32) and lane j
+    loads q = u * lanes + j in its load u. lanes = 1 is one thread per
+    point with 16 loads (the one-point form), 4 a 64-byte row per load. A
+    lane whose corner is out of range loads nothing."""
+    cells, ok, _, _ = corner_cells(ndc.reshape(-1, 3), dims)
+    n = cells.shape[0]
+    line = torch.where(ok, cells, -1).repeat_interleave(2, -1)     # [n, 16]
+    half = torch.arange(16, device=ndc.device) % 2
+    line = torch.where(line >= 0, (2 * line + half) // 8, -1)
+    per_warp = WARP // lanes
+    line = torch.cat([line, line.new_full(((-n) % per_warp, 16), -1)])
+    loads = line.reshape(-1, per_warp, 16 // lanes, lanes).transpose(1, 2)
+    return float(_distinct(loads.reshape(-1, per_warp * lanes)).sum()) / n
 
 
 def k4_atomics(ndc, dims, g=None) -> dict:
@@ -154,21 +178,33 @@ def k4_atomics(ndc, dims, g=None) -> dict:
     return out
 
 
-def device_ms(fn, iters: int = LAUNCHES) -> float:
+def device_ms(fn, iters: int = LAUNCHES, tries: int = 3) -> float:
     """Device time of fn()'s kernels per call: their durations as the
     profiler records them, summed over iters calls after a warm-up. The
     gaps between launches are left out (a wrapper's host side takes about
     as long as a 30 us kernel, so CUDA events around a loop of them time
-    the host)."""
+    the host). The profiler can miss the first few device events of a
+    session (4 of 50 launches, seen on an H100), so each session opens with
+    SETTLE short spin kernels that are not counted, and it counts only if
+    every call left the same number of events (a multiple of iters);
+    otherwise it is taken again, at most tries times, and then raises."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SETTLE):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and "spin_kernel" not in e.name]
+        if us and len(us) % iters == 0:
+            return sum(us) / 1e3 / iters
+    raise RuntimeError(f"device_ms: the profiler recorded {len(us)} device "
+                       f"events for {iters} calls in each of {tries} tries")
 
 
 def train_points(system, batch, cfg, gen) -> tuple:
@@ -271,8 +307,18 @@ def main(argv=()) -> int:
                 d_ndc = trilinear.coords_grad(vol, ndc, g)
                 ref = trilinear.sample_volume_grads_plain(vol, ndc, g)[1]
                 res["k5_ms"] = device_ms(lambda: trilinear.coords_grad(vol, ndc, g))
-                print(f"K5 {label}: {res['k5_ms']:.4f} ms, relative err "
-                      f"{_rel(d_ndc, ref):.3e}")
+                far = ndc + 2.0
+                res["k5_outside_ms"] = device_ms(
+                    lambda: trilinear.coords_grad(vol, far, g))
+                res["k5_lines"] = {lanes: k5_lines(ndc, vol.shape[:3], lanes)
+                                   for lanes in (1, 2, 4, 8)}
+                print(f"K5 {label}: {res['k5_ms']:.4f} ms (K4 on the same "
+                      f"lookup {ms:.4f} ms), relative err "
+                      f"{_rel(d_ndc, ref):.3e}; with every point outside the "
+                      f"volume (no corner loads) {res['k5_outside_ms']:.4f} "
+                      f"ms; line requests per point, by lanes per point: "
+                      + ", ".join(f"{lanes}: {v:.2f}"
+                                  for lanes, v in res["k5_lines"].items()))
         print(f"K4 on the training step's three lookups: {res['k4_ms']:.4f} ms")
     print(json.dumps(res))
     return 0
