@@ -101,7 +101,19 @@ sm_90a), then:
     one row per log step with a finite ``train_loss``, and runs
     ``validate`` on one image (finite val_PSNR and val_SSIM), printing the
     loop's seconds per step and the peak memory. PSNR after so few steps
-    is not gated.
+    is not gated;
+13. paths: restores the ``last`` checkpoint that phase 12's loop wrote, on
+    the card and on the CPU (equal to the loop's final state), runs
+    ``train_loop.run_test`` on 2 frames (test_metrics.txt) and
+    ``render_paths.run_wanderpath`` on frame 3, 4 poses, at the gate's
+    configuration (288x512, width 256, precision 16), asserting its 8 PNGs;
+    then ``make_eval_path_step`` at float32 and at precision 16 on 4 poses
+    (the target's own camera and orbit poses 15, 30, 45) with every launch
+    counter reset: K1 launches as often as for one eval image, K3, K6 and
+    K8 4 times as often, no backward kernel; the maps at the target's pose
+    within rtol = atol = 1e-4 of ``make_eval_step``'s. It prints s/pose
+    (the path's wall less one volume build, over the poses) beside the
+    one-off cost of building the frame's volumes.
 
 The second-to-last line of stdout is a JSON object with one entry per kernel
 (``timing``: "device" for the rows timed by the profiler's kernel durations,
@@ -118,7 +130,9 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1687,13 +1701,14 @@ def small_16(dev):
             f"worst gradient difference {worst:.2f} of its limit")
 
 
-def quality(dev, system, batch, params, step_launches) -> None:
+def quality(dev, system, batch, params, step_launches, tmp):
     """Phase 12: the metrics on the card, the training loop of the quality
     gate's configuration with its launches, its CSV log and a validation.
-    ``step_launches`` are one 16-bit step-0 step's launches (phase 11)."""
+    ``step_launches`` are one 16-bit step-0 step's launches (phase 11); the
+    loop writes its run under the directory ``tmp``. Returns (the loop's
+    config, its final state)."""
     import csv
     import math
-    import tempfile
     from pathlib import Path
     from zest_tpu_torch import metrics
     from zest_tpu_torch.config import ZestConfig
@@ -1721,51 +1736,179 @@ def quality(dev, system, batch, params, step_launches) -> None:
             raise AssertionError(f"metrics.{name} on the card: {got} against "
                                  f"float64 {ref}")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = ZestConfig(**dict(quality_gate.CONFIG, precision=16,
-                                log_every=10, save_dir=tmp))
-        ds = SyntheticDataset(**quality_gate.SCENE)
+    cfg = ZestConfig(**dict(quality_gate.CONFIG, precision=16,
+                            log_every=10, save_dir=tmp))
+    ds = SyntheticDataset(**quality_gate.SCENE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    state, loop_system = run_training(cfg, {"train": ds},
+                                      max_steps=LOOP_STEPS, quiet=True,
+                                      device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counters()
+    expected = {k: LOOP_STEPS * v for k, v in step_launches.items()}
+    log(f"[quality] run_training: {LOOP_STEPS} steps in {wall:.2f} s "
+        f"({wall / LOOP_STEPS:.4f} s/step, the first step and the frames' "
+        f"first build included), launches {got}")
+    if not loop_system.bf16 or got != expected:
+        raise AssertionError(f"the loop's launches {got}, expected "
+                             f"{expected} (precision 16)")
+    run_dir = Path(tmp) / cfg.expname
+    with open(run_dir / "metrics.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    steps = [int(r["step"]) for r in rows]
+    want = list(range(cfg.log_every, LOOP_STEPS + 1, cfg.log_every))
+    losses = [float(r["train_loss"]) for r in rows]
+    if steps != want or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"metrics.csv: steps {steps}, train_loss "
+                             f"{losses}")
+    log("[quality] metrics.csv: " + "; ".join(
+        f"step {r['step']} train_loss {float(r['train_loss']):.5g} "
+        f"train_PSNR {float(r['train_PSNR']):.4g} steps_per_sec "
+        f"{float(r['steps_per_sec']):.3f}" for r in rows))
+    t0 = time.perf_counter()
+    out = validate(cfg, loop_system, loop_system.make_eval_step(),
+                   state.params, ds, run_dir, LOOP_STEPS, max_images=1)
+    val_s = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in out.values()):
+        raise AssertionError(f"validate: {out}")
+    log(f"[quality] validate, 1 image in {val_s:.2f} s: val_PSNR "
+        f"{out['val_PSNR']:.4f}, val_SSIM {out['val_SSIM']:.4f}, val_loss "
+        f"{out['val_loss']:.5g}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (not gated "
+        f"after {LOOP_STEPS} steps)")
+    return cfg, state
+
+
+def png_size(path) -> tuple:
+    """(width, height) from a PNG's IHDR chunk; raises unless it is one."""
+    head = Path(path).read_bytes()[:24]
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+def paths(dev, tmp, loop_cfg, loop_state) -> dict:
+    """Phase 13: the workflow after training, from phase 12's checkpoint,
+    then the path step's launches and time at float32 and precision 16.
+    Returns {precision: (s/pose, the volumes' build in s)}."""
+    import math
+    from zest_tpu_torch import presets
+    from zest_tpu_torch.checkpoint import CheckpointManager
+    from zest_tpu_torch.data.synthetic import SyntheticDataset
+    from zest_tpu_torch.render_paths import run_wanderpath
+    from zest_tpu_torch.system import EVAL_KEYS
+    from zest_tpu_torch.tools import quality_gate
+    from zest_tpu_torch.train_loop import run_test
+
+    ckpts = Path(tmp) / loop_cfg.expname / "ckpts"
+    t0 = time.perf_counter()
+    state = CheckpointManager(ckpts).restore("last", map_location=dev)
+    on_cpu = CheckpointManager(ckpts).restore("last", map_location="cpu")
+    restore_s = time.perf_counter() - t0
+    for k, v in loop_state.params.items():
+        if not (torch.equal(state.params[k], v)
+                and torch.equal(on_cpu.params[k], v.cpu())):
+            raise AssertionError(f"checkpoint 'last': {k} differs from the "
+                                 f"loop's final weights")
+    if state.step != LOOP_STEPS or state.opt_state["count"] != LOOP_STEPS:
+        raise AssertionError(f"checkpoint 'last' at step {state.step}")
+    log(f"[paths] restored {ckpts / 'last'} on the card and on the CPU in "
+        f"{restore_s:.2f} s: step {state.step}, {len(state.params)} tensors, "
+        f"equal to the loop's final state")
+
+    cfg = loop_cfg.replace(ckpt=str(ckpts / "last"), dataset_name="synthetic")
+    t0 = time.perf_counter()
+    out = run_test(cfg, datasets={"test": SyntheticDataset(
+        **quality_gate.SCENE, max_len=2)}, quiet=True, device=dev)
+    test_s = time.perf_counter() - t0
+    text = (Path(tmp) / cfg.expname / "test_metrics.txt").read_text()
+    if not (all(math.isfinite(v) for v in out.values())
+            and text.startswith(f"PSNR: {out['val_PSNR']}\n")):
+        raise AssertionError(f"run_test: {out}, test_metrics.txt {text!r}")
+    log(f"[paths] run_test, 2 frames in {test_s:.2f} s: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+
+    n_poses = 4
+    t0 = time.perf_counter()
+    run_wanderpath(cfg, frame_range=(3, 3), n_poses=n_poses, quiet=True,
+                   device=dev)
+    wander_s = time.perf_counter() - t0
+    frame_dir = Path(tmp) / cfg.expname / "render_wanderpath_frame3"
+    names = sorted(p.name for p in frame_dir.iterdir())
+    want = sorted(f"{kind}_map_blend_{i:02d}.png" for kind in ("rgb", "depth")
+                  for i in range(n_poses))
+    sizes = {png_size(frame_dir / n) for n in names}
+    if names != want or sizes != {(cfg.img_w, cfg.img_h)}:
+        raise AssertionError(f"run_wanderpath wrote {names} of sizes {sizes}")
+    log(f"[paths] run_wanderpath, frame 3, {n_poses} poses at precision "
+        f"{cfg.precision} ({cfg.img_h}x{cfg.img_w}, width {cfg.netwidth}) "
+        f"in {wander_s:.2f} s (the checkpoint, the frame and its volumes "
+        f"included): {len(names)} PNGs of {cfg.img_w}x{cfg.img_h}")
+
+    results = {}
+    for precision, preset in ((32, presets.FLAGSHIP), (16, presets.FLAGSHIP_16)):
+        pcfg, system, batch, params = presets.build(
+            preset, presets.FLAGSHIP_SCENE, dev, SEED)
+        # the target's own camera, then three orbit poses
+        c2ws = torch.stack([batch["c2ws"][-1]] + [
+            batch["wander_path_c2w"][i] for i in (15, 30, 45)])
+        w2cs = torch.stack([batch["w2cs"][-1]] + [
+            batch["wander_path_w2c"][i] for i in (15, 30, 45)])
+        P = len(c2ws)
+        reset_counters()
+        ref = system.make_eval_step()(params, batch)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        eval_launches = read_counters()
         reset_counters()
         t0 = time.perf_counter()
-        state, loop_system = run_training(cfg, {"train": ds},
-                                          max_steps=LOOP_STEPS, quiet=True,
-                                          device=dev)
+        maps = system.make_eval_path_step()(params, batch, c2ws, w2cs)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = read_counters()
-        expected = {k: LOOP_STEPS * v for k, v in step_launches.items()}
-        log(f"[quality] run_training: {LOOP_STEPS} steps in {wall:.2f} s "
-            f"({wall / LOOP_STEPS:.4f} s/step, the first step and the frames' "
-            f"first build included), launches {got}")
-        if not loop_system.bf16 or got != expected:
-            raise AssertionError(f"the loop's launches {got}, expected "
-                                 f"{expected} (precision 16)")
-        run_dir = Path(tmp) / cfg.expname
-        with open(run_dir / "metrics.csv", newline="") as f:
-            rows = list(csv.DictReader(f))
-        steps = [int(r["step"]) for r in rows]
-        want = list(range(cfg.log_every, LOOP_STEPS + 1, cfg.log_every))
-        losses = [float(r["train_loss"]) for r in rows]
-        if steps != want or not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"metrics.csv: steps {steps}, train_loss "
-                                 f"{losses}")
-        log("[quality] metrics.csv: " + "; ".join(
-            f"step {r['step']} train_loss {float(r['train_loss']):.5g} "
-            f"train_PSNR {float(r['train_PSNR']):.4g} steps_per_sec "
-            f"{float(r['steps_per_sec']):.3f}" for r in rows))
-        t0 = time.perf_counter()
-        out = validate(cfg, loop_system, loop_system.make_eval_step(),
-                       state.params, ds, run_dir, LOOP_STEPS, max_images=1)
-        val_s = time.perf_counter() - t0
-        if not all(math.isfinite(v) for v in out.values()):
-            raise AssertionError(f"validate: {out}")
-        log(f"[quality] validate, 1 image in {val_s:.2f} s: val_PSNR "
-            f"{out['val_PSNR']:.4f}, val_SSIM {out['val_SSIM']:.4f}, val_loss "
-            f"{out['val_loss']:.5g}; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (not gated "
-            f"after {LOOP_STEPS} steps)")
+        path_s = time.perf_counter() - t0
+        launches = read_counters()
+        expected = dict(eval_launches)
+        for k in ("sample_volume", "gather_colors", "fused_nerf_forward"):
+            expected[k] = P * eval_launches[k]
+        log(f"[paths] precision {precision}: eval image launches "
+            f"{eval_launches}; path of {P} poses {launches}")
+        if launches != expected or expected["homo_warp_cm"] <= 0:
+            raise AssertionError(f"path launches {launches}, expected "
+                                 f"{expected}: K1 once per frame, K3, K6 and "
+                                 f"K8 once per pose, no backward kernel")
+        for k in EVAL_KEYS:
+            v = maps[k]
+            if (v.shape != (P, *ref[k].shape)
+                    or not bool(torch.isfinite(v).all())):
+                raise AssertionError(f"path {k}: {tuple(v.shape)} or "
+                                     f"non-finite values")
+            err = float((v[0] - ref[k]).abs().max())
+            if not torch.allclose(v[0], ref[k], rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"path {k} at the target's pose: "
+                                     f"{err} from the eval step")
+        moved = float((maps["rgb_map_ref"][1:] - maps["rgb_map_ref"][:1])
+                      .abs().max())
+        with torch.no_grad():
+            builds = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                system.render_models(batch)
+                torch.cuda.synchronize()
+                builds.append(time.perf_counter() - t0)
+        build_s = builds[-1]
+        per_pose = (path_s - build_s) / P
+        results[precision] = (per_pose, build_s)
+        log(f"[paths] precision {precision}: {P} poses in {path_s:.3f} s, "
+            f"{per_pose:.3f} s/pose beside a one-off volume build of "
+            f"{build_s:.3f} s (first {builds[0]:.3f}); the target's pose "
+            f"within rtol = atol = 1e-4 of make_eval_step, the orbit poses "
+            f"up to {moved:.3f} from it in rgb_map_ref")
+        del system, params, batch, maps, ref
+        torch.cuda.empty_cache()
+    return results
 
 
 def main() -> int:
@@ -1798,10 +1941,17 @@ def main() -> int:
                                  "flagship-16")
     train16, rays_s16 = flagship_train(cfg16, system16, batch16, params16,
                                        "train-16")
-    quality(dev, system16, batch16, params16, train16)
+    with tempfile.TemporaryDirectory() as tmp:
+        loop_cfg, loop_state = quality(dev, system16, batch16, params16,
+                                       train16, tmp)
+        del system16, params16, batch16
+        torch.cuda.empty_cache()
+        per_pose = paths(dev, tmp, loop_cfg, loop_state)
     log(f"[summary] flagship eval s/image: float32 {s_image:.3f}, precision "
         f"16 {s_image16:.3f}; train_rays_per_sec: float32 {rays_s:.1f}, "
-        f"precision 16 {rays_s16:.1f}")
+        f"precision 16 {rays_s16:.1f}; path s/pose: float32 "
+        f"{per_pose[32][0]:.3f}, precision 16 {per_pose[16][0]:.3f} (volumes "
+        f"{per_pose[32][1]:.3f} and {per_pose[16][1]:.3f} s once per frame)")
     results = rows.finish({"eval": eval_launches, "train": train_launches,
                            "eval16": eval16, "train16": train16})
     for r in results:

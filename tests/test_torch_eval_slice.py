@@ -61,14 +61,20 @@ def test_eval_step_matches_zest_tpu():
 def test_port_imports_no_jax():
     """The port runs its eval step and one training step in a fresh
     interpreter without JAX and without the JAX package ``zest_tpu``; its
-    training loop, metrics and quality gate import neither."""
+    training loop, checkpoints, path rendering, config parser, command-line
+    modules, metrics and quality gate import neither."""
     script = textwrap.dedent("""
         import sys
         import torch
-        from zest_tpu_torch import metrics, presets, sampling, train_loop
+        from zest_tpu_torch import (checkpoint, cli, config, fine_tune,
+                                    metrics, presets, render_paths,
+                                    render_spiral, sampling, test, train,
+                                    train_loop)
+        from zest_tpu_torch.data import nsff
         from zest_tpu_torch.tools import quality_gate
         from zest_tpu_torch.utils import visualize
         from zest_tpu_torch.system import TrainState, phase_for_step
+        assert config.config_parser(["--netwidth", "96"]).netwidth == 96
         _, system, batch, params = presets.build(
             presets.SMALL, presets.SMALL_SCENE, "cpu")
         maps = system.make_eval_step()(params, batch)

@@ -252,20 +252,21 @@ def test_run_training_writes_metrics_with_validation(tmp_path):
 
 
 @pytest.mark.parametrize("change,name", [
-    (dict(ckpt="runs/exp/ckpts/last"), "ckpt="),
+    (dict(dataset_name="llff"), "dataset_name='llff'"),
     (dict(gan_type="basic"), "gan_type="),
     (dict(acc_grad=2), "acc_grad=2"),
     (dict(lpips_weights="lpips.npz"), "LPIPS"),
-    (dict(), "auto-resume"),
+    (dict(dataset_name="synthetic", use_mvs_dy=False), "use_mvs_dy=False"),
 ])
 def test_run_training_refuses_what_it_does_not_port(tmp_path, change, name):
-    cfg = ZestConfig(**presets.SMALL_TRAIN, save_dir=str(tmp_path),
-                     expname="refused", **change)
-    if name == "auto-resume":
-        (tmp_path / "refused" / "ckpts" / "last").mkdir(parents=True)
+    """Loaders other than the synthetic scene's are refused when the loop
+    builds its datasets from the config (``datasets=None``)."""
+    cfg = ZestConfig(**dict(presets.SMALL_TRAIN, save_dir=str(tmp_path),
+                            expname="refused", **change))
+    datasets = None if "dataset_name" in change else {
+        "train": SyntheticDataset(**presets.SMALL_SCENE)}
     with pytest.raises(NotImplementedError, match=name):
-        train_loop.run_training(cfg, {"train": SyntheticDataset(
-            **presets.SMALL_SCENE)}, max_steps=1, device="cpu")
+        train_loop.run_training(cfg, datasets, max_steps=1, device="cpu")
 
 
 def test_validate_refuses_lpips(tmp_path):
@@ -316,15 +317,16 @@ def _reference_gate():
 def test_gate_holds_the_reference_configuration():
     kw, thresholds = _reference_gate()
     assert quality_gate.PSNR_THRESHOLDS == thresholds == {2000: 28.0}
-    # paths: the port's run directory lies in the working tree;
-    # use_viewdirs: read by neither package, not a field of the port's config
-    other = {"save_dir", "expname", "use_viewdirs"}
+    # paths: the port's run directory lies in the working tree
+    other = {"save_dir", "expname"}
     assert {k: v for k, v in quality_gate.CONFIG.items() if k not in other} \
         == {k: v for k, v in kw.items() if k not in other}
-    assert set(kw) == set(quality_gate.CONFIG) | {"use_viewdirs"}
-    assert kw["use_viewdirs"] and "use_viewdirs" not in {
+    assert set(kw) == set(quality_gate.CONFIG)
+    # use_viewdirs: a field of both configs, read by neither package
+    assert kw["use_viewdirs"] and "use_viewdirs" in {
         f.name for f in dataclasses.fields(ZestConfig)}
-    assert not [p for p in (REPO / "zest_tpu").rglob("*.py")
+    assert not [p for pkg in ("zest_tpu", "zest_tpu_torch")
+                for p in (REPO / pkg).rglob("*.py")
                 if "cfg.use_viewdirs" in p.read_text()]
     assert quality_gate.SCENE == dict(presets.FLAGSHIP_SCENE)
     assert quality_gate.VAL_IMAGES == 2

@@ -12,10 +12,16 @@ find:
 - ``losses``                   — the scene-flow loss bundle of a training step
 - ``system``                   — ``ZestSystem``: its full-image eval step and
                                  its training step (clip, Adam, cosine LR)
-- ``train_loop``, ``metrics``  — the training loop, full-image validation,
-                                 the CSV metric log; PSNR and SSIM
+- ``train_loop``, ``metrics``  — the training loop, full-image validation
+                                 and test, the CSV metric log; PSNR and SSIM
+- ``checkpoint``               — top-5 and ``last`` checkpoints, resume
+- ``render_paths``             — the bullet-time wander path
+- ``train``, ``test``,         — the command-line entry points
+  ``fine_tune``,                 (``python -m zest_tpu_torch.train ...``),
+  ``render_spiral``, ``cli``     twins of the root scripts
 - ``convert``                  — ``zest_tpu`` param tree → this port's state dict
-- ``config``, ``data``         — the config dataclass and the synthetic scene
+- ``config``, ``data``         — the config dataclass and its parser, the
+                                 synthetic scene and the wander path's poses
                                  (standard library and NumPy only), and the
                                  loop's prefetch thread (``data.pipeline``)
 - ``utils.visualize``          — depth colormaps and a PNG writer

@@ -1,2 +1,2 @@
-"""Host-side inputs of the port: the synthetic scene (NumPy only) and the
-training loop's prefetch thread."""
+"""Host-side inputs of the port: the synthetic scene and the wander path's
+poses (NumPy only), and the training loop's prefetch thread."""

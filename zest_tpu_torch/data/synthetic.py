@@ -4,13 +4,16 @@ data on disk.
 The same scene as ``zest_tpu.data.synthetic`` (smooth procedural images, a
 small camera arc, proj_mats of intrinsic/4 @ w2c relative to the first
 keyframe, identity neighbour proj_mats, the pixel grid as optical flow), cut
-to the keys the eval and training steps read. NumPy only; deterministic per
-(frame, seed). Each dataset builds each normalized frame once and keeps it
-(read-only), since every sample stacks 13 of them at the flagship size.
+to the keys the eval and training steps and the wander path read. NumPy
+only; deterministic per (frame, seed). Each dataset builds each normalized
+frame once and keeps it (read-only), since every sample stacks 13 of them at
+the flagship size.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from .nsff import wanderpath_poses
 
 # ImageNet statistics every loader normalizes with
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -40,15 +43,30 @@ def _normalized_image(H, W, t, seed):
 class SyntheticDataset:
     """Samples of a tiny synthetic dynamic scene: the keyframes plus the
     target in ``images``, the four temporal neighbours t-2..t+2 of the
-    dynamic volume in ``nb_*``, and the training keys."""
+    dynamic volume in ``nb_*``, the training keys and the target's 60-pose
+    wander path.
 
-    def __init__(self, *, img_h=48, img_w=64, num_frames=None,
-                 num_keyframes=4, seed=0):
+    The constructor takes ``zest_tpu``'s arguments, so that
+    ``train_loop.build_datasets`` builds it as ``zest_tpu`` does: the
+    directories, the split and the loader options of real scenes are not
+    read, and ``max_len`` > 0 cuts the length. Every sample has the
+    keyframes and the neighbours (``use_mvs``, ``use_mvs_dy``): the
+    configurations without them are refused by name."""
+
+    def __init__(self, root_dir=None, config_dir=None, split="train", *,
+                 img_h=48, img_w=64, num_frames=None, num_keyframes=4,
+                 use_mvs=True, use_mvs_dy=True, seed=0, max_len=-1, **_):
+        if not (use_mvs and use_mvs_dy):
+            raise NotImplementedError(
+                f"zest_tpu_torch's synthetic scene always has the keyframes "
+                f"and the neighbours (use_mvs={use_mvs}, "
+                f"use_mvs_dy={use_mvs_dy})")
         if num_frames is None:
             num_frames = 3 * (num_keyframes - 1) + 1
         self.H, self.W = img_h, img_w
         self.num_frames = num_frames
         self.seed = seed
+        self.max_len = max_len
         f = 1.2 * img_w
         self.intrinsic = np.array([[f, 0, img_w / 2],
                                    [0, f, img_h / 2],
@@ -58,7 +76,7 @@ class SyntheticDataset:
         self._frames: dict = {}
 
     def __len__(self):
-        return self.num_frames
+        return self.num_frames if self.max_len <= 0 else self.max_len
 
     def _pose(self, frame):
         """Camera on a small x-axis arc; c2w [4, 4]."""
@@ -106,6 +124,7 @@ class SyntheticDataset:
         # from unwarped neighbour features, as the reference builds it
         nbs = [max(target - 2, 0), max(target - 1, 0),
                min(target + 1, nf - 1), min(target + 2, nf - 1)]
+        wander_c2w = wanderpath_poses(self._pose(target), self.intrinsic[1, 1])
         return {
             "images": np.stack(imgs).astype(np.float32),
             "depths": 0.5 + np.linspace(0, 1, H * W, dtype=np.float32)
@@ -124,6 +143,8 @@ class SyntheticDataset:
             "nb_intr": np.stack([self.intrinsic] * len(nbs)),
             "nb_proj_mats": np.tile(np.eye(4, dtype=np.float32)[:3],
                                     (len(nbs), 1, 1)),
+            "wander_path_c2w": wander_c2w,
+            "wander_path_w2c": np.linalg.inv(wander_c2w).astype(np.float32),
             **self._training_keys(target),
         }
 

@@ -3,7 +3,9 @@ step (counterpart of ``zest_tpu.system``).
 
 ``make_eval_step()(params, batch)`` builds the static and dynamic encoding
 volumes once, then renders the target view in fixed-size ray chunks with a
-plain Python loop. ``make_train_step(optimizer)(state, batch, draws, phase)``
+plain Python loop. ``make_eval_path_step()(params, batch, path_c2ws,
+path_w2cs)`` builds them once and renders the target view from each of P
+camera poses. ``make_train_step(optimizer)(state, batch, draws, phase)``
 builds both volumes, renders the step's rays through both fields (the t±1
 and chain passes included), takes the scene-flow loss bundle and its
 gradients, and applies Adam with global-norm clipping and a cosine learning
@@ -258,25 +260,45 @@ class ZestSystem(nn.Module):
             c2ws=batch["c2ws"], intrinsics=batch["intrinsics"],
             near_fars=batch["near_fars"], n_samples=cfg.N_samples, pad=cfg.pad)
 
-    def render_kwargs(self, batch) -> dict:
-        """The reference poses and time ``render_rays`` takes for this batch."""
-        return dict(im_w2c_ref=batch["w2cs"][0], nb_w2c_ref=batch["nb_w2cs"][0],
+    def render_kwargs(self, batch, w2cs=None) -> dict:
+        """The reference poses and time ``render_rays`` takes for this batch
+        (slot 0 of ``w2cs``, the batch's by default)."""
+        w2cs = batch["w2cs"] if w2cs is None else w2cs
+        return dict(im_w2c_ref=w2cs[0], nb_w2c_ref=batch["nb_w2cs"][0],
                     ref_frame_idx=normalize_frame_idx(batch["time"],
                                                       batch["total_frames"]),
                     white_bkgd=self.cfg.white_bkgd)
 
-    def forward(self, batch):
-        """The full-image eval of the batch's target view -> dict of
-        [H, W, ...], rendered in chunks of ``eval_chunk`` rays."""
+    def eval_image(self, models, batch, imgs_un, c2ws, w2cs):
+        """The full image of the target camera, the last slot of ``c2ws`` /
+        ``w2cs``, rendered with ``models`` in chunks of ``eval_chunk`` rays
+        -> dict of [H, W, ...]. The models (the volumes, the color
+        conditioning) read only the source views, so a new target pose needs
+        no new models."""
         _, H, W, _ = batch["images"].shape
-        models = self.render_models(batch)
-        imgs_un = unpreprocess(batch["images"])
-        kwargs = self.render_kwargs(batch)
-        outs = [render.render_rays(models, self.chunk_rays(batch, idx, imgs_un),
-                                   **kwargs)
+        pose_batch = dict(batch, c2ws=c2ws, w2cs=w2cs)
+        kwargs = self.render_kwargs(batch, w2cs)
+        outs = [render.render_rays(
+                    models, self.chunk_rays(pose_batch, idx, imgs_un), **kwargs)
                 for idx in range(-(-(H * W) // self._chunk(H, W)))]
         return {k: torch.cat([o[k] for o in outs])[:H * W]
                 .reshape(H, W, *outs[0][k].shape[1:]) for k in EVAL_KEYS}
+
+    def forward(self, batch, path_c2ws=None, path_w2cs=None):
+        """The full-image eval of the batch's target view -> dict of
+        [H, W, ...]; given ``path_c2ws`` / ``path_w2cs`` [P, 4, 4], that of
+        the target camera put at each of the P poses in turn -> dict of
+        [P, H, W, ...]. The volumes are built once either way."""
+        models = self.render_models(batch)
+        imgs_un = unpreprocess(batch["images"])
+        c2ws, w2cs = batch["c2ws"], batch["w2cs"]
+        if path_c2ws is None:
+            return self.eval_image(models, batch, imgs_un, c2ws, w2cs)
+        maps = [self.eval_image(models, batch, imgs_un,
+                                torch.cat([c2ws[:-1], c2w[None]]),
+                                torch.cat([w2cs[:-1], w2c[None]]))
+                for c2w, w2c in zip(path_c2ws, path_w2cs)]
+        return {k: torch.stack([m[k] for m in maps]) for k in EVAL_KEYS}
 
     def make_eval_step(self):
         """Returns eval_step(params, batch) → maps of [H, W, ...]."""
@@ -286,6 +308,19 @@ class ZestSystem(nn.Module):
                 return torch.func.functional_call(self, params, (batch,))
 
         return eval_step
+
+    def make_eval_path_step(self):
+        """Returns eval_path_step(params, batch, path_c2ws [P, 4, 4],
+        path_w2cs [P, 4, 4]) → maps of [P, H, W, ...]: the batch's encoding
+        volumes and render models built once, then the full image from each
+        pose in turn (a bullet-time path)."""
+
+        def eval_path_step(params, batch, path_c2ws, path_w2cs):
+            with torch.no_grad():
+                return torch.func.functional_call(
+                    self, params, (batch, path_c2ws, path_w2cs))
+
+        return eval_path_step
 
     # ------------------------------------------------------------------
     def make_optimizer(self, steps_per_epoch: int) -> Optimizer:

@@ -15,7 +15,8 @@ measures reconstruction) and prints one JSON line: ``steps``, ``val_PSNR``,
 val_PSNR is below the floor for N_STEPS (``PSNR_THRESHOLDS``; other step
 counts report without gating) and 2 without a CUDA card unless ``--device
 cpu`` is given. Precision 16 is how the reference gate runs; the floor is
-set for it. The run writes ``metrics.csv`` and the validation PNGs under
+set for it. The run writes ``metrics.csv``, its checkpoints (``ckpts/``)
+and the validation PNGs under
 ``runs/quality_gate/qgate_p<precision>_seed<seed>/``, cleared first. TF32
 is off.
 """
@@ -33,15 +34,15 @@ import torch
 # val PSNR floors by step count, the reference gate's
 PSNR_THRESHOLDS = {2000: 28.0}
 VAL_IMAGES = 2
-# the reference gate's configuration but for its use_viewdirs=True, which
-# neither package reads (the fields always take the view directions); the
-# run directory lies in the working tree, one per precision and seed
+# the reference gate's configuration (its use_viewdirs=True is read by
+# neither package: the fields always take the view directions); the run
+# directory lies in the working tree, one per precision and seed
 CONFIG = dict(train_sceneflow=True, use_mvs=True, use_mvs_dy=True, pad=24,
               num_keyframes=8, netdepth=8, netwidth=256, multires=10,
               multires_views=4, N_samples=128, batch_size=600,
               num_extra_samples=512, use_motion_mask=True,
               decay_iteration=30, with_chain_loss=True, pts_embedder=True,
-              dir_embedder=True, num_epochs=6000,
+              dir_embedder=True, use_viewdirs=True, num_epochs=6000,
               raw_noise_std=1.0, img_h=288, img_w=512, precision=16,
               seed_everything=0, steps_per_epoch=1000,
               save_dir="runs/quality_gate", expname="qgate", log_every=200)
@@ -68,7 +69,8 @@ def main(argv=()) -> int:
         CONFIG, precision=args.precision, seed_everything=args.seed,
         expname=f"{CONFIG['expname']}_p{args.precision}_seed{args.seed}"))
     run_dir = Path(cfg.save_dir) / cfg.expname
-    # the loop cannot resume: a run starts at step 0 with an empty log
+    # a gate run starts at step 0 from fresh weights with an empty log: the
+    # loop would resume from the directory's ckpts/last
     shutil.rmtree(run_dir, ignore_errors=True)
     if args.device == "cuda":
         print(f"device: {torch.cuda.get_device_name(0)}, precision "

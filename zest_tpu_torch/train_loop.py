@@ -1,24 +1,28 @@
-"""The training loop, full-image validation and CSV metric logging
-(counterpart of ``zest_tpu.train_loop``).
+"""The training loop, its checkpoints, full-image validation and test, and
+CSV metric logging (counterpart of ``zest_tpu.train_loop``).
 
-``run_training(cfg, {"train": ds, "val": ds}, max_steps)`` trains from fresh
-weights: passes over a seeded permutation of the training frames, each step
-with its phase and its draws, logs every ``log_every`` steps and a
-validation every ``min(N_vis, ceil(num_epochs / N_vis))`` epochs.
+``run_training(cfg[, datasets], max_steps)`` trains from fresh weights, or
+resumes from ``--ckpt`` or ``<save_dir>/<expname>/ckpts/last``: passes over
+a seeded permutation of the training frames, each step with its phase and
+its draws, logs every ``log_every`` steps and a validation every
+``min(N_vis, ceil(num_epochs / N_vis))`` epochs, checkpoints the top 5 by
+validation loss and ``last`` (``checkpoint.CheckpointManager``).
 ``validate`` renders full images and returns their loss, PSNR and SSIM,
-with PNG dumps of the first four.
+with PNG dumps of the first four; ``run_test`` runs it on the test split
+from ``--ckpt`` and writes ``test_metrics.txt``. ``build_datasets`` builds
+the synthetic scene from the config.
 
-Not ported yet, and refused by name: resuming from a checkpoint (``ckpt``,
-or the auto-resume from ``<save_dir>/<expname>/ckpts/last``), gradient
-accumulation (``acc_grad`` > 1), the GAN branch and LPIPS. The loop saves
-no checkpoints and has no W&B sink; ``run_test`` and the real-data loaders
-are not ported.
+Not ported yet, and refused by name: gradient accumulation (``acc_grad`` >
+1), the GAN branch, LPIPS, ``vis_cnn``'s encoder dumps and the real-data
+loaders. The loop has no W&B sink.
 """
 from __future__ import annotations
 
 import contextlib
 import csv
+import json
 import time
+import warnings
 from pathlib import Path
 from typing import Optional
 
@@ -26,9 +30,34 @@ import numpy as np
 import torch
 
 from . import metrics, sampling
+from .checkpoint import CheckpointManager, restore_path
 from .data.pipeline import prefetch_to_device
+from .data.synthetic import SyntheticDataset
 from .system import TrainState, ZestSystem, phase_for_step, to_batch, unpreprocess
 from .utils.visualize import save_image, visualize_depth
+
+
+def build_datasets(cfg, splits=("train", "val")) -> dict:
+    """One dataset per split, built from the config with ``zest_tpu``'s
+    keyword arguments. Only the synthetic scene is ported; every other
+    ``dataset_name`` is refused by name."""
+    if cfg.dataset_name != "synthetic":
+        raise NotImplementedError(
+            f"zest_tpu_torch does not port the dataset_name="
+            f"{cfg.dataset_name!r} loader yet (only 'synthetic')")
+    out = {}
+    for split in splits:
+        kwargs = {}
+        if cfg.finetune_scene is not None:
+            kwargs["scene"] = cfg.finetune_scene
+        down = cfg.imgScale_train if split == "train" else cfg.imgScale_test
+        out[split] = SyntheticDataset(
+            cfg.datadir, config_dir=cfg.configdir, split=split,
+            downSample=down, closest_views=cfg.use_closest_views,
+            num_keyframes=cfg.num_keyframes, use_mvs=cfg.use_mvs,
+            use_mvs_dy=cfg.use_mvs_dy, img_h=cfg.img_h, img_w=cfg.img_w,
+            crossval=cfg.crossval, frame_jump=cfg.frame_jump, **kwargs)
+    return out
 
 
 class MetricLogger:
@@ -120,12 +149,8 @@ def validate(cfg, system, eval_fn, params, val_ds, save_dir: Path, step: int,
             "val_SSIM": float(np.mean(ssims))}
 
 
-def _check_supported(cfg, run_dir: Path) -> None:
-    ckpts = run_dir / "ckpts"
+def _check_supported(cfg) -> None:
     unsupported = {
-        f"ckpt={cfg.ckpt!r}": bool(cfg.ckpt),
-        f"auto-resume from {ckpts / 'last'}": (
-            (ckpts / "last").exists() or (ckpts / "last.npz").exists()),
         f"gan_type={cfg.gan_type!r}": cfg.gan_type is not None,
         f"acc_grad={cfg.acc_grad}": cfg.acc_grad > 1,
     }
@@ -136,32 +161,64 @@ def _check_supported(cfg, run_dir: Path) -> None:
     _refuse_lpips(cfg)
 
 
-def run_training(cfg, datasets: dict, max_steps: Optional[int] = None,
-                 quiet: bool = False, device="cuda"):
-    """Train from fresh weights on ``datasets["train"]`` (validating on
-    ``datasets["val"]`` when given) for ``max_steps`` steps (default:
-    ``max_train_steps``, else ``num_epochs * steps_per_epoch``). Returns
-    (the final TrainState, the system).
+def _check_like(restored: TrainState, state: TrainState, path) -> None:
+    """A restored state must have the system's parameter names and shapes."""
+    want = {k: tuple(v.shape) for k, v in state.params.items()}
+    got = {k: tuple(v.shape) for k, v in restored.params.items()}
+    if got != want:
+        diff = sorted(set(got) ^ set(want)) or sorted(
+            k for k in want if got[k] != want[k])
+        raise ValueError(f"checkpoint {path} does not fit this config's "
+                         f"parameters: {diff[:5]}")
+
+
+def run_training(cfg, datasets: Optional[dict] = None,
+                 max_steps: Optional[int] = None, quiet: bool = False,
+                 device="cuda"):
+    """Train on ``datasets["train"]`` (validating on ``datasets["val"]``
+    when given; ``build_datasets(cfg)`` when None) up to ``max_steps``
+    steps (default: ``max_train_steps``, else ``num_epochs *
+    steps_per_epoch``). Returns (the final TrainState, the system).
+
+    The state starts from fresh weights, or from ``cfg.ckpt``, or else from
+    ``<save_dir>/<expname>/ckpts/last`` when that exists, at the saved step
+    with the saved Adam state. After each pass over the frames the loop
+    validates when the epoch is due (then writes a top-k checkpoint) and
+    writes ``last``; it writes ``last`` again at the end.
 
     The seed is ``seed_everything`` (0 when negative): it seeds the weights
     (``init_params`` on a CPU generator, so every device starts from the
     same numbers), the frame order (``np.random.default_rng``, one
     permutation per pass over the frames) and the step's draws (one
-    generator on ``device``). The epoch of a pass is taken at its start.
-    Metrics are read from the device only at log steps and validations."""
+    generator on ``device``). A resumed run takes the order and the draws
+    from the seed's start again, as ``zest_tpu`` does. The epoch of a pass
+    is taken at its start. Metrics are read from the device only at log
+    steps and validations."""
     device = torch.device(device)
+    _check_supported(cfg)
+    if cfg.N_importance > 0:
+        warnings.warn("N_importance > 0 builds an unused fine network in the "
+                      "reference and is a no-op here", stacklevel=2)
     run_dir = Path(cfg.save_dir) / cfg.expname
-    _check_supported(cfg, run_dir)
     seed = cfg.seed_everything if cfg.seed_everything >= 0 else 0
+    datasets = datasets or build_datasets(cfg)
     train_ds, val_ds = datasets["train"], datasets.get("val")
     steps_per_epoch = cfg.steps_per_epoch or len(train_ds)
 
+    ckpt = CheckpointManager(run_dir / "ckpts", cfg)
     logger = MetricLogger(run_dir)
     system = ZestSystem(cfg).to(device)
     params = {k: v.to(device) for k, v in
               system.init_params(torch.Generator().manual_seed(seed)).items()}
     optimizer = system.make_optimizer(steps_per_epoch)
     state = TrainState(params, optimizer.init(params), 0)
+    resume = cfg.ckpt or (ckpt.dir / "last" if ckpt.has_last() else None)
+    if resume:
+        restored = restore_path(resume, device)
+        _check_like(restored, state, resume)
+        state = restored
+        if not quiet and not cfg.ckpt:
+            print(f"resumed from {resume} at step {state.step}", flush=True)
     step_fn = system.make_train_step(optimizer)
     eval_fn = system.make_eval_step()
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -171,7 +228,7 @@ def run_training(cfg, datasets: dict, max_steps: Optional[int] = None,
          else cfg.num_epochs * steps_per_epoch)
     check_val_every = max(min(cfg.N_vis, -(-cfg.num_epochs // cfg.N_vis)), 1)
 
-    host_step = 0
+    host_step = state.step
     perm_rng = np.random.default_rng(seed)
     t_last = time.perf_counter()
     try:
@@ -209,6 +266,44 @@ def run_training(cfg, datasets: dict, max_steps: Optional[int] = None,
                     print(f"epoch {epoch}: " + " ".join(
                         f"{k}={v:.4f}" for k, v in val_logs.items()),
                         flush=True)
+                ckpt.save_topk(state, val_logs["val_loss"], host_step)
+            ckpt.save_last(state)
+        ckpt.save_last(state)
     finally:
         logger.close()
     return state, system
+
+
+def run_test(cfg, datasets: Optional[dict] = None, quiet: bool = False,
+             device="cuda") -> dict:
+    """Full-image metrics over the test split (``build_datasets(cfg,
+    ("test",))`` when ``datasets`` is None) with the weights of
+    ``cfg.ckpt``: ``validate`` (tag "test", PNGs of the first four) and
+    ``<save_dir>/<expname>/test_metrics.txt``. Without ``cfg.ckpt`` it
+    warns and evaluates fresh weights of seed 0."""
+    if cfg.vis_cnn:
+        raise NotImplementedError(
+            "zest_tpu_torch does not port vis_cnn's encoder dumps yet")
+    device = torch.device(device)
+    datasets = datasets or build_datasets(cfg, splits=("test",))
+    test_ds = datasets["test"]
+    save_dir = Path(cfg.save_dir) / cfg.expname
+    save_dir.mkdir(parents=True, exist_ok=True)
+
+    system = ZestSystem(cfg).to(device)
+    if cfg.ckpt:
+        params = restore_path(cfg.ckpt, device).params
+    else:
+        # a legitimate-looking test_metrics.txt of random weights: be loud
+        warnings.warn("run_test called without --ckpt: evaluating randomly "
+                      "initialised weights, not a trained model", stacklevel=2)
+        params = {k: v.to(device) for k, v in
+                  system.init_params(torch.Generator().manual_seed(0)).items()}
+    out = validate(cfg, system, system.make_eval_step(), params, test_ds,
+                   save_dir, 0, tag="test")
+    with open(save_dir / "test_metrics.txt", "w") as f:
+        f.write(f"PSNR: {out['val_PSNR']}\n")
+        f.write(f"SSIM: {out['val_SSIM']}\n")
+    if not quiet:
+        print(json.dumps(out), flush=True)
+    return out
