@@ -113,11 +113,25 @@ sm_90a), then:
     K8 4 times as often, no backward kernel; the maps at the target's pose
     within rtol = atol = 1e-4 of ``make_eval_step``'s. It prints s/pose
     (the path's wall less one volume build, over the poses) beside the
-    one-off cost of building the frame's volumes.
+    one-off cost of building the frame's volumes;
+14. the paper's baselines and ablations (``presets.FAMILIES``: MVSNeRF's
+    static field, NSFF without volumes, the static- and the
+    dynamic-volume ablation): each small preset's eval and training step
+    on CUDA against the CPU as phases 4, 7 and 10 hold them (16 bits where
+    the preset has a volume); at MVSNeRF's flagship (288x544, 8 source
+    views, one 4-output field, 4096 rays) K1, K2, K3, K4 and K8 held to
+    their twins at its widths, K6 and K7 in the 4-output geometry in both
+    modes under the gates of phases 3, 6 and 9 (its own rows in the JSON,
+    ``*_mvsnerf``), and its eval and training step at float32 and precision
+    16 with their launches, s/image and train_rays_per_sec; one flagship
+    eval image and one training step of each other preset at float32, with
+    their launches and peak memory.
 
 The second-to-last line of stdout is a JSON object with one entry per kernel
 (``timing``: "device" for the rows timed by the profiler's kernel durations,
-K1-K5, K8, K9 and K9's backward; "events" for CUDA events); the last line is
+K1-K5, K8, K9 and K9's backward; "events" for CUDA events; ``path_launches``:
+its launches on every path run, one eval image or one step-0 step each);
+the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without CUDA.
 Nothing here imports JAX or the JAX package ``zest_tpu``: the configurations,
@@ -383,7 +397,9 @@ class Rows:
         """The rows with their launches: per eval image for the kernels the
         eval path runs (the forward ones), per training step (step-0 phase)
         for the others; ``train_launches`` is every kernel's count per
-        training step. ``launches`` maps each path name to its counts."""
+        training step, ``path_launches`` its count on every path run (one
+        eval image or one step-0 step each). ``launches`` maps each path
+        name to its counts."""
         rows = []
         for r in self.rows.values():
             b_ms = 1e3 * r["bytes"] / HBM_BYTES_PER_S
@@ -396,6 +412,7 @@ class Rows:
                 name=r["name"], route=r["route"], source=r["source"],
                 replaces=r["replaces"], launches=launches[path][c],
                 path=path, train_launches=launches[train_path][c],
+                path_launches={p: n[c] for p, n in launches.items()},
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=max(b_ms, o_ms),
                 bound_by="bytes" if b_ms >= o_ms else "operations",
@@ -415,8 +432,7 @@ def field_ops(field, n: int, passes: int, tf32: bool) -> tuple:
     if not (field.bf16 or tf32):
         return 2 * passes * n * macs, 0, 0
     heads = [field.alpha_linear, field.rgb_linear]
-    heads += [field.w_linear] if field.static else [field.sf_linear,
-                                                    field.prob_linear]
+    heads += [lin for lin, _ in field.extra_heads()]
     head = sum(m.weight.numel() for m in heads)
     products = 2 * passes * n * (macs - head)
     if field.bf16:
@@ -425,17 +441,20 @@ def field_ops(field, n: int, passes: int, tf32: bool) -> tuple:
 
 
 def chunk_inputs(system, batch):
-    """The first chunk's rays of the flagship eval and both fields' inputs on
-    them, as ``render_rays`` builds them ([16384, 128, ch])."""
+    """The first chunk's rays of the flagship eval and the fields' inputs on
+    them, as ``render_rays`` builds them ([16384, 128, ch]); the dynamic
+    field's where the system has one."""
     from zest_tpu_torch import render
     with torch.no_grad():
         models = system.render_models(batch)
         rays = system.chunk_rays(batch, 0)
         kw = system.render_kwargs(batch)
-        return rays, {
-            "static": render.static_field_inputs(models, rays, kw["im_w2c_ref"]),
-            "dynamic": render.dynamic_field_inputs(models, rays, kw["nb_w2c_ref"],
-                                                   kw["ref_frame_idx"])}
+        inputs = {"static": render.static_field_inputs(models, rays,
+                                                       kw["im_w2c_ref"])}
+        if system.nerf_dynamic is not None:
+            inputs["dynamic"] = render.dynamic_field_inputs(
+                models, rays, kw["nb_w2c_ref"], kw["ref_frame_idx"])
+        return rays, inputs
 
 
 def check_field_forward(rows, name, system, field_inputs, tol, paths,
@@ -499,7 +518,8 @@ def float32_class(label, field, inputs, gate) -> tuple:
 def step_inputs(system, batch, cfg, gen):
     """The flagship training step's step-0 rays (drawn from gen), the
     stacked t±1 points and the three field passes' inputs (field, inputs)
-    by label, as ``render_rays_train`` builds them."""
+    by label, as ``render_rays_train`` builds them; without a dynamic field
+    (no t±1 points: None) the static pass alone."""
     from zest_tpu_torch import render, sampling
     from zest_tpu_torch.kernels import fused_mlp
     from zest_tpu_torch.system import phase_for_step
@@ -511,6 +531,8 @@ def step_inputs(system, batch, cfg, gen):
         rays = system.train_rays(batch, draws, phase)
         kw = system.render_kwargs(batch)
         st_in = render.static_field_inputs(models, rays, kw["im_w2c_ref"])
+        if system.nerf_dynamic is None:
+            return rays, None, {"static": (system.nerf_static, st_in)}
         dy_in = render.dynamic_field_inputs(models, rays, kw["nb_w2c_ref"],
                                             kw["ref_frame_idx"])
         raw_dy = fused_mlp.fused_nerf_forward(system.nerf_dynamic, *dy_in)
@@ -537,8 +559,9 @@ def float64_twin(field):
     from zest_tpu_torch.models.nerf import NeRFField
     twin = NeRFField(field.depth, field.width, field.in_ch_pts,
                      field.in_ch_views, field.in_ch_feat, field.skips,
-                     field.static,
-                     bf16=field.bf16).to(next(field.parameters()).device)
+                     field.static, bf16=field.bf16,
+                     sceneflow=field.n_extra > 0,
+                     use_mvs=field.use_mvs).to(next(field.parameters()).device)
     twin.load_state_dict({k: v.double() for k, v in field.state_dict().items()})
     return twin.double()
 
@@ -564,7 +587,8 @@ def grad_distance(got, ref, leaves) -> tuple:
     return out, int(beyond.sum())
 
 
-def hold_bf16_backward(name, label, field, flat, g, pack, offsets):
+def hold_bf16_backward(name, label, field, flat, g, pack, offsets,
+                       float64_gate=False):
     """K7's bf16 mode on one pass, held three ways (the gates of phase 9):
 
     1. to the twin's autograd, with a criterion that the ReLU-kink noise
@@ -581,6 +605,15 @@ def hold_bf16_backward(name, label, field, flat, g, pack, offsets):
        the float32 twin to it is logged, and so are the ReLU masks and bf16
        activations of K7's forward (K6's) and of the twin's that differ
        from float64's.
+
+    With ``float64_gate`` the first gate's norm-wise and leaf-peak bounds
+    hold K7 to the float64 twin instead of the twin, each within its bound
+    plus the twin's own distance from float64 (what the bound against the
+    twin implies, by the triangle inequality): where the twin's bf16 sums
+    are themselves 2^-8 from float64 (the 4-output field at MVSNeRF's
+    inputs: 1e-2 on the first trunk layers), a K7 nearer float64 than the
+    twin could fail the bound against the twin. The rows beyond
+    BF16_FIELD_GRAD_TOL and the second gate are unchanged.
 
     Returns the largest norm-wise distance to the twin's autograd."""
     from zest_tpu_torch.kernels import fused_mlp
@@ -609,10 +642,17 @@ def hold_bf16_backward(name, label, field, flat, g, pack, offsets):
 
     failures = []
     for leaf, (norm, peak) in to_twin.items():
-        if not norm <= BF16_FIELD_GRAD_TOL:
-            failures.append(f"{leaf} {norm:.3e} norm-wise from the twin")
-        if not (leaf.startswith("d_") or peak <= BF16_LEAF_PEAK):
-            failures.append(f"{leaf} {peak:.3e} of its largest from the twin")
+        norm_tol, peak_tol, ref = BF16_FIELD_GRAD_TOL, BF16_LEAF_PEAK, "twin"
+        if float64_gate:
+            (norm, peak), ref = to_exact[leaf], "float64 twin"
+            norm_tol += twin_exact[leaf][0]
+            peak_tol += twin_exact[leaf][1]
+        if not norm <= norm_tol:
+            failures.append(f"{leaf} {norm:.3e} norm-wise from the {ref} "
+                            f"(tol {norm_tol:.3e})")
+        if not (leaf.startswith("d_") or peak <= peak_tol):
+            failures.append(f"{leaf} {peak:.3e} of its largest from the "
+                            f"{ref} (tol {peak_tol:.3e})")
         if not at_own[leaf][1] <= BF16_FIELD_GRAD_TOL:
             failures.append(f"{leaf} {at_own[leaf][1]:.3e} from the twin's "
                             f"backward at K7's forward values")
@@ -671,7 +711,8 @@ def hold_bf16_backward(name, label, field, flat, g, pack, offsets):
     return worst
 
 
-def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets):
+def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets,
+                          paths=("eval", "train"), suffix=""):
     """K7's float32 mode on one pass, with a spy on each of its three
     launches per chunk (``fused_mlp.recompute``, ``input_grads``,
     ``weight_grads``): each is held to its twin, every output to 1e-4 of its
@@ -682,7 +723,8 @@ def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets):
     ``fused_nerf_weight_grads``); the input gradients beside float32
     ``torch.matmul`` of the same d_z W^T shapes, pass 2 beside that of the
     same X^T dZ shapes. Then the whole backward is held as
-    ``hold_at_own_forward`` says. Returns its largest error."""
+    ``hold_at_own_forward`` says. ``suffix`` follows the rows' names, whose
+    launches are read on ``paths``. Returns its largest error."""
     from zest_tpu_torch.kernels import fused_mlp
     real = (fused_mlp.recompute, fused_mlp.input_grads, fused_mlp.weight_grads)
     src = "zest_tpu_torch/csrc/"
@@ -704,10 +746,10 @@ def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets):
 
         n = pts.shape[0]
         f32_ops, _, tf32_ops = field_ops(field, n, 1, True)
-        rows.check("fused_nerf_recompute", src + "fused_mlp_tc32.cu", replaces,
-                   "recompute", kern, plain, None, 1e-4, 3,
+        rows.check("fused_nerf_recompute" + suffix, src + "fused_mlp_tc32.cu",
+                   replaces, "recompute", kern, plain, None, 1e-4, 3,
                    nbytes(pts, feats, views, g, *kept) + nbytes(pack, wt),
-                   f32_ops, relative=True, flops_tf32=tf32_ops)
+                   f32_ops, relative=True, flops_tf32=tf32_ops, paths=paths)
 
     def input_grads(field, bufs, pack, offsets, *d_in):
         real[1](field, bufs, pack, offsets, *d_in)
@@ -731,11 +773,11 @@ def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets):
         n = d_in[0].shape[0]
         f32_ops, _, tf32_ops = field_ops(field, n, 1, True)
         reads = [bufs[k] for k in ("cond", "z", "hv", "g_heads")]
-        rows.check("fused_nerf_input_grads", src + "fused_mlp_tc32_dx.cu",
-                   replaces, "input_grads", kern, plain,
-                   lambda: [torch.matmul(d, w) for d, w in zip(ds, ws)],
+        rows.check("fused_nerf_input_grads" + suffix,
+                   src + "fused_mlp_tc32_dx.cu", replaces, "input_grads", kern,
+                   plain, lambda: [torch.matmul(d, w) for d, w in zip(ds, ws)],
                    1e-4, 3, nbytes(*reads, *outs) + nbytes(pack), f32_ops,
-                   relative=True, flops_tf32=tf32_ops)
+                   relative=True, flops_tf32=tf32_ops, paths=paths)
 
     def weight_grads(field, pts, feats, views, bufs, offsets, d_pack):
         real[2](field, pts, feats, views, bufs, offsets, d_pack)
@@ -758,14 +800,14 @@ def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets):
         ds = [bufs["d_cond"], *dz, bufs["d_feature"], bufs["d_hv"]]
         n = pts.shape[0]
         f32_ops, _, tf32_ops = field_ops(field, n, 1, True)
-        rows.check("fused_nerf_weight_grads", src + "fused_mlp_tc32_bwd.cu",
-                   replaces, "weight_grads", kern,
+        rows.check("fused_nerf_weight_grads" + suffix,
+                   src + "fused_mlp_tc32_bwd.cu", replaces, "weight_grads", kern,
                    lambda: leaves(fused_mlp.weight_grads_plain(
                        field, pts, feats, views, bufs)),
                    lambda: [torch.matmul(x.T, d) for x, d in zip(xs, ds)],
                    1e-4, 3, nbytes(pts, feats, views, *bufs.values())
                    + nbytes(d_pack), f32_ops, relative=True,
-                   flops_tf32=tf32_ops)
+                   flops_tf32=tf32_ops, paths=paths)
 
     held = (recompute, input_grads, weight_grads)
     for fn in held:
@@ -920,11 +962,14 @@ def hold_at_own_forward(name, label, field, flat, g, pack, offsets, got,
 
 
 def check_field_backward(rows, name, passes, gen, tol, paths,
-                         source="zest_tpu_torch/csrc/fused_mlp_tc32_dx.cu"):
+                         source="zest_tpu_torch/csrc/fused_mlp_tc32_dx.cu",
+                         suffix="", float64_gate=False):
     """K7 on the step's field passes, with a random output gradient, held as
     ``hold_float32_backward`` and ``hold_bf16_backward`` hold each mode
     (every input and leaf of d_pack at float32 to 1e-4 of its largest). The
-    time is the default chunks' against the twin's autograd."""
+    time is the default chunks' against the twin's autograd. ``suffix``
+    names the float32 mode's rows of its three launches; ``float64_gate``
+    goes to ``hold_bf16_backward``."""
     from zest_tpu_torch.kernels import fused_mlp
 
     def leafwise(field, offsets, grads):
@@ -947,8 +992,10 @@ def check_field_backward(rows, name, passes, gen, tol, paths,
         plain = lambda: leafwise(field, offsets,
                                  fused_mlp.fused_nerf_backward_plain(
                                      field, *flat, g))
-        hold = hold_bf16_backward if field.bf16 else functools.partial(
-            hold_float32_backward, rows)
+        hold = functools.partial(
+            hold_bf16_backward, float64_gate=float64_gate) if field.bf16 \
+            else functools.partial(hold_float32_backward, rows, paths=paths,
+                                   suffix=suffix)
         err = hold(name, label, field, flat, g, pack, offsets)
         verified = (err, [tuple(t.shape) for t in flat])
         rows.check(name, source,
@@ -1077,13 +1124,13 @@ def forward_kernels(rows, dev, cfg, system, batch):
     del a, b
 
 
-def small_slice(dev):
-    """Phase 4: the eval step at the small preset on CUDA against the same
-    step on the CPU."""
+def small_slice(dev, preset=None, tag="small"):
+    """Phase 4: the eval step at the small preset (``presets.SMALL`` by
+    default) on CUDA against the same step on the CPU."""
     from zest_tpu_torch import presets
-    from zest_tpu_torch.system import EVAL_KEYS
-    _, system, batch, params = presets.build(presets.SMALL,
-                                             presets.SMALL_SCENE, "cpu", SEED)
+    preset = presets.SMALL if preset is None else preset
+    _, system, batch, params = presets.build(preset, presets.SMALL_SCENE,
+                                             "cpu", SEED)
     step = system.make_eval_step()
     ref = step(params, batch)
     out = step({k: v.to(dev) for k, v in params.items()},
@@ -1092,22 +1139,47 @@ def small_slice(dev):
     # cuDNN and the CPU sum the convolutions in different orders; the maps
     # are O(1) composites of 16 samples
     rtol, atol = 1e-4, 1e-4
-    for k in EVAL_KEYS:
+    for k in system.eval_keys:
         a, b = out[k].cpu(), ref[k]
         err = float((a - b).abs().max())
         ok = torch.allclose(a, b, rtol=rtol, atol=atol)
-        log(f"[small] {k}: max_abs_err {err:.3e} spread {float(b.std()):.3e} "
+        log(f"[{tag}] {k}: max_abs_err {err:.3e} spread {float(b.std()):.3e} "
             f"-> {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"small slice {k}: CUDA and CPU differ by {err}")
-    if float(ref["rgb_map_ref"].std()) <= 1e-3:
-        raise AssertionError("small slice renders a constant image")
+            raise AssertionError(f"{tag} slice {k}: CUDA and CPU differ by "
+                                 f"{err}")
+    if float(ref[blended(system)].std()) <= 1e-3:
+        raise AssertionError(f"{tag} slice renders a constant image")
 
 
-def flagship(cfg, system, batch, params, tag="flagship"):
-    """Phases 5 and 11: the flagship eval step with every launch counter
-    reset first. Returns (launches, median s/image)."""
-    from zest_tpu_torch.system import EVAL_KEYS
+def blended(system) -> str:
+    """The eval map a user sees: the blend of both fields, or the static
+    field's alone without scene flow."""
+    return "rgb_map_ref" if system.nerf_dynamic is not None else "rgb_map"
+
+
+def expected_eval_launches(system, cfg, batch) -> dict:
+    """The launches of one eval image: K1 once per source view of the static
+    volume, K3 and K8 once per chunk for each volume, K6 once per chunk for
+    each field conditioned on a volume, no backward kernel."""
+    n_chunks = -(-(cfg.img_h * cfg.img_w) // cfg.eval_chunk)
+    vols = (system.enc_static is not None) + (system.enc_dy is not None)
+    fused = sum(f is not None and f.use_mvs
+                for f in (system.nerf_static, system.nerf_dynamic))
+    expected = dict.fromkeys(counters(), 0)
+    expected.update(
+        homo_warp_cm=(batch["images"].shape[0] - 2
+                      if system.enc_static is not None else 0),
+        sample_volume=vols * n_chunks, gather_colors=vols * n_chunks,
+        fused_nerf_forward=fused * n_chunks)
+    return expected
+
+
+def flagship(cfg, system, batch, params, tag="flagship", runs=3):
+    """Phases 5 and 11 (and 14's presets): the flagship eval step with every
+    launch counter reset first, then ``runs`` timed runs with the input
+    changed. Returns (launches, median s/image; the first run's without
+    timed runs)."""
     step = system.make_eval_step()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
@@ -1117,38 +1189,35 @@ def flagship(cfg, system, batch, params, tag="flagship"):
     first = time.perf_counter() - t0
     launches = read_counters()
     H, W = cfg.img_h, cfg.img_w
-    n_chunks = -(-(H * W) // cfg.eval_chunk)
-    n_src = batch["images"].shape[0] - 2
-    expected = dict.fromkeys(launches, 0)
-    expected.update(homo_warp_cm=n_src, sample_volume=2 * n_chunks,
-                    gather_colors=2 * n_chunks, fused_nerf_forward=2 * n_chunks)
+    expected = expected_eval_launches(system, cfg, batch)
     log(f"[{tag}] first run {first:.2f} s, launches {launches}")
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
-    for k in EVAL_KEYS:
+    for k in system.eval_keys:
         v = maps[k]
         if v.shape[:2] != (H, W) or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"flagship {k}: shape {tuple(v.shape)} or "
                                  f"non-finite values")
         log(f"[{tag}] {k}: shape {tuple(v.shape)} mean {float(v.mean()):.4f}"
             f" std {float(v.std()):.4f}")
-    if float(maps["rgb_map_ref"].std()) <= 0.0:
-        raise AssertionError("flagship rgb_map_ref is constant")
+    key = blended(system)
+    if float(maps[key].std()) <= 0.0:
+        raise AssertionError(f"flagship {key} is constant")
 
     times = []
-    prev = float(maps["rgb_map_ref"][0, 0, 0])
-    for _ in range(3):
+    prev = float(maps[key][0, 0, 0])
+    for _ in range(runs):
         b2 = dict(batch, images=batch["images"] + (prev % 1.0) * 1e-6)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         maps = step(params, b2)
-        prev = float(maps["rgb_map_ref"][0, 0, 0])    # waits for the device
+        prev = float(maps[key][0, 0, 0])              # waits for the device
         times.append(time.perf_counter() - t0)
     log(f"[{tag}] s/image over {len(times)} runs: "
         + ", ".join(f"{t:.3f}" for t in times)
-        + f" (median {float(np.median(times)):.3f}); peak memory "
+        + f" (median {float(np.median(times or [first])):.3f}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, float(np.median(times))
+    return launches, float(np.median(times or [first]))
 
 
 def backward_kernels(rows, dev, cfg, system, batch):
@@ -1294,12 +1363,18 @@ def backward_kernels(rows, dev, cfg, system, batch):
     torch.cuda.empty_cache()
 
 
-def _compare_train(tag, ref, out, rtol=1e-4, grad_tol=1e-4):
+def _compare_train(tag, ref, out, rtol=1e-4, grad_tol=1e-4, clipped=False):
     """Logs to rtol; gradients to grad_tol of their module's largest (each
     field, each encoder); parameters after the step where the gradient is
-    clear of Adam's epsilon and of the packages' difference."""
+    clear of Adam's epsilon and of the packages' difference. With
+    ``clipped``, the gradient held clear of epsilon is the one Adam sees,
+    after the global-norm clip (a large loss at random weights clips it
+    down to where epsilon turns Adam's first step from a sign into a slope
+    that float32 sum orders move)."""
     logs, grads, params, new = ref
     logs_c, grads_c, _, new_c = out
+    g_norm = float(torch.sqrt(sum(torch.sum(g * g) for g in grads.values())))
+    clip = max(1.0, g_norm) if clipped else 1.0
     for k, v in logs.items():
         a, b = float(logs_c[k]), float(v)
         if not (np.isfinite(a) and abs(a - b) <= rtol * abs(b) + 1e-12):
@@ -1314,7 +1389,7 @@ def _compare_train(tag, ref, out, rtol=1e-4, grad_tol=1e-4):
         worst = max(worst, err / scale[k.split(".")[0]])
         if err > grad_tol * scale[k.split(".")[0]]:
             raise AssertionError(f"{tag} grad {k}: differs by {err}")
-        big = (v.abs() > 10 * err) & (v.abs() > 1e-5)
+        big = (v.abs() > 10 * err) & (v.abs() / clip > 1e-5)
         d = float((new_c[k].cpu() - new[k])[big].abs().max()) if big.any() else 0.0
         if d > 1e-6:
             raise AssertionError(f"{tag} updated {k}: differs by {d}")
@@ -1323,18 +1398,21 @@ def _compare_train(tag, ref, out, rtol=1e-4, grad_tol=1e-4):
         raise AssertionError(f"{tag}: no parameter moved")
     log(f"[small-train] {tag}: loss {float(logs['train_loss']):.6f} (CUDA "
         f"{float(logs_c['train_loss']):.6f}); worst gradient difference "
-        f"{worst:.2e} of its module's largest; {moved} parameters moved")
+        f"{worst:.2e} of its module's largest; {moved} parameters moved; "
+        f"gradient norm {g_norm:.4g}")
 
 
-def small_train(dev):
-    """Phase 7: the small training step on CUDA and on the CPU, from the
-    same weights and draws, in both phases."""
+def small_train(dev, preset=None, tag="small-train", clipped=False):
+    """Phase 7: the small training step (``presets.SMALL_TRAIN`` by
+    default) on CUDA and on the CPU, from the same weights and draws, in
+    both phases (``_compare_train``; ``clipped`` there)."""
     from zest_tpu_torch import presets, sampling
     from zest_tpu_torch.system import TrainState, phase_for_step
-    cfg, system, batch, params = presets.build(presets.SMALL_TRAIN,
-                                               presets.SMALL_SCENE, "cpu", SEED)
+    preset = presets.SMALL_TRAIN if preset is None else preset
+    cfg, system, batch, params = presets.build(preset, presets.SMALL_SCENE,
+                                               "cpu", SEED)
     _, system_c, batch_c, params_c = presets.build(
-        presets.SMALL_TRAIN, presets.SMALL_SCENE, dev, SEED)
+        preset, presets.SMALL_SCENE, dev, SEED)
     H, W = cfg.img_h, cfg.img_w
     chain_step = cfg.decay_iteration_clamped * 2000 + 1
     for step in (0, chain_step):
@@ -1351,15 +1429,57 @@ def small_train(dev):
                 TrainState(p, opt.init(p), step), b, d, phase)
             runs.append((logs, grads, p, state.params))
         torch.cuda.synchronize()
-        _compare_train(f"step {step} {tuple(phase)}", *runs)
+        _compare_train(f"{tag} step {step} {tuple(phase)}", *runs,
+                       clipped=clipped)
 
 
-def flagship_train(cfg, system, batch, params, tag="train"):
-    """Phases 8 and 11: the flagship training step: exact launches per step
-    in both phases, finite logs, moved parameters, then a timed window of
-    steps. Returns (the step-0 phase's launches, train rays/s)."""
-    from zest_tpu_torch import presets, sampling
+def expected_step_launches(system, cfg, batch, phase) -> dict:
+    """The launches of one training step in ``phase``: K1 and K2 once per
+    source view of the static volume; K3 and K4 once per unwarped lookup
+    (one per volume) and per warped one (t±1 and the chain, dynamic volume),
+    K5 once per warped lookup (at 16 bits K9 and its backward take the
+    warped lookups, and K5 none); K8 once per volume; K6 and K7 once per
+    pass of a field conditioned on a volume (the static field; the dynamic
+    one at t, at t±1 stacked and on the chain), and K7 float32's three
+    launches once per chunk of each such pass."""
     from zest_tpu_torch.kernels import fused_mlp
+    chain = int(phase.chain_5frames)
+    rays = cfg.batch_size + (cfg.num_extra_samples if phase.extra_samples
+                             and cfg.train_sceneflow else 0)
+    points = rays * cfg.N_samples
+    passes = [points] if system.nerf_static.use_mvs else []
+    if system.nerf_dynamic is not None and system.nerf_dynamic.use_mvs:
+        passes += [points, 2 * points] + [points] * chain
+    chunks = sum(-(-n // fused_mlp.CHUNK_ROWS) for n in passes)
+    n_src = (batch["images"].shape[0] - 2 if system.enc_static is not None
+             else 0)
+    unwarped = (system.enc_static is not None) + (system.enc_dy is not None)
+    warped = 1 + chain if system.enc_dy is not None else 0
+    expected = dict(homo_warp_cm=n_src, homo_warp_cm_grad=n_src,
+                    sample_volume=unwarped + warped,
+                    volume_grad=unwarped + warped, coords_grad=warped,
+                    gather_colors=unwarped, fused_nerf_forward=len(passes),
+                    fused_nerf_backward=len(passes), recompute=chunks,
+                    input_grads=chunks, weight_grads=chunks, gather_rows=0,
+                    scatter_rows=0)
+    if system.bf16:
+        # the warped lookups are row gathers; K7's bf16 mode runs inside
+        # its own entry
+        expected.update(sample_volume=unwarped, volume_grad=unwarped,
+                        coords_grad=0, gather_rows=warped,
+                        scatter_rows=warped, recompute=0, input_grads=0,
+                        weight_grads=0)
+    return expected
+
+
+def flagship_train(cfg, system, batch, params, tag="train",
+                   window=TRAIN_STEPS, chain=True):
+    """Phases 8 and 11 (and 14's presets): the flagship training step:
+    exact launches per step (step 0, and with ``chain`` the chain step),
+    finite logs, moved parameters and the peak memory, then a timed window
+    of ``window`` steps. Returns (the step-0 phase's launches, train rays/s,
+    None without a window)."""
+    from zest_tpu_torch import presets, sampling
     from zest_tpu_torch.system import TrainState, phase_for_step
     dev = batch["images"].device
     H, W = cfg.img_h, cfg.img_w
@@ -1367,27 +1487,24 @@ def flagship_train(cfg, system, batch, params, tag="train"):
     motion_count = int(batch["motion_count"])
     opt = system.make_optimizer(presets.STEPS_PER_EPOCH)
     step_fn = system.make_train_step(opt)
-    n_rays = cfg.batch_size + cfg.num_extra_samples
 
     def run(state, phase):
         draws = sampling.sample_draws(gen, cfg, H, W, motion_count,
                                       phase.extra_samples)
         return step_fn(state, batch, draws, phase)
 
-    n_src = batch["images"].shape[0] - 2
-
-    def chunks(n):
-        return -(-n // fused_mlp.CHUNK_ROWS)
-
     state0 = TrainState(params, opt.init(params), 0)
     phase0 = phase_for_step(cfg, 0)
+    n_rays = cfg.batch_size + (cfg.num_extra_samples if phase0.extra_samples
+                               and cfg.train_sceneflow else 0)
     chain_step = cfg.decay_iteration_clamped * 2000 + 1
     phase_c = phase_for_step(cfg, chain_step)
     launches = {}
-    for step_tag, state, phase, extra in (("step 0", state0, phase0, 0),
-                                          (f"step {chain_step}",
-                                           state0._replace(step=chain_step),
-                                           phase_c, 1)):
+    runs = [("step 0", state0, phase0)]
+    if chain:
+        runs.append((f"step {chain_step}", state0._replace(step=chain_step),
+                     phase_c))
+    for step_tag, state, phase in runs:
         reset_counters()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1395,27 +1512,10 @@ def flagship_train(cfg, system, batch, params, tag="train"):
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
         got = read_counters()
-        # the field passes' points: static and dynamic R x S, t±1 2 R x S,
-        # the chain R x S; K7 float32 runs its three launches once per
-        # chunk of each
-        points = (cfg.batch_size + cfg.num_extra_samples * phase.extra_samples
-                  ) * cfg.N_samples
-        k7_chunks = (2 + extra) * chunks(points) + chunks(2 * points)
-        expected = dict(homo_warp_cm=n_src, homo_warp_cm_grad=n_src,
-                        sample_volume=3 + extra, volume_grad=3 + extra,
-                        coords_grad=1 + extra, gather_colors=2,
-                        fused_nerf_forward=3 + extra,
-                        fused_nerf_backward=3 + extra, recompute=k7_chunks,
-                        input_grads=k7_chunks, weight_grads=k7_chunks,
-                        gather_rows=0, scatter_rows=0)
-        if system.bf16:
-            # the warped lookups (t±1, the chain) are row gathers; K7's
-            # bf16 mode runs inside its own entry
-            expected.update(sample_volume=2, volume_grad=2, coords_grad=0,
-                            gather_rows=1 + extra, scatter_rows=1 + extra,
-                            recompute=0, input_grads=0, weight_grads=0)
+        expected = expected_step_launches(system, cfg, batch, phase)
         log(f"[{tag}] {step_tag} {tuple(phase)}: first run {first:.2f} s, "
-            f"launches {got}")
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB, launches {got}")
         if got != expected:
             raise AssertionError(f"{tag} {step_tag}: launches {got}, "
                                  f"expected {expected}")
@@ -1434,20 +1534,22 @@ def flagship_train(cfg, system, batch, params, tag="train"):
         launches[step_tag] = got
         if step_tag == "step 0":
             state1 = new
+    if not window:
+        return launches["step 0"], None
 
     torch.cuda.reset_peak_memory_stats()
     state, logs = run(state1, phase0)                 # warm-up
     float(logs["train_loss"])
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(window):
         state, logs = run(state, phase0)
     loss = float(logs["train_loss"])                  # waits for the device
     dt = time.perf_counter() - t0
-    log(f"[{tag}] {TRAIN_STEPS} steps in {dt:.3f} s ({1e3 * dt / TRAIN_STEPS:.1f}"
+    log(f"[{tag}] {window} steps in {dt:.3f} s ({1e3 * dt / window:.1f}"
         f" ms/step), loss {loss:.5g}; train_rays_per_sec "
-        f"{n_rays * TRAIN_STEPS / dt:.1f}; peak memory "
+        f"{n_rays * window / dt:.1f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches["step 0"], n_rays * TRAIN_STEPS / dt
+    return launches["step 0"], n_rays * window / dt
 
 
 def sass_has_mma(symbol: str) -> dict:
@@ -1623,45 +1725,49 @@ def bf16_kernels(rows, dev, cfg, system, batch):
     torch.cuda.empty_cache()
 
 
-def small_16(dev):
+def small_16(dev, presets16=None, tag="small-16", witness=("train_loss",)):
     """Phase 10: the small eval and training step at 16 bits on CUDA
-    against the CPU. bf16 rounds in other places in cuDNN than on the CPU,
+    against the CPU (``presets16``: the 16-bit eval and training presets
+    and their 32-bit twins; ``SMALL_16``'s by default). One of the logs
+    ``witness`` (all when None) must differ from its 32-bit value: the
+    16-bit path is taken. bf16 rounds in other places in cuDNN than on the CPU,
     so each quantity is held to twice the CPU's own difference between its
     16- and 32-bit runs (the eval maps and the logs; the gradients leaf by
     leaf for the fields, module by module for the encoders, whose leaves
     are bf16 noise), plus one bf16 rounding step (2^-8) of the value (maps
     and logs) or 1e-3 of the module's largest gradient."""
     from zest_tpu_torch import presets, sampling
-    from zest_tpu_torch.system import EVAL_KEYS, phase_for_step
+    from zest_tpu_torch.system import phase_for_step
 
     def build(preset, on):
         return presets.build(preset, presets.SMALL_SCENE, on, SEED)
 
+    eval16, eval32, train16, train32 = presets16 or (
+        presets.SMALL_16, presets.SMALL, presets.SMALL_TRAIN_16,
+        presets.SMALL_TRAIN)
     maps = {}
-    for key, preset, on in (("cuda", presets.SMALL_16, dev),
-                            ("cpu", presets.SMALL_16, "cpu"),
-                            ("cpu32", presets.SMALL, "cpu")):
+    for key, preset, on in (("cuda", eval16, dev), ("cpu", eval16, "cpu"),
+                            ("cpu32", eval32, "cpu")):
         _, system, batch, params = build(preset, on)
         maps[key] = {k: v.cpu() for k, v in
                      system.make_eval_step()(params, batch).items()}
-    for k in EVAL_KEYS:
+    for k in maps["cpu"]:
         err = float((maps["cuda"][k] - maps["cpu"][k]).abs().max())
         spread = float((maps["cpu"][k] - maps["cpu32"][k]).abs().max())
         ok = err <= 2 * spread + 2.0 ** -8 * float(maps["cpu"][k].abs().max())
-        log(f"[small-16] {k}: max_abs_err {err:.3e}, CPU 16-vs-32 {spread:.3e}"
+        log(f"[{tag}] {k}: max_abs_err {err:.3e}, CPU 16-vs-32 {spread:.3e}"
             f" -> {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"small 16-bit eval {k}: CUDA and CPU differ "
-                                 f"by {err}")
+            raise AssertionError(f"{tag} eval {k}: CUDA and CPU differ by "
+                                 f"{err}")
 
-    cfg = build(presets.SMALL_TRAIN_16, "cpu")[0]
+    cfg = build(train16, "cpu")[0]
     chain_step = cfg.decay_iteration_clamped * 2000 + 1
     for step in (0, chain_step):
         phase = phase_for_step(cfg, step)
         runs = {}
-        for key, preset, on in (("cuda", presets.SMALL_TRAIN_16, dev),
-                                ("cpu", presets.SMALL_TRAIN_16, "cpu"),
-                                ("cpu32", presets.SMALL_TRAIN, "cpu")):
+        for key, preset, on in (("cuda", train16, dev), ("cpu", train16, "cpu"),
+                                ("cpu32", train32, "cpu")):
             _, system, batch, params = build(preset, on)
             draws = sampling.sample_draws(
                 torch.Generator().manual_seed(SEED + step), cfg, cfg.img_h,
@@ -1675,10 +1781,11 @@ def small_16(dev):
             runs["cuda"], runs["cpu"], runs["cpu32"])
         for k, v in logs.items():
             if not abs(logs_c[k] - v) <= 2 * abs(v - logs32[k]) + 2.0 ** -8 * abs(v):
-                raise AssertionError(f"small 16-bit step {step} log {k}: CUDA "
+                raise AssertionError(f"{tag} step {step} log {k}: CUDA "
                                      f"{logs_c[k]} CPU {v} (32-bit {logs32[k]})")
-        if logs["train_loss"] == logs32["train_loss"]:
-            raise AssertionError("the 16-bit step's loss equals the 32-bit one")
+        if all(logs[k] == logs32[k] for k in witness or logs):
+            raise AssertionError(f"the 16-bit step's {witness or 'logs'} "
+                                 f"equal the 32-bit ones")
         scale, spread_m = {}, {}
         for k, v in grads.items():
             m = k.split(".")[0]
@@ -1694,9 +1801,9 @@ def small_16(dev):
             limit = 2 * spread + 1e-3 * scale[m]
             worst = max(worst, err / limit)
             if err > limit:
-                raise AssertionError(f"small 16-bit step {step} grad {k}: "
+                raise AssertionError(f"{tag} step {step} grad {k}: "
                                      f"differs by {err}, limit {limit}")
-        log(f"[small-16] step {step}: loss {logs['train_loss']:.6f} (CUDA "
+        log(f"[{tag}] step {step}: loss {logs['train_loss']:.6f} (CUDA "
             f"{logs_c['train_loss']:.6f}, 32-bit {logs32['train_loss']:.6f}); "
             f"worst gradient difference {worst:.2f} of its limit")
 
@@ -1911,6 +2018,210 @@ def paths(dev, tmp, loop_cfg, loop_state) -> dict:
     return results
 
 
+def row_rates(rows, name) -> str:
+    """A row's time, bound and rate so far, for the log."""
+    r = rows.rows[name]
+    bound = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
+                      ops_seconds(r["flops"], r["flops_bf16"], r["flops_tf32"]))
+    useful = r["flops"] + r["flops_bf16"] + r["flops_tf32"] / 3
+    return (f"{r['ms']:.3f} ms (bound {bound:.3f} ms), "
+            f"{useful / r['ms'] / 1e9:.1f} TFLOP/s of its products; the "
+            f"twin {r['plain_ms']:.3f} ms")
+
+
+def new_widths(rows, dev, cfg, system, batch, rays):
+    """Phase 14: K1, K2, K3, K4 and K8 at the MVSNeRF flagship's shapes
+    (288x544 images, the first run of those widths on the card), each held
+    to its twin as phases 3 and 6 hold it: K1 on a source view's features
+    over the padded frustum, K2 its adjoint, K3 and K4 on the static volume
+    at the step's points, K8 on the 8 source views at those points."""
+    from zest_tpu_torch import geometry
+    from zest_tpu_torch.kernels import color_gather, plane_sweep, trilinear
+    from zest_tpu_torch.models.mvsnet import depth_plane_values
+    from zest_tpu_torch.ops.homography import homography_grid
+    from zest_tpu_torch.system import unpreprocess
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    H, W = cfg.img_h, cfg.img_w
+    h, w = H // 4, W // 4
+    near_far = batch["near_fars"][0]
+    depths = depth_plane_values(near_far[0], near_far[1])
+    grid = homography_grid(batch["proj_mats"][1], depths, (h, w), pad=cfg.pad)
+    src = torch.randn((h, w, 35), generator=gen, device=dev)
+    g = torch.randn((grid.shape[0], 35, grid.shape[1] * grid.shape[2]),
+                    generator=gen, device=dev)
+    checks = [
+        ("plane_sweep_warp", 1e-5, False,
+         lambda: plane_sweep.homo_warp_cm(src, grid),
+         lambda: plane_sweep.homo_warp_cm_plain(src, grid)),
+        ("plane_sweep_warp_backward", 1e-5, True,
+         lambda: plane_sweep.homo_warp_cm_grad(g, grid, (h, w)),
+         lambda: plane_sweep.homo_warp_cm_grad_plain(src, grid, g))]
+    with torch.no_grad():
+        vol, _, _ = system.enc_static(batch["images"][:-1],
+                                      batch["proj_mats"][:-1], near_far,
+                                      pad=cfg.pad)
+    ndc = rays.ndc.contiguous()
+    gv = torch.randn((*ndc.shape[:-1], 8), generator=gen, device=dev)
+    checks += [
+        ("trilinear_sample", 1e-5, False,
+         lambda: trilinear.sample_volume(vol, ndc),
+         lambda: trilinear.sample_volume_plain(vol, ndc)),
+        ("trilinear_grad_volume", 1e-5, True,
+         lambda: trilinear.volume_grad(vol.shape, ndc, gv),
+         lambda: trilinear.sample_volume_grads_plain(vol, ndc, gv)[0])]
+    imgs = unpreprocess(batch["images"][:-1]).contiguous()
+    V = imgs.shape[0]
+    inv_scale = torch.tensor([W - 1, H - 1], dtype=torch.float32, device=dev)
+    xy = torch.stack([
+        geometry.world_to_ndc(rays.pts, batch["w2cs"][v],
+                              batch["intrinsics"][v], inv_scale, 2.0,
+                              6.0)[..., :2] * inv_scale
+        for v in range(V)]).reshape(V, -1, 2).contiguous()
+    checks.append(("color_gather", 1e-5, False,
+                   lambda: color_gather.gather_colors(imgs, xy),
+                   lambda: color_gather.gather_colors_plain(imgs, xy)))
+    for name, tol, relative, kern, plain in checks:
+        err, shapes = rows.verify(name, kern, plain, tol, relative)
+        log(f"[mvsnerf] {name} at {H}x{W}, pad {cfg.pad}: shapes {shapes} "
+            f"max_abs_err {err:.3e} (tol {tol:g}) -> ok")
+    del vol, src, g, gv, xy, imgs
+    torch.cuda.empty_cache()
+
+
+def four_output_kernels(rows, dev, cfg, system, batch):
+    """Phase 14: K6 and K7 in the 4-output geometry (MVSNeRF's static field:
+    rgb and alpha, no extra head) in the system's mode, at the MVSNeRF
+    flagship's own inputs (the first eval chunk, the step-0 training pass),
+    under the gates of phases 3 and 6 (float32: K6 to its twin and to a
+    float64 twin, its operand pack bit for bit, HMMA already checked; K7's
+    three launches each to its twin, at K6's forward, on the branch-agreeing
+    points) or 9 (bf16: K6 and both bf16 packs, K7 with the kink-tolerant
+    check, its recomputed rows equal to K6's; its first gate against the
+    float64 twin, ``hold_bf16_backward``'s ``float64_gate``). Returns the
+    step's rays."""
+    from zest_tpu_torch.kernels import fused_mlp
+    field = system.nerf_static
+    if (field.out_ch, field.n_extra, system.nerf_dynamic) != (4, 0, None):
+        raise AssertionError("the MVSNeRF system is not one 4-output field")
+    bf16 = system.bf16
+    tag = "mvsnerf16" if bf16 else "mvsnerf"
+    paths = (f"eval_{tag}", f"train_{tag}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    fwd = "fused_nerf_bf16_mvsnerf" if bf16 else "fused_nerf_mvsnerf"
+    bwd = "fused_nerf_backward_bf16_mvsnerf" if bf16 else \
+        "fused_nerf_backward_mvsnerf"
+    src = "zest_tpu_torch/csrc/"
+    field_inputs = chunk_inputs(system, batch)[1]
+    inputs = field_inputs["static"]
+    tol = BF16_FIELD_TOL if bf16 else 1e-4
+    check_field_forward(rows, fwd, system, field_inputs, tol, paths,
+                        src + ("fused_mlp_tc.cu" if bf16 else
+                               "fused_mlp_tc32.cu"))
+    if not bf16:
+        float32_class("MVSNeRF field, eval chunk", field, inputs, True)
+    makes = ([(fused_mlp.pack_bf16, fused_mlp.pack_bf16_plain),
+              (fused_mlp.pack_bf16_bwd, fused_mlp.pack_bf16_bwd_plain)]
+             if bf16 else [(fused_mlp.pack_tc32, fused_mlp.pack_tc32_plain)])
+    with torch.no_grad():
+        pack, offsets = fused_mlp.pack_weights(field)
+        for make, plain in makes:
+            if not torch.equal(make(field, pack, offsets),
+                               plain(field, pack, offsets)[0]):
+                raise AssertionError(f"{make.__name__} of the 4-output field "
+                                     f"differs from its twin")
+    log(f"[{tag}] K6 on the eval chunk ({inputs[0].shape[0]} rays x "
+        f"{inputs[0].shape[1]}): {row_rates(rows, fwd)}; its operand packs "
+        f"equal their twins")
+
+    rays, _, passes = step_inputs(system, batch, cfg, gen)
+    for label, (fld, pass_in) in passes.items():
+        err, shapes = rows.verify(
+            fwd, functools.partial(fused_mlp.fused_nerf_forward, fld, *pass_in),
+            functools.partial(fld, *pass_in), tol)
+        log(f"[{tag}] K6 on the training pass {label}: shapes {shapes} "
+            f"max_abs_err {err:.3e} (tol {tol:g}) -> ok")
+        if not bf16:
+            float32_class(f"MVSNeRF training pass {label}", fld, pass_in,
+                          False)
+    check_field_backward(rows, bwd, passes, gen,
+                         BF16_FIELD_GRAD_TOL if bf16 else 1e-4, paths,
+                         src + ("fused_mlp_tc_bwd.cu" if bf16 else
+                                "fused_mlp_tc32_dx.cu"), suffix="_mvsnerf",
+                         float64_gate=True)
+    log(f"[{tag}] K7 on the training pass: {row_rates(rows, bwd)}")
+    if bf16:
+        flat = [t.reshape(-1, t.shape[-1]).contiguous() for t in inputs]
+        flat = [t[:1 << 18] for t in flat]
+        g = torch.randn((flat[0].shape[0], 4), generator=gen, device=dev)
+        with torch.no_grad():
+            out = fused_mlp.fused_nerf_forward(field, *flat)
+        again = torch.full_like(out, float("nan"))
+        fused_mlp.fused_nerf_backward(field, *flat, g, pack, offsets,
+                                      recomputed=again)
+        if not torch.equal(again, out):
+            raise AssertionError("K7's recomputed rows of the 4-output field "
+                                 "differ from K6's output")
+        log(f"[{tag}] K7's recompute: {out.shape[0]} rows equal to K6's "
+            f"output bit for bit")
+    else:
+        for what in ("recompute", "input_grads", "weight_grads"):
+            log(f"[{tag}] K7 float32 {what} on the training pass: "
+                f"{row_rates(rows, f'fused_nerf_{what}_mvsnerf')}")
+    del field_inputs, inputs, passes
+    torch.cuda.empty_cache()
+    return rays
+
+
+def ablations(rows, dev):
+    """Phase 14: the paper's baselines and ablations (``presets.FAMILIES``).
+    Each small preset's eval and training step (both phases) on CUDA
+    against the CPU at float32 and, where the 16-bit path differs from the
+    32-bit one (a volume), at precision 16, as phases 4, 7 and 10 hold
+    them; MVSNeRF's flagship at float32 and precision 16: K1, K2, K3, K4
+    and K8 at its widths, K6 and K7 in the 4-output geometry
+    (``four_output_kernels``), its eval (s/image, median of 3 with the
+    input changed) and training step (exact launches; rays/s over
+    TRAIN_STEPS steps after a warm-up); one flagship eval image and one
+    training step of each other preset at float32, with its launches and
+    peak memory. Returns (launches by path, {tag: (s/image, rays/s)})."""
+    from zest_tpu_torch import presets
+    launches, summary = {}, {}
+    for fam, (small, _, _, _) in presets.FAMILIES.items():
+        small_slice(dev, small, f"small-{fam}")
+        small_train(dev, small, f"small-train-{fam}", clipped=True)
+        if small["use_mvs"] or small["use_mvs_dy"]:
+            p16 = dict(small, precision=16)
+            # a loss term of the plain field can hide the rest of the
+            # 16-bit difference in train_loss's float32 rounding
+            small_16(dev, (p16, small, p16, small), f"small-16-{fam}", None)
+    for tag, preset in (("mvsnerf", presets.FLAGSHIP_MVSNERF),
+                        ("mvsnerf16", presets.FLAGSHIP_MVSNERF_16)):
+        cfg, system, batch, params = presets.build(
+            preset, presets.MVSNERF_SCENE, dev, SEED)
+        rays = four_output_kernels(rows, dev, cfg, system, batch)
+        if tag == "mvsnerf":
+            new_widths(rows, dev, cfg, system, batch, rays)
+        del rays
+        launches[f"eval_{tag}"], s_image = flagship(cfg, system, batch, params,
+                                                    f"flagship-{tag}")
+        launches[f"train_{tag}"], rays_s = flagship_train(
+            cfg, system, batch, params, f"train-{tag}", chain=False)
+        summary[tag] = (s_image, rays_s)
+        del system, params, batch
+        torch.cuda.empty_cache()
+    for fam in ("nsff", "static_vol", "dy_vol"):
+        _, preset, scene, _ = presets.FAMILIES[fam]
+        cfg, system, batch, params = presets.build(preset, scene, dev, SEED)
+        launches[f"eval_{fam}"], s_image = flagship(cfg, system, batch, params,
+                                                    f"flagship-{fam}", runs=0)
+        launches[f"train_{fam}"], _ = flagship_train(
+            cfg, system, batch, params, f"train-{fam}", window=0, chain=False)
+        summary[fam] = (s_image, None)
+        del system, params, batch
+        torch.cuda.empty_cache()
+    return launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1947,13 +2258,24 @@ def main() -> int:
         del system16, params16, batch16
         torch.cuda.empty_cache()
         per_pose = paths(dev, tmp, loop_cfg, loop_state)
+    new_paths, summary = ablations(rows, dev)
     log(f"[summary] flagship eval s/image: float32 {s_image:.3f}, precision "
         f"16 {s_image16:.3f}; train_rays_per_sec: float32 {rays_s:.1f}, "
         f"precision 16 {rays_s16:.1f}; path s/pose: float32 "
         f"{per_pose[32][0]:.3f}, precision 16 {per_pose[16][0]:.3f} (volumes "
         f"{per_pose[32][1]:.3f} and {per_pose[16][1]:.3f} s once per frame)")
+    log(f"[summary] MVSNeRF flagship s/image: float32 "
+        f"{summary['mvsnerf'][0]:.3f}, precision 16 "
+        f"{summary['mvsnerf16'][0]:.3f}; train_rays_per_sec: float32 "
+        f"{summary['mvsnerf'][1]:.1f}, precision 16 "
+        f"{summary['mvsnerf16'][1]:.1f}; one eval image (first run, s): "
+        + ", ".join(f"{fam} {summary[fam][0]:.3f}"
+                    for fam in ("nsff", "static_vol", "dy_vol")))
+    for path, counts in new_paths.items():
+        log(f"[summary] launches, {path}: "
+            + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
     results = rows.finish({"eval": eval_launches, "train": train_launches,
-                           "eval16": eval16, "train16": train16})
+                           "eval16": eval16, "train16": train16, **new_paths})
     for r in results:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never launched on the main path")

@@ -121,9 +121,9 @@ def test_init_params_covers_the_state_dict():
     assert torch.equal(a["enc_dy.feature.toplayer.bias"], torch.zeros(32))
 
 
-@pytest.mark.parametrize("change", [dict(train_sceneflow=False),
+@pytest.mark.parametrize("change", [dict(net_type="v2"),
                                     dict(use_color_volume=True),
-                                    dict(use_mvs_dy=False),
+                                    dict(train_video=True),
                                     dict(patch_size=8),
                                     dict(gan_type="basic"),
                                     dict(with_depth_loss_reg=True),

@@ -256,7 +256,7 @@ def test_run_training_writes_metrics_with_validation(tmp_path):
     (dict(gan_type="basic"), "gan_type="),
     (dict(acc_grad=2), "acc_grad=2"),
     (dict(lpips_weights="lpips.npz"), "LPIPS"),
-    (dict(dataset_name="synthetic", use_mvs_dy=False), "use_mvs_dy=False"),
+    (dict(dataset_name="synthetic", net_type="v2"), "net_type='v2'"),
 ])
 def test_run_training_refuses_what_it_does_not_port(tmp_path, change, name):
     """Loaders other than the synthetic scene's are refused when the loop

@@ -17,4 +17,15 @@ enum Slot {
   kWx1, kBx1, kWx2, kBx2, kNumSlots
 };
 
+// A field's extra heads after rgb and alpha, n_extra: 0 none (the static
+// field of a system without scene flow), 1 the blend (kWx1), 2 the 6 flow
+// (kWx1) and 2 probability (kWx2) outputs. The output row is [rgb(3),
+// alpha(1), extras], out_channels(n_extra) wide.
+__host__ __device__ constexpr bool valid_extra(int n_extra) {
+  return n_extra >= 0 && n_extra <= 2;
+}
+__host__ __device__ constexpr int out_channels(int n_extra) {
+  return n_extra == 0 ? 4 : n_extra == 1 ? 5 : 12;
+}
+
 }  // namespace

@@ -10,8 +10,9 @@
 //   cond = feats @ Wb + bb                          (float32, kept float32)
 //   h    = relu((h @ W_i + b_i) * cond)             i = 0 .. depth-1; the
 //          layer after `skip` reads [pts, h] as one product over both parts
-//   alpha = h @ Wa + ba;  static: sigmoid(h @ Ww + bw);
-//          dynamic: tanh(h @ Ws + bs) (6), sigmoid(h @ Wp + bp) (2)
+//   alpha = h @ Wa + ba;  the extras (n_extra, fused_mlp.cuh): none;
+//          the blend sigmoid(h @ Ww + bw); or tanh(h @ Ws + bs) (6),
+//          sigmoid(h @ Wp + bp) (2)
 //   hv  = relu([h @ Wf + bf, views] @ Wv + bv)      (width / 2)
 //   rgb = hv @ Wr + br
 // The conditioning, trunk, feature and views products take bf16-rounded
@@ -109,7 +110,7 @@ fused_nerf_tc_kernel(const float* __restrict__ pts,
   __syncthreads();                     // every partial is in red
 
   // the block's output rows are contiguous in out: coalesced stores
-  const int out_ch = n_extra == 1 ? 5 : 12;
+  const int out_ch = out_channels(n_extra);
   const long long rows = n - row0 < kM ? n - row0 : kM;
   for (int e = tid; e < rows * out_ch; e += kThreads) {
     const int r = e / out_ch, c = e - r * out_ch;
@@ -193,7 +194,7 @@ ZT_API int zt_fused_nerf_forward_tc(const float* pts, const float* feats,
                                     int n_extra, void* stream) {
   TcParams prm;
   Geo g;
-  if (n_extra < 1 || n_extra > 2 ||
+  if (!valid_extra(n_extra) ||
       !tc_params(prm, g, wpack, offsets, wbf16, P, F, V, width, depth, skip))
     return cudaErrorInvalidValue;
   if (n <= 0) return static_cast<int>(cudaGetLastError());

@@ -518,7 +518,7 @@ __device__ __forceinline__ float sigmoidf(float x) {
 }
 
 // The heads. Output column c of a point: rgb 0..2, alpha 3, the extras 4..
-// (static: the blend; dynamic: 6 flow, 2 probability). Head o (alpha first,
+// (none; the blend; 6 flow, 2 probability: fused_mlp.cuh). Head o (alpha first,
 // then the extras) writes column 3 + o; its weight for input k:
 template <typename Prm>
 __device__ __forceinline__ float head_weight(const Prm& prm, int n_extra,
@@ -683,7 +683,11 @@ __device__ __forceinline__ void forward_tile(
   }
 
   // alpha and the extra heads from h_last (float32, in acc)
-  if (n_extra == 1)
+  if (n_extra == 0)
+    head_partials<NT, 1>(
+        acc, [&](int o, int k) { return head_weight(prm, 0, o, k); }, red, 3,
+        m0w, n0w, wn, lane);
+  else if (n_extra == 1)
     head_partials<NT, 2>(
         acc, [&](int o, int k) { return head_weight(prm, 1, o, k); }, red, 3,
         m0w, n0w, wn, lane);
@@ -863,7 +867,7 @@ __device__ __forceinline__ void add_head_grads(float (&acc)[2][NT][4],
 // Thread k owns input column k (the block is W threads), reading x row by
 // row (coalesced) over the block's kHeadSpan points, g' staged in shared
 // memory; one atomic per weight and block into d_pack. NH: the alpha and
-// extra heads (2 static, 9 dynamic).
+// extra heads (1, 2 or 9 for n_extra 0, 1 or 2).
 constexpr int kHeadSpan = 64;
 constexpr int kHeadTile = 64;
 
@@ -877,7 +881,7 @@ head_grads_kernel(const float* __restrict__ hlast,
                   const float* __restrict__ cond, const float* __restrict__ hv,
                   const float* __restrict__ gh, float* d_pack, HeadSlots hd,
                   long long K) {
-  constexpr int out_ch = NH == 2 ? 5 : 12;
+  constexpr int out_ch = 3 + NH;
   __shared__ float gt[kHeadTile][out_ch];
   const int k = threadIdx.x, W = blockDim.x;
   const long long p0 = static_cast<long long>(blockIdx.x) * kHeadSpan;
@@ -908,7 +912,7 @@ head_grads_kernel(const float* __restrict__ hlast,
   atomicAdd(d_pack + hd.wa + k, acc[0]);
   if constexpr (NH == 2) {
     atomicAdd(d_pack + hd.wx1 + k, acc[1]);
-  } else {
+  } else if constexpr (NH == 9) {
 #pragma unroll
     for (int o = 0; o < 6; ++o) atomicAdd(d_pack + hd.wx1 + 6 * k + o, acc[1 + o]);
 #pragma unroll
@@ -935,7 +939,10 @@ inline int head_grads(const float* hlast, const float* cond, const float* hv,
                      off[kBa], off[kBx1], off[kBx2], off[kBr]};
   const unsigned int blocks =
       static_cast<unsigned int>((K + kHeadSpan - 1) / kHeadSpan);
-  if (n_extra == 1)
+  if (n_extra == 0)
+    head_grads_kernel<1><<<blocks, W, 0, st>>>(hlast, cond, hv, gh, d_pack,
+                                               hd, K);
+  else if (n_extra == 1)
     head_grads_kernel<2><<<blocks, W, 0, st>>>(hlast, cond, hv, gh, d_pack,
                                                hd, K);
   else

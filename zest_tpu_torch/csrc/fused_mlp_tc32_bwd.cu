@@ -353,7 +353,7 @@ ZT_API int zt_fused_nerf_weight_grads_tc32(
     const float* dz, const float* dcond, const float* dfeat, const float* dhv,
     const float* gh, const int* offsets, float* d_pack, int n, int P, int F,
     int V, int width, int depth, int skip, int n_extra, void* stream) {
-  if (depth < 1 || depth > kMaxLayers || n_extra < 1 || n_extra > 2 ||
+  if (depth < 1 || depth > kMaxLayers || !valid_extra(n_extra) ||
       (width != 64 && width != 128 && width != 256))
     return cudaErrorInvalidValue;
   if (n <= 0) return static_cast<int>(cudaGetLastError());

@@ -161,7 +161,7 @@ input_grads_tc32_kernel(TcParamsOf<float> prm, DxBufs b,
   const long long row0 = static_cast<long long>(blockIdx.x) * kM;
   const long long rw = n * W;
   const StreamOf<float>& st = prm.st;
-  const int out_ch = n_extra == 1 ? 5 : 12;
+  const int out_ch = out_channels(n_extra);
 
   RingOf<float> rg{hs + kM * HS, 0, 0, 0, 0};
   for (int q = 0; q < kStages - 1; ++q) fetch<SR>(rg, st, tid);
@@ -219,7 +219,9 @@ input_grads_tc32_kernel(TcParamsOf<float> prm, DxBufs b,
   // d_h of the trunk output: d_feature @ Wf^T, then the heads' float32 part
   prefetch_rows<W>(b.z + (depth - 1) * rw, row0, tid);
   dx_product<SR>(acc, rg, st, m, hs, HS, W, m0w, n0w, tid);
-  if (n_extra == 1)
+  if (n_extra == 0)
+    add_head_grads<NT, 1>(acc, prm, 0, gs, m0w, n0w, lane);
+  else if (n_extra == 1)
     add_head_grads<NT, 2>(acc, prm, 1, gs, m0w, n0w, lane);
   else
     add_head_grads<NT, 9>(acc, prm, 2, gs, m0w, n0w, lane);
@@ -329,7 +331,7 @@ int launch_dx(const TcParamsOf<float>& prm, const DxBufs& b, float* d_pts,
 constexpr int kNumBufs = 9;
 
 bool valid(int width, int depth, int n_extra) {
-  return depth >= 1 && depth <= kMaxLayers && n_extra >= 1 && n_extra <= 2 &&
+  return depth >= 1 && depth <= kMaxLayers && valid_extra(n_extra) &&
          (width == 64 || width == 128 || width == 256);
 }
 
@@ -357,7 +359,7 @@ ZT_API int zt_fused_nerf_backward_scratch(int n, int chunk, int P, int F,
   if (!valid(width, depth, n_extra) || chunk < 1)
     return cudaErrorInvalidValue;
   const long long rows = n < chunk ? (n > 1 ? n : 1) : chunk;
-  *floats = scratch_floats(rows, width, depth, n_extra == 1 ? 5 : 12);
+  *floats = scratch_floats(rows, width, depth, out_channels(n_extra));
   return 0;
 }
 

@@ -282,7 +282,7 @@ fused_nerf_bwd_tc_kernel(const float* __restrict__ pts,
   const long long row0 = static_cast<long long>(blockIdx.x) * kM;
   const float* w = prm.w;
   const Stream& st = prm.st;
-  const int out_ch = n_extra == 1 ? 5 : 12;
+  const int out_ch = out_channels(n_extra);
 
   // ---- the forward, as K6 runs it, keeping what the backward reads ----
   Ring rg{hs + kM * HS, 0, 0, 0, 0};
@@ -366,7 +366,9 @@ fused_nerf_bwd_tc_kernel(const float* __restrict__ pts,
   // d_h of the trunk output: d_feature @ Wf^T, then the heads' float32 part
   prefetch_rows<W>(s.z + (depth - 1) * s.R * W, row0, tid);
   product<SR, NT>(acc, rg, st, m++, hs, HS, W, nullptr, 0, m0w, n0w, tid);
-  if (n_extra == 1)
+  if (n_extra == 0)
+    add_head_grads<NT, 1>(acc, prm, 0, gs, m0w, n0w, lane);
+  else if (n_extra == 1)
     add_head_grads<NT, 2>(acc, prm, 1, gs, m0w, n0w, lane);
   else
     add_head_grads<NT, 9>(acc, prm, 2, gs, m0w, n0w, lane);
@@ -637,7 +639,7 @@ int launch_bwd_tc(const float* pts, const float* feats, const float* views,
                   void* scratch, long long chunk, float* d_pts,
                   float* d_feats, float* d_views, float* d_pack, float* out,
                   long long n, int n_extra, bool keep, cudaStream_t stream) {
-  const int P = geo.P, F = geo.F, V = geo.V, out_ch = n_extra == 1 ? 5 : 12;
+  const int P = geo.P, F = geo.F, V = geo.V, out_ch = out_channels(n_extra);
   const int smem = bwd_smem_bytes(WIDTH, geo.Pp, geo.Fp, geo.Vp);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
@@ -724,12 +726,12 @@ ZT_API int zt_fused_nerf_backward_tc_scratch(int n, int chunk, int P, int F,
                                              int V, int width, int depth,
                                              int skip, int n_extra,
                                              long long* bytes) {
-  if (depth < 1 || depth > kMaxLayers || n_extra < 1 || n_extra > 2 ||
+  if (depth < 1 || depth > kMaxLayers || !valid_extra(n_extra) ||
       chunk < 1)
     return cudaErrorInvalidValue;
   BwdScratch s;
   *bytes = carve(s, nullptr, chunk_rows(n > 1 ? n : 1, chunk),
-                 make_geo(width, depth, skip, P, F, V), n_extra == 1 ? 5 : 12);
+                 make_geo(width, depth, skip, P, F, V), out_channels(n_extra));
   return 0;
 }
 
@@ -740,12 +742,12 @@ ZT_API int zt_fused_nerf_backward_tc_layout(int n, int chunk, int P, int F,
                                             int V, int width, int depth,
                                             int skip, int n_extra,
                                             long long* at) {
-  if (depth < 1 || depth > kMaxLayers || n_extra < 1 || n_extra > 2 ||
+  if (depth < 1 || depth > kMaxLayers || !valid_extra(n_extra) ||
       chunk < 1)
     return cudaErrorInvalidValue;
   BwdScratch s;
   carve(s, reinterpret_cast<void*>(256), chunk_rows(n > 1 ? n : 1, chunk),
-        make_geo(width, depth, skip, P, F, V), n_extra == 1 ? 5 : 12);
+        make_geo(width, depth, skip, P, F, V), out_channels(n_extra));
   const char* base = reinterpret_cast<const char*>(256);
   at[0] = s.R;
   at[1] = reinterpret_cast<const char*>(s.z) - base;
@@ -772,14 +774,14 @@ ZT_API int zt_fused_nerf_backward_tc(
     int n_extra, void* stream) {
   TcParams prm;
   Geo geo;
-  if (n_extra < 1 || n_extra > 2 || chunk < 1 ||
+  if (!valid_extra(n_extra) || chunk < 1 ||
       !bwd_params(prm, geo, wpack, offsets, wbf16, wbt, P, F, V, width, depth,
                   skip))
     return cudaErrorInvalidValue;
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   BwdScratch s;
   if (scratch_bytes < carve(s, nullptr, chunk_rows(n, chunk), geo,
-                            n_extra == 1 ? 5 : 12))
+                            out_channels(n_extra)))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   switch (width) {

@@ -49,22 +49,18 @@ class SyntheticDataset:
     The constructor takes ``zest_tpu``'s arguments, so that
     ``train_loop.build_datasets`` builds it as ``zest_tpu`` does: the
     directories, the split and the loader options of real scenes are not
-    read, and ``max_len`` > 0 cuts the length. Every sample has the
-    keyframes and the neighbours (``use_mvs``, ``use_mvs_dy``): the
-    configurations without them are refused by name."""
+    read, and ``max_len`` > 0 cuts the length. Without ``use_mvs`` a sample
+    has no keyframes (``images`` holds the target alone), and without
+    ``use_mvs_dy`` no ``nb_*`` keys, as ``zest_tpu``'s builds it."""
 
     def __init__(self, root_dir=None, config_dir=None, split="train", *,
                  img_h=48, img_w=64, num_frames=None, num_keyframes=4,
                  use_mvs=True, use_mvs_dy=True, seed=0, max_len=-1, **_):
-        if not (use_mvs and use_mvs_dy):
-            raise NotImplementedError(
-                f"zest_tpu_torch's synthetic scene always has the keyframes "
-                f"and the neighbours (use_mvs={use_mvs}, "
-                f"use_mvs_dy={use_mvs_dy})")
         if num_frames is None:
             num_frames = 3 * (num_keyframes - 1) + 1
         self.H, self.W = img_h, img_w
         self.num_frames = num_frames
+        self.use_mvs, self.use_mvs_dy = use_mvs, use_mvs_dy
         self.seed = seed
         self.max_len = max_len
         f = 1.2 * img_w
@@ -107,7 +103,8 @@ class SyntheticDataset:
         H, W = self.H, self.W
         imgs, w2cs, c2ws, proj_mats = [], [], [], []
         ref_proj_inv = None
-        for i, vid in enumerate(self.key_frames + [target]):
+        views = (self.key_frames if self.use_mvs else []) + [target]
+        for i, vid in enumerate(views):
             c2w = self._pose(vid)
             w2c = np.linalg.inv(c2w)
             pm = self._proj_mat(w2c)
@@ -120,12 +117,8 @@ class SyntheticDataset:
             w2cs.append(w2c)
             c2ws.append(c2w)
         n_views = len(imgs)
-        # neighbour proj_mats are identity: the dynamic cost volume is built
-        # from unwarped neighbour features, as the reference builds it
-        nbs = [max(target - 2, 0), max(target - 1, 0),
-               min(target + 1, nf - 1), min(target + 2, nf - 1)]
         wander_c2w = wanderpath_poses(self._pose(target), self.intrinsic[1, 1])
-        return {
+        sample = {
             "images": np.stack(imgs).astype(np.float32),
             "depths": 0.5 + np.linspace(0, 1, H * W, dtype=np.float32)
                       .reshape(H, W),
@@ -137,16 +130,24 @@ class SyntheticDataset:
             "intrinsics": np.stack([self.intrinsic] * n_views),
             "time": np.asarray(target, np.float32),
             "total_frames": np.asarray(nf, np.float32),
-            "nb_imgs": np.stack([self._image(v) for v in nbs]),
-            "nb_w2cs": np.stack([np.linalg.inv(self._pose(v))
-                                 for v in nbs]).astype(np.float32),
-            "nb_intr": np.stack([self.intrinsic] * len(nbs)),
-            "nb_proj_mats": np.tile(np.eye(4, dtype=np.float32)[:3],
-                                    (len(nbs), 1, 1)),
             "wander_path_c2w": wander_c2w,
             "wander_path_w2c": np.linalg.inv(wander_c2w).astype(np.float32),
             **self._training_keys(target),
         }
+        if self.use_mvs_dy:
+            # neighbour proj_mats are identity: the dynamic cost volume is
+            # built from unwarped neighbour features, as the reference
+            # builds it
+            nbs = [max(target - 2, 0), max(target - 1, 0),
+                   min(target + 1, nf - 1), min(target + 2, nf - 1)]
+            sample.update({
+                "nb_imgs": np.stack([self._image(v) for v in nbs]),
+                "nb_w2cs": np.stack([np.linalg.inv(self._pose(v))
+                                     for v in nbs]).astype(np.float32),
+                "nb_intr": np.stack([self.intrinsic] * len(nbs)),
+                "nb_proj_mats": np.tile(np.eye(4, dtype=np.float32)[:3],
+                                        (len(nbs), 1, 1))})
+        return sample
 
     def _training_keys(self, target):
         """What the training step reads beyond the eval keys: optical flow

@@ -21,7 +21,10 @@ autograd Function over (pts, feats, views, pack): ``pack_weights`` is a
 differentiable ``torch.cat``
 of every Linear's ``weight.T`` and bias, so the packed weight gradient of K7
 reaches each Linear. The twin is the port's ``models.nerf.NeRFField`` itself
-and its autograd.
+and its autograd. The kernels take a field conditioned on a volume
+(``use_mvs``) with any of its head geometries, ``NeRFField.n_extra``: no
+extra head (4 outputs, MVSNeRF's static field), the blend (5) or the flow
+and probabilities (12); every entry gets ``n_extra``.
 
 At float32 K6 splits every operand of the conditioning, trunk, feature and
 views products into two TF32 values (``zest_tpu``'s ``approx=False``, exact
@@ -71,10 +74,8 @@ def _slots(field):
     slots += [(_LAYER0 + 2 * i, lin) for i, lin in enumerate(field.pts_linears)]
     slots += [(_WA, field.alpha_linear), (_WF, field.feature_linear),
               (_WV, field.views_linears[0]), (_WR, field.rgb_linear)]
-    if field.static:
-        slots.append((_WX1, field.w_linear))
-    else:
-        slots += [(_WX1, field.sf_linear), (_WX2, field.prob_linear)]
+    slots += [(slot, lin) for slot, (lin, _) in zip((_WX1, _WX2),
+                                                    field.extra_heads())]
     return slots
 
 
@@ -269,6 +270,9 @@ def pack_bf16_bwd(field, pack, offsets):
 
 def _check(name, field, pts, feats, views):
     P, F, V = field.in_ch_pts, field.in_ch_feat, field.in_ch_views
+    if not field.use_mvs:
+        raise ValueError(f"{name}: the kernels take a field conditioned on "
+                         f"a volume (use_mvs)")
     if field.width not in WIDTHS:
         raise ValueError(f"{name}: width {field.width} not in {WIDTHS}")
     if len(field.pts_linears) > MAX_LAYERS or len(field.skips) > 1:
@@ -291,7 +295,7 @@ def _launch_forward(field, pts, feats, views, pack, offsets):
     lib = _build.library()
     inputs = (pts.data_ptr(), feats.data_ptr(), views.data_ptr(),
               pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets))
-    shape = (n, *_geometry(field), 1 if field.static else 2,
+    shape = (n, *_geometry(field), field.n_extra,
              _build.stream_ptr(pts))
     if field.bf16:
         wb = pack_bf16(field, pack, offsets)
@@ -444,7 +448,7 @@ def _scratch_views(lib, field, scratch, rows):
     (their places: ``zt_fused_nerf_backward_layout``)."""
     at = (ctypes.c_longlong * len(_BUFS))()
     _build.check(lib.zt_fused_nerf_backward_layout(
-        rows, *_geometry(field), 1 if field.static else 2, at), "weight_grads")
+        rows, *_geometry(field), field.n_extra, at), "weight_grads")
     W, depth = field.width, len(field.pts_linears)
     dims = {"z": (depth, rows, W), "dz": (depth, rows, W),
             "hv": (rows, W // 2), "d_hv": (rows, W // 2),
@@ -462,13 +466,13 @@ def head_grads_plain(field, out, g):
     rows ``out`` and the output gradient g: rgb and alpha as given, the
     blend and the probability through their sigmoid, the flow through its
     tanh."""
-    e = out[:, 4:]
-    if field.static:
-        scale = e * (1 - e)
-    else:
-        scale = torch.cat([1 - e[:, :6] * e[:, :6],
-                           e[:, 6:] * (1 - e[:, 6:])], -1)
-    return torch.cat([g[:, :4], g[:, 4:] * scale], -1)
+    parts, c = [g[:, :4]], 4
+    for lin, act in field.extra_heads():
+        e = out[:, c:c + lin.out_features]
+        slope = 1 - e * e if act is torch.tanh else e * (1 - e)
+        parts.append(g[:, c:c + lin.out_features] * slope)
+        c += lin.out_features
+    return torch.cat(parts, -1)
 
 
 @torch.no_grad()
@@ -516,7 +520,7 @@ def recompute(field, pts, feats, views, g, pack, offsets, wt, bufs,
         (ctypes.c_int * _N_SLOTS)(*offsets), wt.data_ptr(),
         *(bufs[k].data_ptr() for k in _KEPT),
         None if out is None else out.data_ptr(), n, *_geometry(field),
-        1 if field.static else 2, _build.stream_ptr(pts)), name)
+        field.n_extra, _build.stream_ptr(pts)), name)
     recompute.launches += 1
 
 
@@ -540,9 +544,7 @@ def input_grads_plain(field, bufs, product=None):
     def back(lin, d):
         return product(d, lin.weight.T)
 
-    heads = [field.alpha_linear]
-    heads += ([field.w_linear] if field.static
-              else [field.sf_linear, field.prob_linear])
+    heads = [field.alpha_linear] + [lin for lin, _ in field.extra_heads()]
     d_hv = (g[:, :3] @ field.rgb_linear.weight) * (bufs["hv"] > 0)
     d_x = back(field.views_linears[0], d_hv)
     d_feature, d_views = d_x[:, :W], d_x[:, W:]
@@ -595,7 +597,7 @@ def input_grads(field, bufs, pack, offsets, d_pts, d_feats, d_views):
     _build.check(_build.library().zt_fused_nerf_input_grads_tc32(
         pack.data_ptr(), (ctypes.c_int * _N_SLOTS)(*offsets),
         *(t.data_ptr() for t in tensors), n, *_geometry(field),
-        1 if field.static else 2, _build.stream_ptr(d_pts)), name)
+        field.n_extra, _build.stream_ptr(d_pts)), name)
     input_grads.launches += 1
 
 
@@ -628,9 +630,10 @@ def weight_grads_plain(field, pts, feats, views, bufs, product=None):
         grads[id(lin)] = (product(torch.cat(xs, -1), d), d.sum(0))
     heads = [(field.rgb_linear, bufs["hv"], g[:, :3]),
              (field.alpha_linear, h, g[:, 3:4])]
-    heads += ([(field.w_linear, h, g[:, 4:])] if field.static else
-              [(field.sf_linear, h, g[:, 4:10]),
-               (field.prob_linear, h, g[:, 10:])])
+    c = 4
+    for lin, _ in field.extra_heads():
+        heads.append((lin, h, g[:, c:c + lin.out_features]))
+        c += lin.out_features
     for lin, x, d in heads:
         grads[id(lin)] = (x.T @ d, d.sum(0))
     return _pack([(slot, grads[id(lin)]) for slot, lin in _slots(field)])[0]
@@ -658,7 +661,7 @@ def weight_grads(field, pts, feats, views, bufs, offsets, d_pack):
     _build.require_cuda_f32(name, *tensors, d_pack)
     _build.check(_build.library().zt_fused_nerf_weight_grads_tc32(
         *(t.data_ptr() for t in tensors), (ctypes.c_int * _N_SLOTS)(*offsets),
-        d_pack.data_ptr(), n, *_geometry(field), 1 if field.static else 2,
+        d_pack.data_ptr(), n, *_geometry(field), field.n_extra,
         _build.stream_ptr(pts)), name)
     weight_grads.launches += 1
 
@@ -728,7 +731,7 @@ def fused_nerf_backward(field, pts, feats, views, g, pack, offsets, wb=None,
     lib = _build.library()
     d_pts, d_feats, d_views = (torch.empty_like(t) for t in (pts, feats, views))
     d_pack = torch.zeros_like(pack)
-    shape = (*_geometry(field), 1 if field.static else 2)
+    shape = (*_geometry(field), field.n_extra)
     size = ctypes.c_longlong()
     if field.bf16:
         inputs = (pts.data_ptr(), feats.data_ptr(), views.data_ptr(),

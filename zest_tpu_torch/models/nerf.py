@@ -2,13 +2,17 @@
 ``zest_tpu.models.nerf.NeRFField``).
 
 Per-layer multiplicative conditioning on the volume features:
-h = relu(W_i h * (W_b feats + b_b)). The layer after each index in ``skips``
-reads [pts, h]. Output layout (last axis):
-  [rgb(3), alpha(1)] ++ static  → [blend(1)]
-                     ++ dynamic → [sf_bwd(3), sf_fwd(3), prob(2)]
+h = relu(W_i h * (W_b feats + b_b)); a field without a volume
+(``use_mvs=False``) has no ``pts_bias`` and takes h = relu(W_i h). The layer
+after each index in ``skips`` reads [pts, h]. Output layout (last axis):
+  [rgb(3), alpha(1)] ++ the extra heads (``EXTRA_HEADS``, by ``n_extra``):
+    0, no scene flow        → nothing
+    1, the static field     → [blend(1)]
+    2, the dynamic field    → [sf_bwd(3), sf_fwd(3), prob(2)]
 Submodule names follow the reference state-dict layout (``pts_linears.0``,
-``views_linears.0``, ...). This module is also the plain twin of the fused
-field kernel (``kernels.fused_mlp``).
+``views_linears.0``, ...). The conditioned field is also the plain twin of
+the fused field kernel (``kernels.fused_mlp``); the unconditioned one is
+``zest_tpu``'s Flax module, which it never fuses, and runs as it is.
 
 ``bf16=True`` is the field at 16-bit precision, as ``zest_tpu``'s fused
 kernel computes it with ``approx=True`` (``kernels/fused_mlp.py:115-215``,
@@ -16,7 +20,8 @@ kernel computes it with ``approx=True`` (``kernels/fused_mlp.py:115-215``,
 and ``views_linears`` take bf16-rounded operands (inputs and weights; in the
 backward the output gradient too) with float32 sums and a float32 bias; the
 alpha, rgb, blend, flow and probability heads keep float32 operands. The
-parameters stay float32.
+parameters stay float32. Only a conditioned field has that mode: ``zest_tpu``
+keeps the unconditioned one in float32 at 16-bit precision.
 """
 from __future__ import annotations
 
@@ -59,30 +64,42 @@ def trunk_layer_dims(depth: int, width: int, in_ch: int, skips: Sequence[int]):
     return dims
 
 
+# the heads after rgb and alpha, by n_extra: (name, outputs, activation)
+EXTRA_HEADS = {
+    0: (),
+    1: (("w_linear", 1, torch.sigmoid),),
+    2: (("sf_linear", 6, torch.tanh), ("prob_linear", 2, torch.sigmoid)),
+}
+
+
 class NeRFField(nn.Module):
-    """v0 field with view directions, volume-feature conditioning and the
-    scene-flow heads (``sceneflow=True`` in the reference)."""
+    """v0 field with view directions: volume-feature conditioning when
+    ``use_mvs``, and the scene-flow system's extra heads when ``sceneflow``
+    (the blend when ``static``, else the flow and the probabilities)."""
 
     def __init__(self, depth: int = 8, width: int = 256, in_ch_pts: int = 63,
                  in_ch_views: int = 27, in_ch_feat: int = 8,
                  skips: Sequence[int] = (4,), static: bool = True,
-                 bf16: bool = False):
+                 bf16: bool = False, sceneflow: bool = True,
+                 use_mvs: bool = True):
         super().__init__()
+        if bf16 and not use_mvs:
+            raise ValueError("the bf16-operand mode is the fused field's; a "
+                             "field without a volume stays float32")
         self.bf16 = bf16
         self.depth, self.width = depth, width
         self.in_ch_pts, self.in_ch_views, self.in_ch_feat = \
             in_ch_pts, in_ch_views, in_ch_feat
         self.skips = tuple(skips)
-        self.static = static
-        self.pts_bias = nn.Linear(in_ch_feat, width)
+        self.static, self.use_mvs = static, use_mvs
+        self.n_extra = (1 if static else 2) if sceneflow else 0
+        if use_mvs:
+            self.pts_bias = nn.Linear(in_ch_feat, width)
         self.pts_linears = nn.ModuleList(
             nn.Linear(i, o) for i, o in trunk_layer_dims(depth, width,
                                                          in_ch_pts, skips))
-        if static:
-            self.w_linear = nn.Linear(width, 1)
-        else:
-            self.sf_linear = nn.Linear(width, 6)
-            self.prob_linear = nn.Linear(width, 2)
+        for name, n_out, _ in EXTRA_HEADS[self.n_extra]:
+            setattr(self, name, nn.Linear(width, n_out))
         self.alpha_linear = nn.Linear(width, 1)
         self.feature_linear = nn.Linear(width, width)
         self.views_linears = nn.ModuleList(
@@ -91,23 +108,25 @@ class NeRFField(nn.Module):
 
     @property
     def out_ch(self) -> int:
-        return 5 if self.static else 12
+        return 4 + sum(n for _, n, _ in EXTRA_HEADS[self.n_extra])
+
+    def extra_heads(self):
+        """[(Linear, activation)] of the extra heads, in output order."""
+        return [(getattr(self, name), act)
+                for name, _, act in EXTRA_HEADS[self.n_extra]]
 
     def forward(self, pts, feats, views):
-        """pts [..., in_ch_pts], feats [..., in_ch_feat], views [...,
-        in_ch_views] → raw outputs [..., out_ch]."""
+        """pts [..., in_ch_pts], feats [..., in_ch_feat] (None without a
+        volume), views [..., in_ch_views] → raw outputs [..., out_ch]."""
         mm = self._bf16_product if self.bf16 else (lambda lin, x: lin(x))
-        bias = mm(self.pts_bias, feats)
+        bias = mm(self.pts_bias, feats) if self.use_mvs else None
         h = pts
         for i, layer in enumerate(self.pts_linears):
-            h = torch.relu(mm(layer, h) * bias)
+            z = mm(layer, h)
+            h = torch.relu(z if bias is None else z * bias)
             if i in self.skips:
                 h = torch.cat([pts, h], -1)
-        if self.static:
-            extras = [torch.sigmoid(self.w_linear(h))]
-        else:
-            extras = [torch.tanh(self.sf_linear(h)),
-                      torch.sigmoid(self.prob_linear(h))]
+        extras = [act(lin(h)) for lin, act in self.extra_heads()]
         alpha = self.alpha_linear(h)
         feature = mm(self.feature_linear, h)
         hv = torch.relu(mm(self.views_linears[0], torch.cat([feature, views], -1)))

@@ -18,6 +18,24 @@ step numbers (the chain pass runs after step 2000).
 ``FLAGSHIP_16`` and ``FLAGSHIP_TRAIN_16`` are the same configurations at
 ``precision=16``, exactly as ``tools/bench_eval.py`` and ``bench.py`` run
 them; ``SMALL_16`` and ``SMALL_TRAIN_16`` are the small ones at 16 bits.
+
+The paper's baselines and ablations, each its file's fields over the config
+defaults (``configs/config_files/``), full width (depth 8, width 256,
+multires 10 / 4, 128 samples), eval and training in one preset, with a
+``_16`` twin and a ``SMALL_*`` twin at ``SMALL_TRAIN``'s sizes
+(``FAMILIES`` lists them with their scenes):
+
+- ``FLAGSHIP_MVSNERF`` (``config_mvsnerf_nsff_cross1.txt``): MVSNeRF's
+  static field alone, no scene flow, 4 outputs, conditioned on the static
+  volume of 8 source views (F = 8 + 4 * 8), 4096 rays, no motion-mask rays,
+  density noise 1.0, pad 24, at the 288x544 the file leaves to the
+  defaults;
+- ``FLAGSHIP_NSFF`` (``config_nsff_general.txt``): both fields, no volume
+  (plain MLPs), 2048 + 512 rays, pad 0, the chain loss, decay 30, 288x512;
+- ``FLAGSHIP_STATIC_VOL`` (``config_kid-running_mvs_static_general.txt``):
+  the static field on its volume, the dynamic one plain, 1024 + 512 rays;
+- ``FLAGSHIP_DY_VOL`` (``config_kid-running_mvs_dyonly_general.txt``): the
+  static field plain, the dynamic one on its volume, 1024 + 512 rays.
 """
 from __future__ import annotations
 
@@ -47,18 +65,59 @@ SMALL_16 = dict(SMALL, precision=16)
 SMALL_TRAIN_16 = dict(SMALL_TRAIN, precision=16)
 FLAGSHIP_16 = dict(FLAGSHIP, precision=16)
 FLAGSHIP_TRAIN_16 = dict(FLAGSHIP_TRAIN, precision=16)
+FLAGSHIP_MVSNERF = dict(FLAGSHIP, train_sceneflow=False, use_mvs_dy=False,
+                        num_input=8, batch_size=4096, raw_noise_std=1.0,
+                        num_epochs=6000, img_w=544)
+MVSNERF_SCENE = dict(FLAGSHIP_SCENE, img_w=544)
+FLAGSHIP_NSFF = dict(FLAGSHIP_TRAIN, use_mvs=False, use_mvs_dy=False,
+                     batch_size=2048, pad=0)
+FLAGSHIP_STATIC_VOL = dict(FLAGSHIP_TRAIN, use_mvs_dy=False, batch_size=1024)
+FLAGSHIP_DY_VOL = dict(FLAGSHIP_TRAIN, use_mvs=False, batch_size=1024)
+SMALL_MVSNERF = dict(SMALL, train_sceneflow=False, use_mvs_dy=False,
+                     num_input=3, batch_size=32, raw_noise_std=1.0,
+                     num_epochs=2)
+SMALL_NSFF = dict(SMALL_TRAIN, use_mvs=False, use_mvs_dy=False, pad=0)
+SMALL_STATIC_VOL = dict(SMALL_TRAIN, use_mvs_dy=False)
+SMALL_DY_VOL = dict(SMALL_TRAIN, use_mvs=False)
+FLAGSHIP_MVSNERF_16 = dict(FLAGSHIP_MVSNERF, precision=16)
+FLAGSHIP_NSFF_16 = dict(FLAGSHIP_NSFF, precision=16)
+FLAGSHIP_STATIC_VOL_16 = dict(FLAGSHIP_STATIC_VOL, precision=16)
+FLAGSHIP_DY_VOL_16 = dict(FLAGSHIP_DY_VOL, precision=16)
+SMALL_MVSNERF_16 = dict(SMALL_MVSNERF, precision=16)
+SMALL_NSFF_16 = dict(SMALL_NSFF, precision=16)
+SMALL_STATIC_VOL_16 = dict(SMALL_STATIC_VOL, precision=16)
+SMALL_DY_VOL_16 = dict(SMALL_DY_VOL, precision=16)
+# family -> (small preset, flagship preset, flagship scene, source file)
+FAMILIES = {
+    "mvsnerf": (SMALL_MVSNERF, FLAGSHIP_MVSNERF, MVSNERF_SCENE,
+                "config_mvsnerf_nsff_cross1.txt"),
+    "nsff": (SMALL_NSFF, FLAGSHIP_NSFF, FLAGSHIP_SCENE,
+             "config_nsff_general.txt"),
+    "static_vol": (SMALL_STATIC_VOL, FLAGSHIP_STATIC_VOL, FLAGSHIP_SCENE,
+                   "config_kid-running_mvs_static_general.txt"),
+    "dy_vol": (SMALL_DY_VOL, FLAGSHIP_DY_VOL, FLAGSHIP_SCENE,
+               "config_kid-running_mvs_dyonly_general.txt"),
+}
 STEPS_PER_EPOCH = 24
 TARGET_FRAME = 3
 
 
 def seeded_params(system, seed: int = 0) -> dict:
     """``system.init_params`` from a CPU generator (the same numbers on every
-    device), with both fields' alpha bias raised by 1: at random init σ ≤ 0
+    device), with every field's alpha bias raised by 1: at random init σ ≤ 0
     everywhere is common, and renders exactly 0."""
     params = system.init_params(torch.Generator().manual_seed(seed))
     for field in ("nerf_static", "nerf_dynamic"):
-        params[f"{field}.alpha_linear.bias"] += 1.0
+        key = f"{field}.alpha_linear.bias"
+        if key in params:
+            params[key] += 1.0
     return params
+
+
+def scene_of(config: dict, scene: dict) -> SyntheticDataset:
+    """The synthetic scene with the views the config's volumes read."""
+    return SyntheticDataset(**scene, use_mvs=config.get("use_mvs", False),
+                            use_mvs_dy=config.get("use_mvs_dy", False))
 
 
 def build(config: dict, scene: dict, device, seed: int = 0):
@@ -69,5 +128,5 @@ def build(config: dict, scene: dict, device, seed: int = 0):
     system = ZestSystem(cfg).to(device)
     params = {k: v.to(device) for k, v in seeded_params(system, seed).items()}
     system.load_state_dict(params)
-    batch = to_batch(SyntheticDataset(**scene)[TARGET_FRAME], device)
+    batch = to_batch(scene_of(config, scene)[TARGET_FRAME], device)
     return cfg, system, batch, params

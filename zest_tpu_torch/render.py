@@ -7,6 +7,9 @@ composites them — the val return of ``zest_tpu.render.render_rays``.
 ``render_rays_train`` is its training return: density noise from the step's
 draws, the t-1 / t+1 re-render of the dynamic field at flow-warped points in
 one stacked field call, the chain select and the optional chain pass.
+Without a dynamic field (no scene flow) both return after the static field,
+as ``zest_tpu``'s ``scene_flow=False`` does; a field without a volume gets
+no features (None).
 
 Conventions: rays [R, ...], samples S on the last axis of z-shaped tensors.
 """
@@ -21,9 +24,10 @@ from .kernels.color_gather import gather_colors
 from .models.embedding import positional_encoding
 
 
-# the maps of an eval render
+# the maps of an eval render; without scene flow the first two
 EVAL_KEYS = ("rgb_map", "depth_map", "rgb_map_ref", "depth_map_ref",
              "rgb_map_ref_dy", "depth_map_ref_dy", "weights_map_dd")
+STATIC_EVAL_KEYS = EVAL_KEYS[:2]
 
 
 def _exclusive_transmittance(one_minus_alpha):
@@ -127,12 +131,14 @@ def build_color_features(pts_world, images, w2cs, intrinsics):
 
 
 class RenderModels(NamedTuple):
-    """Field evaluators and conditioning-feature callables for render_rays."""
-    static_fn: Callable       # (pts_emb, feats, views) -> raw [R, S, 5]
-    dynamic_fn: Callable      # (xyzt_emb, feats, views) -> raw [R, S, 12]
-    static_feats: Callable    # (pts_world, ndc) -> [R, S, F]
-    dynamic_vol: Callable     # (ndc) -> [R, S, 8]
-    dynamic_col: Callable     # (pts_world) -> [R, S, 16]
+    """Field evaluators and conditioning-feature callables for render_rays.
+    Without scene flow dynamic_fn is None; a field without a volume has no
+    feature callables (None)."""
+    static_fn: Callable       # (pts_emb, feats, views) -> raw [R, S, 4 or 5]
+    dynamic_fn: Optional[Callable] = None   # (xyzt_emb, feats, views) -> [R, S, 12]
+    static_feats: Optional[Callable] = None  # (pts_world, ndc) -> [R, S, F]
+    dynamic_vol: Optional[Callable] = None   # (ndc) -> [R, S, 8]
+    dynamic_col: Optional[Callable] = None   # (pts_world) -> [R, S, 16]
     multires: int = 10
     multires_views: int = 4
     # the lookup at flow-warped points (t±1, the chain); None: dynamic_vol
@@ -140,17 +146,24 @@ class RenderModels(NamedTuple):
 
 
 def _embed_dirs(rays_d, w2c_ref, n_samples, multires_views):
+    """Embedded unit view directions, rotated into w2c_ref's camera when it
+    is given, repeated over the samples."""
     cos_angle = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    views = positional_encoding(gen_dir_feature(w2c_ref, rays_d / cos_angle),
-                                multires_views)
+    dirs = rays_d / cos_angle
+    if w2c_ref is not None:
+        dirs = gen_dir_feature(w2c_ref, dirs)
+    views = positional_encoding(dirs, multires_views)
     return views[:, None, :].expand(views.shape[0], n_samples, views.shape[-1])
 
 
 def static_field_inputs(models: RenderModels, rays, im_w2c_ref):
     """The static field's (embedded points, features, embedded views) at a
-    ray batch's points, each [R, S, ...]."""
-    return (positional_encoding(rays.ndc, models.multires),
-            models.static_feats(rays.pts, rays.ndc),
+    ray batch's points, each [R, S, ...]; the features None without a
+    volume."""
+    feats = None
+    if models.static_feats is not None:
+        feats = models.static_feats(rays.pts, rays.ndc)
+    return (positional_encoding(rays.ndc, models.multires), feats,
             _embed_dirs(rays.rays_d, im_w2c_ref, rays.pts.shape[1],
                         models.multires_views))
 
@@ -159,12 +172,20 @@ def _dynamic_inputs(models: RenderModels, ndc, t_ch, col, views,
                     warped: bool = False):
     """The dynamic field's inputs at ndc [n, S, 3] and times t_ch [n, S, 1],
     with the color features col and embedded views of those rays; ``warped``
-    points take ``dynamic_vol_warped`` where it is given."""
-    lookup = models.dynamic_vol
-    if warped and models.dynamic_vol_warped is not None:
-        lookup = models.dynamic_vol_warped
+    points take ``dynamic_vol_warped`` where it is given. The features are
+    None without a volume."""
+    feats = None
+    if models.dynamic_vol is not None:
+        lookup = models.dynamic_vol
+        if warped and models.dynamic_vol_warped is not None:
+            lookup = models.dynamic_vol_warped
+        feats = torch.cat([lookup(ndc), col], -1)
     return (positional_encoding(torch.cat([ndc, t_ch], -1), models.multires),
-            torch.cat([lookup(ndc), col], -1), views)
+            feats, views)
+
+
+def _dynamic_col(models: RenderModels, pts):
+    return None if models.dynamic_col is None else models.dynamic_col(pts)
 
 
 def dynamic_field_inputs(models: RenderModels, rays, nb_w2c_ref,
@@ -172,9 +193,23 @@ def dynamic_field_inputs(models: RenderModels, rays, nb_w2c_ref,
     """The dynamic field's (embedded points and time, features, embedded
     views) at a ray batch's points at the reference time, each [R, S, ...]."""
     t_ch = torch.full_like(rays.ndc[..., :1], 1.0) * ref_frame_idx
-    return _dynamic_inputs(models, rays.ndc, t_ch, models.dynamic_col(rays.pts),
+    return _dynamic_inputs(models, rays.ndc, t_ch,
+                           _dynamic_col(models, rays.pts),
                            _embed_dirs(rays.rays_d, nb_w2c_ref,
                                        rays.pts.shape[1], models.multires_views))
+
+
+def _render_static(models, rays, dists, im_w2c_ref, white_bkgd, draws,
+                   raw_noise_std):
+    """The static field alone: (its raw output [R, S, out_ch], outputs with
+    rgb_map, depth_map and weights)."""
+    raw_static = models.static_fn(*static_field_inputs(models, rays,
+                                                       im_w2c_ref))
+    rgb_map, _, _, weights, depth_map, _ = raw2outputs(
+        raw_static[..., :4], rays.z_vals, dists, white_bkgd,
+        getattr(draws, "noise_static", None), raw_noise_std)
+    return raw_static, {"rgb_map": rgb_map, "depth_map": depth_map,
+                        "weights": weights}
 
 
 def _render_ref(models, rays, dists, im_w2c_ref, nb_w2c_ref, ref_frame_idx,
@@ -182,14 +217,11 @@ def _render_ref(models, rays, dists, im_w2c_ref, nb_w2c_ref, ref_frame_idx,
     """Static field, then the dynamic field at the reference time, and both
     composited. Returns (outputs, the dynamic field's raw output, the
     dynamic color features, the dynamic embedded views)."""
-    raw_static = models.static_fn(*static_field_inputs(models, rays,
-                                                       im_w2c_ref))
+    raw_static, static_out = _render_static(models, rays, dists, im_w2c_ref,
+                                            white_bkgd, draws, raw_noise_std)
     raw_rgba, raw_blend_w = raw_static[..., :4], raw_static[..., 4]
-    rgb_map, _, _, weights, depth_map, _ = raw2outputs(
-        raw_rgba, rays.z_vals, dists, white_bkgd, getattr(draws, "noise_static", None),
-        raw_noise_std)
 
-    col_dy = models.dynamic_col(rays.pts)
+    col_dy = _dynamic_col(models, rays.pts)
     views_dy = _embed_dirs(rays.rays_d, nb_w2c_ref, rays.pts.shape[1],
                            models.multires_views)
     t_ch = torch.full_like(rays.ndc[..., :1], 1.0) * ref_frame_idx
@@ -199,12 +231,11 @@ def _render_ref(models, rays, dists, im_w2c_ref, nb_w2c_ref, ref_frame_idx,
      weights_ref_dy, weights_ref_dd) = raw2outputs_blending(
         raw_dy[..., :4], raw_rgba, raw_blend_w, rays.z_vals, dists,
         getattr(draws, "noise_dynamic", None), raw_noise_std)
-    out = {"rgb_map": rgb_map, "depth_map": depth_map,
-           "rgb_map_ref": rgb_map_ref, "depth_map_ref": depth_map_ref,
-           "rgb_map_ref_dy": rgb_map_ref_dy,
+    out = {**static_out, "rgb_map_ref": rgb_map_ref,
+           "depth_map_ref": depth_map_ref, "rgb_map_ref_dy": rgb_map_ref_dy,
            "depth_map_ref_dy": depth_map_ref_dy,
            "weights_map_dd": torch.sum(weights_ref_dd, -1).detach(),
-           "weights": weights, "raw_blend_w": raw_blend_w,
+           "raw_blend_w": raw_blend_w,
            "weights_ref_dy": weights_ref_dy}
     return out, raw_dy, col_dy, views_dy
 
@@ -216,10 +247,15 @@ def render_rays(models: RenderModels, rays, *, im_w2c_ref, nb_w2c_ref,
 
     Returns the eval maps: rgb_map, depth_map (static), rgb_map_ref,
     depth_map_ref (blended), rgb_map_ref_dy, depth_map_ref_dy (dynamic
-    alone) and weights_map_dd (the dynamic field's share of the weights).
+    alone) and weights_map_dd (the dynamic field's share of the weights);
+    without a dynamic field the first two (``STATIC_EVAL_KEYS``).
     """
     cos_angle = torch.linalg.norm(rays.rays_d, dim=-1, keepdim=True)
     dists = geometry.depth2dist(rays.z_vals, cos_angle)
+    if models.dynamic_fn is None:
+        out = _render_static(models, rays, dists, im_w2c_ref, white_bkgd,
+                             None, 0.0)[1]
+        return {k: out[k] for k in STATIC_EVAL_KEYS}
     out, _, _, _ = _render_ref(models, rays, dists, im_w2c_ref, nb_w2c_ref,
                                ref_frame_idx, white_bkgd, None, 0.0)
     return {k: out[k] for k in EVAL_KEYS}
@@ -237,11 +273,16 @@ def render_rays_train(models: RenderModels, rays, draws, *, im_w2c_ref,
     ``chain_5frames``, the dynamic field at them.
 
     Returns the outputs ``losses.sceneflow_losses`` reads, with the keys of
-    ``zest_tpu.render.render_rays``.
+    ``zest_tpu.render.render_rays``; without a dynamic field the static
+    field's rgb_map, depth_map and weights, its density noise
+    ``draws.noise_static``.
     """
     R, S, _ = rays.pts.shape
     cos_angle = torch.linalg.norm(rays.rays_d, dim=-1, keepdim=True)
     dists = geometry.depth2dist(rays.z_vals, cos_angle)
+    if models.dynamic_fn is None:
+        return _render_static(models, rays, dists, im_w2c_ref, white_bkgd,
+                              draws, raw_noise_std)[1]
     ret, raw_ref_t, col_dy, views_dy = _render_ref(
         models, rays, dists, im_w2c_ref, nb_w2c_ref, ref_frame_idx,
         white_bkgd, draws, raw_noise_std)
@@ -262,8 +303,8 @@ def render_rays_train(models: RenderModels, rays, draws, *, im_w2c_ref,
     t_pp = torch.cat([ones * (ref_frame_idx - dt), ones * (ref_frame_idx + dt)])
     raw_both = models.dynamic_fn(*_dynamic_inputs(
         models, torch.cat([prev_ndc, post_ndc]), t_pp,
-        torch.cat([col_dy, col_dy]), torch.cat([views_dy, views_dy]),
-        warped=True))
+        None if col_dy is None else torch.cat([col_dy, col_dy]),
+        torch.cat([views_dy, views_dy]), warped=True))
     raw_prev, raw_post = raw_both[:R], raw_both[R:]
 
     rgb_map_prev_dy, _, _, weights_prev_dy, _, _ = raw2outputs(

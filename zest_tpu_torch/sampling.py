@@ -72,21 +72,24 @@ def sample_draws(generator: torch.Generator, cfg, H: int, W: int,
     """Every random number of one training step, on ``generator``'s device:
     ``cfg.batch_size`` random pixels, ``cfg.num_extra_samples`` motion-mask
     picks among the first ``motion_count`` coordinates when
-    ``extra_samples`` (the step's phase), the depth jitter and, when
-    ``cfg.raw_noise_std`` > 0, the density noise of the five passes."""
+    ``extra_samples`` (the step's phase) and ``cfg.train_sceneflow``, the
+    depth jitter and, when ``cfg.raw_noise_std`` > 0, the density noise of
+    the five passes (of the static field's alone without scene flow)."""
     dev = generator.device
     xs, ys = sample_pixels_random(generator, H, W, cfg.batch_size)
     motion_idx = None
     n_rays = cfg.batch_size
-    if extra_samples:
+    if extra_samples and cfg.train_sceneflow:
         motion_idx = torch.randint(0, max(int(motion_count), 1),
                                    (cfg.num_extra_samples,),
                                    generator=generator, device=dev)
         n_rays += cfg.num_extra_samples
     shape = (n_rays, cfg.N_samples)
     jitter = torch.rand(shape, generator=generator, device=dev)
+    n_noise = len(NOISE_FIELDS) if cfg.train_sceneflow else 1
     noise = [torch.randn(shape, generator=generator, device=dev)
-             if cfg.raw_noise_std > 0 else None for _ in NOISE_FIELDS]
+             if cfg.raw_noise_std > 0 and i < n_noise else None
+             for i in range(len(NOISE_FIELDS))]
     return Draws(xs, ys, motion_idx, jitter, *noise)
 
 

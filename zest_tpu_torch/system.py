@@ -1,22 +1,26 @@
 """``ZestSystem``: the model stack, its full-image eval step and its training
 step (counterpart of ``zest_tpu.system``).
 
-``make_eval_step()(params, batch)`` builds the static and dynamic encoding
-volumes once, then renders the target view in fixed-size ray chunks with a
-plain Python loop. ``make_eval_path_step()(params, batch, path_c2ws,
-path_w2cs)`` builds them once and renders the target view from each of P
-camera poses. ``make_train_step(optimizer)(state, batch, draws, phase)``
-builds both volumes, renders the step's rays through both fields (the t±1
-and chain passes included), takes the scene-flow loss bundle and its
-gradients, and applies Adam with global-norm clipping and a cosine learning
-rate. ``params`` is a state dict (from ``init_params`` or
+``make_eval_step()(params, batch)`` builds the config's encoding volumes
+once, then renders the target view in fixed-size ray chunks with a plain
+Python loop. ``make_eval_path_step()(params, batch, path_c2ws, path_w2cs)``
+builds them once and renders the target view from each of P camera poses.
+``make_train_step(optimizer)(state, batch, draws, phase)`` builds the
+volumes, renders the step's rays through the fields (with scene flow the
+t±1 and chain passes included), takes the scene-flow loss bundle (without
+it the render MSE) and its gradients, and applies Adam with global-norm
+clipping and a cosine learning rate. The configurations: both fields
+(``train_sceneflow``) or the static one alone (MVSNeRF's), each with its
+volume or without (NSFF's plain fields, the one-volume ablations).
+``params`` is a state dict (from ``init_params`` or
 ``convert.from_jax_params``) applied with ``torch.func.functional_call``;
 ``batch`` is a dataset sample as tensors on one device (``to_batch``);
 ``draws`` are the step's random numbers (``sampling.sample_draws``). On a
 CUDA device every kernel of both paths is the port's own: the plane-sweep
 warp, the volume lookup, the color gather and the fused field, and on the
-training path the backward of the warp, the lookup and the field. Callers on
-the card turn TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
+training path the backward of the warp, the lookup and the field; a field
+without a volume is plain PyTorch, as it is ``zest_tpu``'s Flax module.
+Callers on the card turn TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``) for float32 results.
 
 ``cfg.precision == 16`` (or ``cfg.bf16``) is ``zest_tpu``'s 16-bit path: bf16
@@ -39,7 +43,7 @@ from . import render, sampling
 from .data.synthetic import IMAGENET_MEAN, IMAGENET_STD
 from .geometry import normalize_frame_idx
 from .losses import sceneflow_losses
-from .render import EVAL_KEYS
+from .render import EVAL_KEYS, STATIC_EVAL_KEYS
 from .kernels.fused_mlp import fused_nerf_forward
 from .kernels.trilinear import sample_volume
 from .models import MVSEncoder, NeRFField
@@ -114,12 +118,15 @@ class Optimizer:
 
 
 def _check_supported(cfg) -> None:
-    """The port covers the two-field, two-volume eval and scene-flow
-    training paths, at 32- and 16-bit precision."""
+    """The port covers the eval and training paths of v0 fields with view
+    directions, with or without scene flow (``train_sceneflow``: the static
+    field alone, or both fields) and with each field's volume or without it
+    (``use_mvs``, ``use_mvs_dy``), at 32- and 16-bit precision. It refuses by
+    name what only the SVS configurations (the GAN branch) or none of the
+    repo's configuration files use: another ``net_type``, ``train_video``,
+    ``use_color_volume``, patches, the GAN and the depth, smoothness and
+    distortion regularizers, and any other precision."""
     unsupported = {
-        "train_sceneflow=False": not cfg.train_sceneflow,
-        "use_mvs=False": not cfg.use_mvs,
-        "use_mvs_dy=False": not cfg.use_mvs_dy,
         f"net_type={cfg.net_type!r}": cfg.net_type != "v0",
         "train_video": cfg.train_video,
         "use_color_volume": cfg.use_color_volume,
@@ -137,7 +144,15 @@ def _check_supported(cfg) -> None:
 
 class ZestSystem(nn.Module):
     """Builds the fields and encoders for a config; exposes the eval step
-    (its forward) and the training step."""
+    (its forward) and the training step.
+
+    As ``zest_tpu`` builds them: the static field (its extra head, the
+    blend, only with scene flow), the dynamic field only with scene flow,
+    each conditioned on its volume when the config has it, and an encoder
+    per volume (``enc_static`` with ``use_mvs``, ``enc_dy`` with
+    ``use_mvs_dy``). A conditioned field runs the fused
+    kernels; one without a volume is the plain module, float32 at either
+    precision (``zest_tpu``'s Flax field)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -148,17 +163,25 @@ class ZestSystem(nn.Module):
         multires = cfg.multires if cfg.pts_embedder else 0
         multires_views = cfg.multires_views if cfg.dir_embedder else 0
         in_ch_views = embedding_out_channels(cfg.dir_dim, multires_views)
+        sceneflow = cfg.train_sceneflow
         self.nerf_static = NeRFField(
             cfg.netdepth, cfg.netwidth, embedding_out_channels(cfg.pts_dim, multires),
-            in_ch_views, cfg.feat_dim, static=True, bf16=self.bf16)
-        self.nerf_dynamic = NeRFField(
-            cfg.netdepth, cfg.netwidth,
-            embedding_out_channels(cfg.pts_dim + 1, multires), in_ch_views,
-            cfg.feat_dim_dy, static=False, bf16=self.bf16)
-        self.enc_static = MVSEncoder(dtype=enc_dtype)
-        # the neighbour proj_mats of the dynamic volume are identity
-        self.enc_dy = MVSEncoder(identity_src_warp=True, dtype=enc_dtype)
+            in_ch_views, cfg.feat_dim, static=True, sceneflow=sceneflow,
+            use_mvs=cfg.use_mvs, bf16=self.bf16 and cfg.use_mvs)
+        self.nerf_dynamic = self.enc_static = self.enc_dy = None
+        if sceneflow:
+            self.nerf_dynamic = NeRFField(
+                cfg.netdepth, cfg.netwidth,
+                embedding_out_channels(cfg.pts_dim + 1, multires), in_ch_views,
+                cfg.feat_dim_dy, static=False, use_mvs=cfg.use_mvs_dy,
+                bf16=self.bf16 and cfg.use_mvs_dy)
+        if cfg.use_mvs:
+            self.enc_static = MVSEncoder(dtype=enc_dtype)
+        if cfg.use_mvs_dy:
+            # the neighbour proj_mats of the dynamic volume are identity
+            self.enc_dy = MVSEncoder(identity_src_warp=True, dtype=enc_dtype)
         self.multires, self.multires_views = multires, multires_views
+        self.eval_keys = EVAL_KEYS if sceneflow else STATIC_EVAL_KEYS
 
     def init_params(self, generator: torch.Generator) -> dict:
         """Fresh weights drawn with ``generator``, in the distributions of
@@ -193,8 +216,10 @@ class ZestSystem(nn.Module):
 
     # ------------------------------------------------------------------
     def render_models(self, batch) -> render.RenderModels:
-        """Builds the static and the dynamic encoding volume and binds them,
-        the fields and the kernels into the callables ``render_rays`` takes.
+        """Builds the encoding volumes the config has and binds them, the
+        fields and the kernels into the callables ``render_rays`` takes: a
+        conditioned field through the fused kernels, one without a volume
+        as the plain module with no features.
 
         At 16-bit precision the unwarped lookups read the volume rounded to
         bf16 (each call rounds it, and its gradient, again), the color gather
@@ -204,43 +229,47 @@ class ZestSystem(nn.Module):
         stay float32 here."""
         cfg = self.cfg
         near_far = batch["near_fars"][0]
-        static_vol, _, _ = self.enc_static(batch["images"][:-1],
-                                           batch["proj_mats"][:-1], near_far,
-                                           pad=cfg.pad)
-        dyn_vol, _, _ = self.enc_dy(batch["nb_imgs"], batch["nb_proj_mats"],
-                                    near_far, pad=cfg.pad)
-        src_imgs = unpreprocess(batch["images"][:-1])
-        nb_imgs_un = unpreprocess(batch["nb_imgs"])
-        dynamic_vol_warped = None
-        if self.bf16:
-            src_imgs, nb_imgs_un = round_bf16(src_imgs), round_bf16(nb_imgs_un)
-            vol_of = round_bf16
+        rnd = round_bf16 if self.bf16 else (lambda t: t)
 
-            def dynamic_vol_warped(ndc):
-                return grid_sample_3d_rows(dyn_vol.to(torch.bfloat16),
-                                           ndc * 2.0 - 1.0)
-        else:
-            def vol_of(vol):
-                return vol
+        def field_fn(field):
+            if field.use_mvs:
+                return lambda p, f, v: fused_nerf_forward(field, p, f, v)
+            return field
 
-        def static_feats(pts_world, ndc):
-            # poses cut to the source views, as the reference indexes them
-            col = render.build_color_features(pts_world, src_imgs,
-                                              batch["w2cs"][:-1],
-                                              batch["intrinsics"][:-1])
-            return torch.cat([sample_volume(vol_of(static_vol), ndc), col], -1)
+        static_feats = None
+        if self.enc_static is not None:
+            static_vol, _, _ = self.enc_static(
+                batch["images"][:-1], batch["proj_mats"][:-1], near_far,
+                pad=cfg.pad)
+            src_imgs = rnd(unpreprocess(batch["images"][:-1]))
+
+            def static_feats(pts_world, ndc):
+                # poses cut to the source views, as the reference indexes them
+                col = render.build_color_features(pts_world, src_imgs,
+                                                  batch["w2cs"][:-1],
+                                                  batch["intrinsics"][:-1])
+                return torch.cat([sample_volume(rnd(static_vol), ndc), col],
+                                 -1)
+
+        dynamic = {}
+        if self.enc_dy is not None:
+            dyn_vol, _, _ = self.enc_dy(batch["nb_imgs"], batch["nb_proj_mats"],
+                                        near_far, pad=cfg.pad)
+            nb_imgs_un = rnd(unpreprocess(batch["nb_imgs"]))
+            dynamic = dict(
+                dynamic_vol=lambda ndc: sample_volume(rnd(dyn_vol), ndc),
+                dynamic_col=lambda pts: render.build_color_features(
+                    pts, nb_imgs_un, batch["nb_w2cs"], batch["nb_intr"]))
+            if self.bf16:
+                dynamic["dynamic_vol_warped"] = lambda ndc: grid_sample_3d_rows(
+                    dyn_vol.to(torch.bfloat16), ndc * 2.0 - 1.0)
 
         return render.RenderModels(
-            static_fn=lambda p, f, v: fused_nerf_forward(self.nerf_static,
-                                                         p, f, v),
-            dynamic_fn=lambda p, f, v: fused_nerf_forward(self.nerf_dynamic,
-                                                          p, f, v),
-            static_feats=static_feats,
-            dynamic_vol=lambda ndc: sample_volume(vol_of(dyn_vol), ndc),
-            dynamic_col=lambda pts: render.build_color_features(
-                pts, nb_imgs_un, batch["nb_w2cs"], batch["nb_intr"]),
-            multires=self.multires, multires_views=self.multires_views,
-            dynamic_vol_warped=dynamic_vol_warped)
+            static_fn=field_fn(self.nerf_static),
+            dynamic_fn=(None if self.nerf_dynamic is None
+                        else field_fn(self.nerf_dynamic)),
+            static_feats=static_feats, multires=self.multires,
+            multires_views=self.multires_views, **dynamic)
 
     def _chunk(self, H, W) -> int:
         return min(self.cfg.eval_chunk or self.cfg.chunk, H * W)
@@ -264,7 +293,9 @@ class ZestSystem(nn.Module):
         """The reference poses and time ``render_rays`` takes for this batch
         (slot 0 of ``w2cs``, the batch's by default)."""
         w2cs = batch["w2cs"] if w2cs is None else w2cs
-        return dict(im_w2c_ref=w2cs[0], nb_w2c_ref=batch["nb_w2cs"][0],
+        nb_w2cs = batch.get("nb_w2cs")   # no neighbours: views unrotated
+        return dict(im_w2c_ref=w2cs[0],
+                    nb_w2c_ref=None if nb_w2cs is None else nb_w2cs[0],
                     ref_frame_idx=normalize_frame_idx(batch["time"],
                                                       batch["total_frames"]),
                     white_bkgd=self.cfg.white_bkgd)
@@ -282,7 +313,7 @@ class ZestSystem(nn.Module):
                     models, self.chunk_rays(pose_batch, idx, imgs_un), **kwargs)
                 for idx in range(-(-(H * W) // self._chunk(H, W)))]
         return {k: torch.cat([o[k] for o in outs])[:H * W]
-                .reshape(H, W, *outs[0][k].shape[1:]) for k in EVAL_KEYS}
+                .reshape(H, W, *outs[0][k].shape[1:]) for k in self.eval_keys}
 
     def forward(self, batch, path_c2ws=None, path_w2cs=None):
         """The full-image eval of the batch's target view -> dict of
@@ -298,7 +329,7 @@ class ZestSystem(nn.Module):
                                 torch.cat([c2ws[:-1], c2w[None]]),
                                 torch.cat([w2cs[:-1], w2c[None]]))
                 for c2w, w2c in zip(path_c2ws, path_w2cs)]
-        return {k: torch.stack([m[k] for m in maps]) for k in EVAL_KEYS}
+        return {k: torch.stack([m[k] for m in maps]) for k in self.eval_keys}
 
     def make_eval_step(self):
         """Returns eval_step(params, batch) → maps of [H, W, ...]."""
@@ -338,10 +369,11 @@ class ZestSystem(nn.Module):
 
     def train_rays(self, batch, draws: sampling.Draws, phase: Phase):
         """The step's rays: the random pixels, plus the motion-mask pixels in
-        the extra-samples phase, with the draws' depth jitter."""
+        the extra-samples phase of a scene-flow system, with the draws'
+        depth jitter."""
         cfg = self.cfg
         xs, ys = draws.xs, draws.ys
-        if phase.extra_samples:
+        if phase.extra_samples and cfg.train_sceneflow:
             hx, hy = sampling.sample_motion_pixels(batch["motion_coords"],
                                                    draws.motion_idx)
             xs, ys = torch.cat([xs, hx]), torch.cat([ys, hy])
@@ -355,7 +387,7 @@ class ZestSystem(nn.Module):
 
     def forward_train(self, batch, draws: sampling.Draws, phase: Phase,
                       step: int):
-        """One training forward: both volumes, the step's rays and the
+        """One training forward: the volumes, the step's rays and the
         training render. Returns (results, rays)."""
         models = self.render_models(batch)
         rays = self.train_rays(batch, draws, phase)
@@ -368,15 +400,21 @@ class ZestSystem(nn.Module):
         return results, rays
 
     def compute_losses(self, results, rays, batch, step: int, phase: Phase):
-        """The scene-flow loss bundle → (train_loss, logs), with the logs of
+        """The scene-flow loss bundle, or without scene flow the static
+        render's MSE (``render_loss``) → (train_loss, logs), with the logs of
         ``zest_tpu.system.ZestSystem.compute_losses``."""
-        _, H, W, _ = batch["images"].shape
-        total, logs = sceneflow_losses(
-            self.cfg, results, rays, step=step, frame_t=batch["time"],
-            total_frames=batch["total_frames"], H=H, W=W,
-            focal=batch["intrinsics"][-1, 0, 0], fnb_w2cs=batch["fnb_w2cs"],
-            chain_bwd=step % 2 == 0, chain_5frames=phase.chain_5frames)
-        logs["sceneflow_loss"] = total
+        if not self.cfg.train_sceneflow:
+            total = torch.mean((results["rgb_map"] - rays.color_gt) ** 2)
+            logs = {"render_loss": total}
+        else:
+            _, H, W, _ = batch["images"].shape
+            total, logs = sceneflow_losses(
+                self.cfg, results, rays, step=step, frame_t=batch["time"],
+                total_frames=batch["total_frames"], H=H, W=W,
+                focal=batch["intrinsics"][-1, 0, 0],
+                fnb_w2cs=batch["fnb_w2cs"], chain_bwd=step % 2 == 0,
+                chain_5frames=phase.chain_5frames)
+            logs["sceneflow_loss"] = total
         logs["train_loss"] = total
         mse = torch.mean((results["rgb_map"] - rays.color_gt) ** 2)
         logs["train_PSNR"] = -10.0 * torch.log10(mse)

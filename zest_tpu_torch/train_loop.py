@@ -12,9 +12,13 @@ with PNG dumps of the first four; ``run_test`` runs it on the test split
 from ``--ckpt`` and writes ``test_metrics.txt``. ``build_datasets`` builds
 the synthetic scene from the config.
 
-Not ported yet, and refused by name: gradient accumulation (``acc_grad`` >
-1), the GAN branch, LPIPS, ``vis_cnn``'s encoder dumps and the real-data
-loaders. The loop has no W&B sink.
+Every system ``system.ZestSystem`` builds trains here: with or without
+scene flow (``validate`` and the test read ``rgb_map_ref`` /
+``depth_map_ref``, or ``rgb_map`` / ``depth_map`` without it) and with
+either, both or neither volume (the synthetic scene then has no keyframes
+or no neighbours). Not ported yet, and refused by name: gradient
+accumulation (``acc_grad`` > 1), the GAN branch, LPIPS, ``vis_cnn``'s
+encoder dumps and the real-data loaders. The loop has no W&B sink.
 """
 from __future__ import annotations
 
