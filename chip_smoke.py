@@ -125,7 +125,29 @@ sm_90a), then:
     ``*_mvsnerf``), and its eval and training step at float32 and precision
     16 with their launches, s/image and train_rays_per_sec; one flagship
     eval image and one training step of each other preset at float32, with
-    their launches and peak memory.
+    their launches and peak memory;
+15. SVS, the adversarial training of the ``svs_*`` files
+    (``system_gan.GanSystem``, LPIPS on a seeded random ``.npz`` that the
+    phase writes, ``presets.RANDOM_LPIPS``): the small GAN steps on CUDA
+    against the CPU (GRAF at imsize 32 at float32 and at precision 16, the
+    PatchGAN variant with the depth discriminator at float32), held as
+    phases 7 and 10 hold theirs, the discriminators' gradients, their
+    parameters after the step and the spectral ``u``s included; at the SVS
+    flagship (``presets.FLAGSHIP_SVS``: MVSNeRF's generator, one 64x64 GRAF
+    patch, the discriminator at imsize 64, LPIPS-AlexNet on the patch) at
+    float32 and precision 16, with every launch counter reset, one step's
+    launches equal to MVSNeRF's step-0 step's in phase 14 (the
+    discriminators and LPIPS are cuDNN and cuBLAS), finite G_loss, D_loss
+    and train_PSNR, the generator's and the discriminator's parameters and
+    the ``u``s moved, train_rays_per_sec over TRAIN_STEPS steps after a
+    warm-up, the peak memory, and the seconds of the generator's update,
+    the discriminator's update and LPIPS's forward and backward on lines of
+    their own; then ``run_training`` for SVS_LOOP_STEPS steps of
+    ``config_svs_nsff_cross1.txt`` on the synthetic scene at precision 16
+    (its launches SVS_LOOP_STEPS x one 16-bit SVS step's, the warning that
+    the GAN ignores acc_grad), ``ckpts/last`` restored on the card equal to
+    the loop's final state in all eight fields, and ``validate`` on one
+    image with a finite val_LPIPS.
 
 The second-to-last line of stdout is a JSON object with one entry per kernel
 (``timing``: "device" for the rows timed by the profiler's kernel durations,
@@ -172,6 +194,7 @@ F32_FLIPPED_SHARE = 0.005
 F32_FLIPPED_FLOOR = 5
 TRAIN_STEPS = 5              # timed flagship training steps, after warm-up
 LOOP_STEPS = 40              # training loop steps of the quality phase
+SVS_LOOP_STEPS = 10          # training loop steps of the SVS phase
 # metrics on the card (float32) against float64 on the CPU: PSNR relative;
 # SSIM of its range's bound (float32's E[x^2] - mu^2 cancels: 2e-5 relative,
 # 8e-6 absolute, from float64 on a noisy flagship-size image on the CPU)
@@ -2172,6 +2195,9 @@ def four_output_kernels(rows, dev, cfg, system, batch):
     return rays
 
 
+ABLATIONS = ("mvsnerf", "nsff", "static_vol", "dy_vol")
+
+
 def ablations(rows, dev):
     """Phase 14: the paper's baselines and ablations (``presets.FAMILIES``).
     Each small preset's eval and training step (both phases) on CUDA
@@ -2186,7 +2212,8 @@ def ablations(rows, dev):
     peak memory. Returns (launches by path, {tag: (s/image, rays/s)})."""
     from zest_tpu_torch import presets
     launches, summary = {}, {}
-    for fam, (small, _, _, _) in presets.FAMILIES.items():
+    for fam in ABLATIONS:
+        small = presets.FAMILIES[fam][0]
         small_slice(dev, small, f"small-{fam}")
         small_train(dev, small, f"small-train-{fam}", clipped=True)
         if small["use_mvs"] or small["use_mvs_dy"]:
@@ -2219,6 +2246,361 @@ def ablations(rows, dev):
         summary[fam] = (s_image, None)
         del system, params, batch
         torch.cuda.empty_cache()
+    return launches, summary
+
+
+class _Capture:
+    """An optimizer that keeps the parameters and returns the gradient it
+    was given as its state: a step run with it hands back its gradients."""
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, opt_state, params):
+        return params, grads
+
+
+def gan_step(preset, scene, on, step=0):
+    """One GAN step of ``preset`` on device ``on`` from the seeded weights
+    and a CPU generator's draws, its optimizers capturing the gradients.
+    Returns (logs, generator gradients, discriminator gradients, the new
+    spectral state, the state it started from, the GanSystem, the
+    discriminators' outputs on the step's patches), on the CPU."""
+    from zest_tpu_torch import presets, sampling
+    from zest_tpu_torch.system import phase_for_step
+    from zest_tpu_torch.system_gan import apply_disc
+    cfg, gan, batch, state = presets.build_gan(preset, scene, on, SEED)
+    phase = phase_for_step(cfg, step)
+    draws = sampling.sample_draws(torch.Generator().manual_seed(SEED + 5),
+                                  cfg, cfg.img_h, cfg.img_w, 0, False, step)
+    new, logs = gan.make_train_step(_Capture(), _Capture())(
+        state, batch, draws.to(on), phase)
+    # the discriminators' outputs on the step's patches, which the
+    # adversarial terms read
+    outs = gan.generator_update(state, batch, draws.to(on), phase,
+                                _Capture())[3]
+    ppx = cfg.patch_size ** 2
+    preds = []
+    with torch.no_grad():
+        for x in outs[:2]:
+            d, _ = apply_disc(gan.disc, state.disc_params, state.disc_vars,
+                              x.reshape(-1, ppx, 3))
+            preds.append((d[-1] if cfg.getIntermFeat else d).cpu())
+        if gan.depth_disc is not None:
+            for x in outs[2:]:
+                preds.append(apply_disc(gan.depth_disc,
+                                        state.depth_disc_params, {},
+                                        x.reshape(-1, ppx, 1))[0].cpu())
+
+    def cpu(tree):
+        return {k: v.detach().cpu() for k, v in tree.items()}
+    disc_grads = cpu(new.disc_opt_state)
+    disc_grads.update({f"depth.{k}": v for k, v in
+                       cpu(new.depth_disc_opt_state).items()})
+    start = dict(cpu(state.disc_params), **{
+        f"depth.{k}": v for k, v in cpu(state.depth_disc_params).items()})
+    return ({k: float(v) for k, v in logs.items()}, cpu(new.opt_state),
+            disc_grads, cpu(new.disc_vars),
+            (cpu(state.params), start, cpu(state.disc_vars)), gan, preds)
+
+
+def _adam_moves(gan, grads, params, disc_grads, disc_params):
+    """Each optimizer's first update on the given gradients (the
+    generator's with its clip, the discriminators' without), on the CPU."""
+    from zest_tpu_torch import presets
+    opt = gan.system.make_optimizer(presets.STEPS_PER_EPOCH)
+    d_opt = gan.make_disc_optimizer(presets.STEPS_PER_EPOCH)
+    with torch.no_grad():
+        return (opt.update(grads, opt.init(params), params)[0],
+                d_opt.update(disc_grads, d_opt.init(disc_params),
+                             disc_params)[0])
+
+
+def small_gan(dev, preset, scene, tag, preset32=None):
+    """Phase 15's small GAN steps: ``preset`` on CUDA against the CPU from
+    the same weights and draws. At float32 (``preset32`` None) as phase 7
+    holds its step (``_compare_train``: the logs, the generator's gradients
+    and its parameters after the step), and the discriminators' gradients
+    to 1e-4 of each leaf's largest (with the naive GAN loss both gradient
+    limits grow by twice its conditioning, ``adversarial_conditioning`` of
+    the discriminators' outputs at their card-vs-CPU difference), their
+    parameters after the step to 1e-6 where the gradient is clear of the
+    packages' difference, the spectral ``u``s to 1e-5 (they read the
+    kernels alone). At 16 bits as phase 10
+    holds its step: each log and gradient within twice the CPU's own
+    difference between ``preset`` and ``preset32`` plus a floor (one bf16
+    rounding of a log, 1e-3 of the module's largest gradient); the
+    discriminators and LPIPS run in float32 there too, so their gradients
+    take the same limit and the ``u``s the float32 one."""
+    from zest_tpu_torch.system_gan import adversarial_conditioning
+    runs = {"cuda": gan_step(preset, scene, dev),
+            "cpu": gan_step(preset, scene, "cpu")}
+    if preset32 is not None:
+        runs["cpu32"] = gan_step(preset32, scene, "cpu")
+    logs_c, grads_c, dgrads_c, vars_c, _, _, preds_c = runs["cuda"]
+    logs, grads, dgrads, vars_, (params, dparams, _), gan, preds = runs["cpu"]
+    # the naive loss's gradient is 1/p between its clips: a card-vs-CPU
+    # difference in an output near a clip moves it by that much more; held
+    # to twice that, as the 16-bit limits take twice the CPU's own spread
+    cond = 2 * adversarial_conditioning(
+        gan.cfg, preds, [(a - b).abs() for a, b in zip(preds_c, preds)])
+    if preset32 is None:
+        new, dnew = _adam_moves(gan, grads, params, dgrads, dparams)
+        new_c, dnew_c = _adam_moves(gan, grads_c, params, dgrads_c, dparams)
+        _compare_train(tag, (logs, grads, params, new),
+                       (logs_c, grads_c, params, new_c), clipped=True,
+                       grad_tol=1e-4 + cond)
+        for k, g in dgrads.items():
+            err = float((dgrads_c[k] - g).abs().max())
+            if err > (1e-4 + cond) * float(g.abs().max()):
+                raise AssertionError(f"{tag} discriminator grad {k}: differs "
+                                     f"by {err}")
+            big = (g.abs() > 10 * err) & (g.abs() > 1e-5)
+            d = float((dnew_c[k] - dnew[k])[big].abs().max()) if big.any() \
+                else 0.0
+            if d > 1e-6:
+                raise AssertionError(f"{tag} discriminator {k} after the "
+                                     f"step: differs by {d}")
+    else:
+        logs32, grads32, dgrads32 = runs["cpu32"][:3]
+        for k, v in logs.items():
+            if not abs(logs_c[k] - v) <= 2 * abs(v - logs32[k]) + \
+                    2.0 ** -8 * abs(v):
+                raise AssertionError(f"{tag} log {k}: CUDA {logs_c[k]} CPU "
+                                     f"{v} (32-bit {logs32[k]})")
+        if logs["G_rec_loss"] == logs32["G_rec_loss"]:
+            raise AssertionError(f"{tag}: the 16-bit step equals the 32-bit")
+        for got, ref, ref32 in ((grads_c, grads, grads32),
+                                (dgrads_c, dgrads, dgrads32)):
+            scale, spread_m = {}, {}
+            for k, v in ref.items():
+                m = k.split(".")[0]
+                scale[m] = max(scale.get(m, 0.0), float(v.abs().max()))
+                spread_m[m] = max(spread_m.get(m, 0.0),
+                                  float((v - ref32[k]).abs().max()))
+            for k, v in ref.items():
+                m = k.split(".")[0]
+                err = float((got[k] - v).abs().max())
+                spread = (spread_m[m] if m.startswith("enc_")
+                          else float((v - ref32[k]).abs().max()))
+                if err > 2 * spread + (1e-3 + cond) * scale[m]:
+                    raise AssertionError(f"{tag} grad {k}: differs by {err}")
+    for k, v in vars_.items():
+        if not torch.allclose(vars_c[k], v, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"{tag} spectral {k}: differs by "
+                                 f"{float((vars_c[k] - v).abs().max())}")
+    log(f"[{tag}] G_loss {logs['G_loss']:.6f} (CUDA {logs_c['G_loss']:.6f}),"
+        f" D_loss {logs['D_loss']:.6f} (CUDA {logs_c['D_loss']:.6f}); "
+        f"{len(dgrads)} discriminator leaves and {len(vars_)} spectral u held"
+        f" (twice the naive loss's conditioning adds {cond:.2e}) -> ok")
+
+
+def _timed(fn, n: int = 5) -> float:
+    """Median wall seconds of fn() over n runs after one, each ended by a
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def flagship_gan(cfg, gan, batch, state, tag, expected):
+    """Phase 15 at the SVS flagship: one GAN step with every launch counter
+    reset (its launches must be ``expected``, MVSNeRF's step-0 step's: the
+    discriminators and LPIPS launch none of the port's kernels), finite
+    G_loss, D_loss and train_PSNR, the generator's and the discriminator's
+    parameters and the spectral u moved; then train_rays_per_sec over
+    TRAIN_STEPS steps after a warm-up, ended by reading the loss, the peak
+    memory, and the seconds of the step's parts: the generator's update,
+    the discriminator's update and LPIPS's forward and backward on the
+    step's patch. Returns (launches, rays/s, {part: s})."""
+    from zest_tpu_torch import presets, sampling
+    from zest_tpu_torch.system import phase_for_step
+    dev = batch["images"].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    opt = gan.system.make_optimizer(presets.STEPS_PER_EPOCH)
+    d_opt = gan.make_disc_optimizer(presets.STEPS_PER_EPOCH)
+    step_fn = gan.make_train_step(opt, d_opt)
+    phase = phase_for_step(cfg, 0)
+
+    def draws_at(step):
+        return sampling.sample_draws(gen, cfg, cfg.img_h, cfg.img_w, 0, False,
+                                     step)
+
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new, logs = step_fn(state, batch, draws_at(0), phase)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    got = read_counters()
+    log(f"[{tag}] step 0: first run {first:.2f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {got}")
+    if got != expected:
+        raise AssertionError(f"{tag}: launches {got}, expected {expected} "
+                             f"(MVSNeRF's step)")
+    for k in ("G_loss", "D_loss", "train_PSNR"):
+        if not bool(torch.isfinite(logs[k])):
+            raise AssertionError(f"{tag}: {k} is {float(logs[k])}")
+    log(f"[{tag}] step 0 logs: " + ", ".join(f"{k} {float(v):.5g}"
+                                            for k, v in logs.items()))
+    for what, old, now in (("generator", state.params, new.params),
+                           ("discriminator", state.disc_params,
+                            new.disc_params),
+                           ("spectral u", state.disc_vars, new.disc_vars)):
+        moved = sum(int(bool((now[k] != v).any())) for k, v in old.items())
+        log(f"[{tag}] {what}: {moved} of {len(old)} tensors moved")
+        if moved < max(len(old) // 2, 1):
+            raise AssertionError(f"{tag}: only {moved} {what} tensors moved")
+    if new.depth_disc_params:
+        raise AssertionError(f"{tag}: the SVS files train no depth "
+                             f"discriminator")
+
+    n_rays = cfg.patch_size ** 2
+    torch.cuda.reset_peak_memory_stats()
+    st, logs = step_fn(new, batch, draws_at(1), phase)     # warm-up
+    float(logs["G_loss"])
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        st, logs = step_fn(st, batch, draws_at(2 + i), phase)
+    loss = float(logs["G_loss"])                            # waits
+    dt = time.perf_counter() - t0
+    rays_s = n_rays * TRAIN_STEPS / dt
+    log(f"[{tag}] {TRAIN_STEPS} steps in {dt:.3f} s ({1e3 * dt / TRAIN_STEPS:.1f}"
+        f" ms/step), G_loss {loss:.5g}; train_rays_per_sec {rays_s:.1f}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    draws = draws_at(0)
+    parts = {}
+    parts["generator update"] = _timed(lambda: gan.generator_update(
+        st, batch, draws, phase, opt))
+    outs = gan.generator_update(st, batch, draws, phase, opt)[3]
+    parts["discriminator update"] = _timed(lambda: gan.discriminator_update(
+        st, outs, d_opt))
+    P = cfg.patch_size
+    fake = outs[0].reshape(P, P, 3).clone().requires_grad_(True)
+    real = outs[1].reshape(P, P, 3)
+
+    def lpips_fwd_bwd():
+        with torch.enable_grad():
+            torch.autograd.grad(gan.lpips(fake, real), fake)
+    parts["LPIPS forward and backward"] = _timed(lpips_fwd_bwd)
+    parts["whole step"] = dt / TRAIN_STEPS
+    for part, sec in parts.items():
+        log(f"[{tag}] seconds of the {part}: {sec:.5f} (median of 5 after a "
+            f"warm-up, synchronised)" if part != "whole step" else
+            f"[{tag}] seconds of the {part}: {sec:.5f} (the window's mean)")
+    return got, rays_s, parts
+
+
+def svs_loop(dev, tmp, step_launches):
+    """Phase 15's loop: ``run_training`` for SVS_LOOP_STEPS steps of
+    ``config_svs_nsff_cross1.txt`` on the synthetic scene at precision 16
+    (every launch counter reset: SVS_LOOP_STEPS x one 16-bit SVS step's
+    ``step_launches``), ``ckpts/last`` restored on the card equal to the
+    loop's final state field by field, and ``validate`` on one image with
+    a finite val_LPIPS. Returns the loop's launches."""
+    import math
+    import warnings
+    from zest_tpu_torch import presets
+    from zest_tpu_torch.checkpoint import restore_path
+    from zest_tpu_torch.config import config_parser
+    from zest_tpu_torch.system_gan import GanTrainState
+    from zest_tpu_torch.train_loop import build_datasets, run_training, validate
+    cfg = config_parser([
+        "--config", "configs/config_files/config_svs_nsff_cross1.txt",
+        "--dataset_name", "synthetic", "--precision", "16",
+        "--lpips_weights", presets.RANDOM_LPIPS, "--save_dir", tmp,
+        "--log_every", "5"])
+    ds = build_datasets(cfg)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state, system = run_training(cfg, {"train": ds["train"]},
+                                     max_steps=SVS_LOOP_STEPS, quiet=True,
+                                     device=dev)
+    with_warnings = [str(w.message) for w in caught]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counters()
+    expected = {k: SVS_LOOP_STEPS * v for k, v in step_launches.items()}
+    log(f"[svs-loop] run_training of config_svs_nsff_cross1.txt at precision "
+        f"16: {SVS_LOOP_STEPS} steps in {wall:.2f} s ({wall / SVS_LOOP_STEPS:.4f}"
+        f" s/step, the frames' build included), launches {got}; warnings "
+        f"{with_warnings}")
+    if not isinstance(state, GanTrainState) or not system.bf16 or \
+            got != expected:
+        raise AssertionError(f"the SVS loop's launches {got}, expected "
+                             f"{expected}")
+    if not any("acc_grad" in w for w in with_warnings):
+        raise AssertionError("the GAN loop did not warn that it ignores "
+                             "acc_grad")
+    run_dir = Path(tmp) / cfg.expname
+    restored = restore_path(run_dir / "ckpts" / "last", dev)
+    for field in GanTrainState._fields:
+        a, b = getattr(restored, field), getattr(state, field)
+        same = a == b if not isinstance(a, dict) else _tree_equal(a, b)
+        if not same:
+            raise AssertionError(f"restored {field} differs from the loop's")
+    log(f"[svs-loop] ckpts/last restored on the card: all "
+        f"{len(GanTrainState._fields)} fields equal the loop's final state "
+        f"(step {restored.step}, {len(restored.disc_vars)} spectral u)")
+    t0 = time.perf_counter()
+    out = validate(cfg, system, system.make_eval_step(), state.params,
+                   ds["val"], run_dir, SVS_LOOP_STEPS, max_images=1)
+    val_s = time.perf_counter() - t0
+    if "val_LPIPS" not in out or not all(math.isfinite(v)
+                                         for v in out.values()):
+        raise AssertionError(f"validate: {out}")
+    log(f"[svs-loop] validate, 1 image in {val_s:.2f} s: " + ", ".join(
+        f"{k} {v:.5g}" for k, v in out.items()))
+    return got
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def svs(dev, tmp, mvsnerf_launches):
+    """Phase 15, the SVS (GAN) path: the small GAN steps on CUDA against
+    the CPU (GRAF at float32 and at 16 bits, the PatchGAN variant at
+    float32); the SVS flagship at float32 and at precision 16
+    (``flagship_gan``), each step's launches equal to MVSNeRF's step-0
+    step's at its precision (phase 14's ``mvsnerf_launches``); then the
+    loop of ``svs_loop``. Returns (launches by path, {tag: (rays/s,
+    parts)})."""
+    from zest_tpu_torch import presets
+    presets.write_random_lpips()
+    lp = dict(lpips_weights=presets.RANDOM_LPIPS)
+    small_gan(dev, dict(presets.SMALL_SVS, **lp), presets.SMALL_SCENE,
+              "small-svs")
+    small_gan(dev, dict(presets.SMALL_SVS_16, **lp), presets.SMALL_SCENE,
+              "small-svs-16", dict(presets.SMALL_SVS, **lp))
+    small_gan(dev, presets.SMALL_PATCHGAN, presets.PATCHGAN_SCENE,
+              "small-patchgan")
+    launches, summary = {}, {}
+    for tag, preset, ref in (("svs", presets.FLAGSHIP_SVS, "train_mvsnerf"),
+                             ("svs16", presets.FLAGSHIP_SVS_16,
+                              "train_mvsnerf16")):
+        cfg, gan, batch, state = presets.build_gan(
+            preset, presets.MVSNERF_SCENE, dev, SEED)
+        launches[f"train_{tag}"], rays_s, parts = flagship_gan(
+            cfg, gan, batch, state, f"flagship-{tag}", mvsnerf_launches[ref])
+        summary[tag] = (rays_s, parts)
+        del gan, batch, state
+        torch.cuda.empty_cache()
+    launches["loop_svs16"] = svs_loop(dev, tmp, launches["train_svs16"])
     return launches, summary
 
 
@@ -2259,6 +2641,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         per_pose = paths(dev, tmp, loop_cfg, loop_state)
     new_paths, summary = ablations(rows, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        svs_paths, svs_summary = svs(dev, tmp, new_paths)
     log(f"[summary] flagship eval s/image: float32 {s_image:.3f}, precision "
         f"16 {s_image16:.3f}; train_rays_per_sec: float32 {rays_s:.1f}, "
         f"precision 16 {rays_s16:.1f}; path s/pose: float32 "
@@ -2271,11 +2655,17 @@ def main() -> int:
         f"{summary['mvsnerf16'][1]:.1f}; one eval image (first run, s): "
         + ", ".join(f"{fam} {summary[fam][0]:.3f}"
                     for fam in ("nsff", "static_vol", "dy_vol")))
-    for path, counts in new_paths.items():
+    log("[summary] SVS flagship train_rays_per_sec: float32 "
+        f"{svs_summary['svs'][0]:.1f}, precision 16 "
+        f"{svs_summary['svs16'][0]:.1f}; seconds of a step's parts: " + "; ".join(
+            f"{tag} " + ", ".join(f"{k} {v:.5f}" for k, v in parts.items())
+            for tag, (_, parts) in svs_summary.items()))
+    for path, counts in {**new_paths, **svs_paths}.items():
         log(f"[summary] launches, {path}: "
             + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
     results = rows.finish({"eval": eval_launches, "train": train_launches,
-                           "eval16": eval16, "train16": train16, **new_paths})
+                           "eval16": eval16, "train16": train16, **new_paths,
+                           **svs_paths})
     for r in results:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never launched on the main path")

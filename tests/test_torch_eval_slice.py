@@ -124,11 +124,7 @@ def test_init_params_covers_the_state_dict():
 @pytest.mark.parametrize("change", [dict(net_type="v2"),
                                     dict(use_color_volume=True),
                                     dict(train_video=True),
-                                    dict(patch_size=8),
-                                    dict(gan_type="basic"),
-                                    dict(with_depth_loss_reg=True),
-                                    dict(with_depth_smoothness=True),
-                                    dict(with_distortion_loss=True)])
+                                    dict(precision=8)])
 def test_configs_outside_the_port_raise(change):
     with pytest.raises(NotImplementedError):
         ZestSystem(ZestConfig(**{**CFG, **change}))

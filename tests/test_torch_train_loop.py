@@ -253,9 +253,9 @@ def test_run_training_writes_metrics_with_validation(tmp_path):
 
 @pytest.mark.parametrize("change,name", [
     (dict(dataset_name="llff"), "dataset_name='llff'"),
-    (dict(gan_type="basic"), "gan_type="),
-    (dict(acc_grad=2), "acc_grad=2"),
-    (dict(lpips_weights="lpips.npz"), "LPIPS"),
+    (dict(train_video=True), "train_video"),
+    (dict(use_color_volume=True), "use_color_volume"),
+    (dict(precision=8), "precision=8"),
     (dict(dataset_name="synthetic", net_type="v2"), "net_type='v2'"),
 ])
 def test_run_training_refuses_what_it_does_not_port(tmp_path, change, name):
@@ -270,10 +270,13 @@ def test_run_training_refuses_what_it_does_not_port(tmp_path, change, name):
 
 
 def test_validate_refuses_lpips(tmp_path):
-    cfg = ZestConfig(**presets.SMALL, lpips_weights="lpips.npz")
+    """LPIPS weights that do not load are an error, not a metric quietly
+    dropped (LPIPS itself: tests/test_torch_svs_*.py)."""
+    cfg = ZestConfig(**presets.SMALL, lpips_weights=str(tmp_path / "no.npz"))
     system = ZestSystem(cfg)
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        train_loop.validate(cfg, system, system.make_eval_step(), {}, [],
+    params = {"w": torch.zeros(1)}
+    with pytest.raises(RuntimeError, match="lpips_weights"):
+        train_loop.validate(cfg, system, system.make_eval_step(), params, [],
                             tmp_path, 0)
 
 

@@ -7,11 +7,15 @@ find:
                                  samplers, depth candidates, a step's draws
 - ``ops``                      — grid sampling and the plane-sweep homography
 - ``models``                   — positional encoding, FeatureNet, CostRegNet,
-                                 the MVS encoder and the NeRF field
+                                 the MVS encoder, the NeRF field, the GAN
+                                 discriminators and LPIPS
 - ``render``                   — two-field volume rendering (eval and training)
-- ``losses``                   — the scene-flow loss bundle of a training step
+- ``losses``                   — the scene-flow loss bundle of a training
+                                 step and the patch regularizers
 - ``system``                   — ``ZestSystem``: its full-image eval step and
                                  its training step (clip, Adam, cosine LR)
+- ``system_gan``               — ``GanSystem``: the adversarial (SVS) step,
+                                 generator and discriminator updates
 - ``train_loop``, ``metrics``  — the training loop, full-image validation
                                  and test, the CSV metric log; PSNR and SSIM
 - ``checkpoint``               — top-5 and ``last`` checkpoints, resume
@@ -19,7 +23,8 @@ find:
 - ``train``, ``test``,         — the command-line entry points
   ``fine_tune``,                 (``python -m zest_tpu_torch.train ...``),
   ``render_spiral``, ``cli``     twins of the root scripts
-- ``convert``                  — ``zest_tpu`` param tree → this port's state dict
+- ``convert``                  — ``zest_tpu`` param trees → this port's state
+                                 dicts (the system's, a discriminator's)
 - ``config``, ``data``         — the config dataclass and its parser, the
                                  synthetic scene and the wander path's poses
                                  (standard library and NumPy only), and the

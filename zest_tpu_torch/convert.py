@@ -1,4 +1,5 @@
-"""``zest_tpu`` param tree → this port's state dict.
+"""``zest_tpu`` param tree → this port's state dict (``from_jax_params``
+for the system, ``from_jax_disc_params`` for a discriminator).
 
 Inverts the layouts that ``zest_tpu/convert.py`` documents:
 - Dense kernel [in, out]                  → Linear weight [out, in]
@@ -10,6 +11,9 @@ Inverts the layouts that ``zest_tpu/convert.py`` documents:
                                           → ConvTranspose3d [in, out, kd, kh, kw],
   spatial flip undone
 - BatchNorm scale / bias                  → weight / bias
+- a discriminator's Flax modules ``Dense_i``, ``Conv_i``, ``SpectralConv_i``,
+  ``_BatchNorm_i``                        → ``linears.i``, ``convs.i``,
+  ``convs.i``, ``norms.i``; the spectral ``u`` as it is
 """
 from __future__ import annotations
 
@@ -60,6 +64,11 @@ def _encoder(tree, prefix, out):
             _bn(blk["bn"], p + ".bn", out)
 
 
+def _tensors(out: dict) -> dict:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in out.items()}
+
+
 def from_jax_params(params) -> dict:
     """``zest_tpu.system.ZestSystem.init_params`` tree (arrays of any kind that
     numpy reads) → state dict of ``zest_tpu_torch.system.ZestSystem``.
@@ -73,5 +82,30 @@ def from_jax_params(params) -> dict:
     for enc in ("enc_static", "enc_dy"):
         if enc in params:
             _encoder(params[enc], enc, out)
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
-            for k, v in out.items()}
+    return _tensors(out)
+
+
+_DISC_LISTS = {"Dense": "linears", "Conv": "convs", "SpectralConv": "convs",
+               "_BatchNorm": "norms"}
+
+
+def from_jax_disc_params(disc_params, disc_vars=None) -> tuple:
+    """A ``zest_tpu`` discriminator's ``params`` and its other variables
+    (``{"spectral": {"SpectralConv_i": {"u": ...}}}`` for GRAF's, empty for
+    the others) → (parameters, buffers) of the port's module of the same
+    kind (``models.discriminators``)."""
+    params, buffers = {}, {}
+    for name, leaf in disc_params.items():
+        kind, i = name.rsplit("_", 1)
+        p = f"{_DISC_LISTS[kind]}.{i}"
+        if kind == "_BatchNorm":
+            _bn(leaf, p, params)
+            continue
+        kernel = np.asarray(leaf["kernel"])
+        params[p + ".weight"] = kernel.T if kind == "Dense" else \
+            np.transpose(kernel, (3, 2, 0, 1))
+        if "bias" in leaf:
+            params[p + ".bias"] = np.asarray(leaf["bias"])
+    for name, leaf in (disc_vars or {}).get("spectral", {}).items():
+        buffers[f"convs.{name.rsplit('_', 1)[1]}.u"] = np.asarray(leaf["u"])
+    return _tensors(params), _tensors(buffers)

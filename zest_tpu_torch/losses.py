@@ -1,12 +1,11 @@
-"""The scene-flow loss bundle of a training step (counterpart of
-``zest_tpu.losses``: ``sceneflow_losses`` and the terms it calls).
+"""The losses of a training step (counterpart of ``zest_tpu.losses``): the
+patch regularizers (disparity smoothness, total variation, the interval
+distortion), and ``sceneflow_losses`` with the terms it calls.
 
 Pure functions of the training render (``render.render_rays_train``) and the
 ray batch. The step and the chain direction are host integers and booleans
 here, so the phase selections are Python branches where the JAX package
-selects with ``jnp.where``; the values are the same. The regularizers the
-flagship does not switch on (total variation, disparity smoothness,
-distortion) are not ported yet.
+selects with ``jnp.where``; the values are the same.
 """
 from __future__ import annotations
 
@@ -21,6 +20,43 @@ def abs_(x):
     compositing weight is exactly 0, which is common: the scene-flow
     minimality term is |weight * flow|."""
     return torch.where(x >= 0, x, -x)
+
+
+def get_disparity_smoothness(disp, img):
+    """Image-gradient-weighted disparity smoothness. disp [N, H, W, 1],
+    img [N, H, W, 3] (channels last, as the patches are reshaped rays)."""
+    def gx(t):
+        return t[:, :, :-1, :] - t[:, :, 1:, :]
+
+    def gy(t):
+        return t[:, :-1, :, :] - t[:, 1:, :, :]
+
+    wx = torch.exp(-torch.mean(abs_(gx(img)), 3, keepdim=True))
+    wy = torch.exp(-torch.mean(abs_(gy(img)), 3, keepdim=True))
+    return (torch.mean(abs_(gx(disp)) * wx)
+            + torch.mean(abs_(gy(disp)) * wy))
+
+
+def total_variation_loss(image):
+    """Total variation of [N, H, W] patches."""
+    return (torch.mean(abs_(image[:, :, :-1] - image[:, :, 1:]))
+            + torch.mean(abs_(image[:, :-1, :] - image[:, 1:, :])))
+
+
+def distortion_loss(ray_weights, t_vals):
+    """Mip-NeRF 360's interval distortion, summed over the rays, in O(S):
+    the midpoints are sorted, so the pairwise sum sum_ij w_i w_j |m_i - m_j|
+    is 2 sum_i w_i (m_i A_(i-1) - B_(i-1)) with the prefix sums
+    A_i = sum_(k<=i) w_k and B_i = sum_(k<=i) w_k m_k.
+    ray_weights [R, S]; t_vals [S] (normalized sample positions)."""
+    w = ray_weights[..., :-1]
+    t_mids = 0.5 * (t_vals[..., :-1] + t_vals[..., 1:])
+    a_prev = torch.cumsum(w, -1) - w
+    b_prev = torch.cumsum(w * t_mids, -1) - w * t_mids
+    weighted = 0.5 * (2.0 * torch.sum(w * (t_mids * a_prev - b_prev), -1))
+    t_dists = t_vals[..., 1:] - t_vals[..., :-1]
+    individual = (1.0 / 3.0) * torch.sum(w ** 2 * t_dists, -1)
+    return torch.sum(weighted + individual)
 
 
 def mse_masked(pred, gt, mask):

@@ -36,13 +36,31 @@ multires 10 / 4, 128 samples), eval and training in one preset, with a
   the static field on its volume, the dynamic one plain, 1024 + 512 rays;
 - ``FLAGSHIP_DY_VOL`` (``config_kid-running_mvs_dyonly_general.txt``): the
   static field plain, the dynamic one on its volume, 1024 + 512 rays.
+
+The SVS (adversarial) configuration, ``FLAGSHIP_SVS``
+(``config_svs_nsff_cross1.txt``; the other 19 ``svs_*`` files differ in
+their splits, scene, epochs or dataset): ``FLAGSHIP_MVSNERF``'s generator with
+the files' GAN block, GRAF's discriminator at imsize 64 (ndf 64) on one
+64x64 patch of 4,096 rays a step, the least-squares GAN loss, the depth
+smoothness, distortion and LPIPS-AlexNet perceptual losses with the files'
+lambdas, ``acc_grad`` 32 (which the GAN path ignores, as ``zest_tpu``
+does) and ``lpips_weights`` at ``RANDOM_LPIPS``, a seeded random ``.npz``
+that the caller writes (``write_random_lpips``: no real LPIPS weights are
+on disk). ``SMALL_SVS`` is ``SMALL_MVSNERF`` with the same block at a
+32x32 patch (GRAF at imsize 32); the caller points its ``lpips_weights``
+at a file. ``SMALL_PATCHGAN`` (on ``PATCHGAN_SCENE``, 64x64) holds the GAN
+options no configuration file sets. ``build_gan`` builds any of them with
+its discriminators.
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import torch
 
 from .config import ZestConfig
 from .data.synthetic import SyntheticDataset
+from .models.lpips import make_random_lpips_npz
 from .system import ZestSystem, to_batch
 
 SMALL = dict(train_sceneflow=True, use_mvs=True, use_mvs_dy=True, pad=4,
@@ -87,6 +105,26 @@ SMALL_MVSNERF_16 = dict(SMALL_MVSNERF, precision=16)
 SMALL_NSFF_16 = dict(SMALL_NSFF, precision=16)
 SMALL_STATIC_VOL_16 = dict(SMALL_STATIC_VOL, precision=16)
 SMALL_DY_VOL_16 = dict(SMALL_DY_VOL, precision=16)
+# config_svs_*.txt's block over MVSNeRF's fields
+_SVS = dict(gan_type="graf", gan_loss="lsgan", patch_size=64, acc_grad=32,
+            lrate=5e-4, lrate_disc=1e-4, with_depth_smoothness=True,
+            with_distortion_loss=True, with_perceptual_loss=True,
+            lambda_rec=20.0, lambda_distortion=0.001, lambda_depth_smooth=0.4,
+            lambda_adv=1.0, lambda_perc=1.0)
+RANDOM_LPIPS = "build/lpips_random_seed0.npz"
+FLAGSHIP_SVS = dict(FLAGSHIP_MVSNERF, **_SVS, lpips_weights=RANDOM_LPIPS)
+FLAGSHIP_SVS_16 = dict(FLAGSHIP_SVS, precision=16)
+SMALL_SVS = dict(SMALL_MVSNERF, **dict(_SVS, patch_size=32))
+SMALL_SVS_16 = dict(SMALL_SVS, precision=16)
+# the other GAN options at test size: pix2pix's PatchGAN with its features'
+# matching term, the depth discriminator, the depth reconstruction and total
+# variation, the naive GAN loss, two 32x32 square patches of a 64x64 image
+SMALL_PATCHGAN = dict(SMALL_MVSNERF, img_h=64, gan_type="n_layers",
+                      gan_loss="naive", getIntermFeat=True,
+                      with_depth_loss=True, with_depth_loss_rec=True,
+                      with_depth_loss_reg=True, patch_size=32,
+                      batch_size=2048, lambda_rec=20.0, lambda_adv=1.0)
+PATCHGAN_SCENE = dict(SMALL_SCENE, img_h=64)
 # family -> (small preset, flagship preset, flagship scene, source file)
 FAMILIES = {
     "mvsnerf": (SMALL_MVSNERF, FLAGSHIP_MVSNERF, MVSNERF_SCENE,
@@ -97,6 +135,8 @@ FAMILIES = {
                    "config_kid-running_mvs_static_general.txt"),
     "dy_vol": (SMALL_DY_VOL, FLAGSHIP_DY_VOL, FLAGSHIP_SCENE,
                "config_kid-running_mvs_dyonly_general.txt"),
+    "svs": (SMALL_SVS, FLAGSHIP_SVS, MVSNERF_SCENE,
+            "config_svs_nsff_cross1.txt"),
 }
 STEPS_PER_EPOCH = 24
 TARGET_FRAME = 3
@@ -130,3 +170,27 @@ def build(config: dict, scene: dict, device, seed: int = 0):
     system.load_state_dict(params)
     batch = to_batch(scene_of(config, scene)[TARGET_FRAME], device)
     return cfg, system, batch, params
+
+
+def write_random_lpips(path=RANDOM_LPIPS, seed: int = 0) -> str:
+    """Write the seeded random LPIPS ``.npz`` that ``FLAGSHIP_SVS`` reads
+    (its directory made first); returns the path."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    make_random_lpips_npz(path, seed)
+    return str(path)
+
+
+def build_gan(config: dict, scene: dict, device, seed: int = 0):
+    """(cfg, gan, batch, state) for a GAN preset: ``build``'s system and
+    weights inside a ``system_gan.GanSystem`` on ``device``, its
+    discriminators from ``GanSystem.init`` on a CPU generator seeded
+    ``seed + 1``, and the whole ``GanTrainState`` at step 0 on
+    ``device``."""
+    from .system_gan import GanSystem
+    cfg, system, batch, params = build(config, scene, device, seed)
+    gan = GanSystem(system).to(device)
+    state = gan.init(torch.Generator().manual_seed(seed + 1), STEPS_PER_EPOCH)
+    state = state.to(device)._replace(
+        params=params, opt_state=system.make_optimizer(
+            STEPS_PER_EPOCH).init(params))
+    return cfg, gan, batch, state

@@ -60,6 +60,62 @@ def sample_pixels_random(generator: torch.Generator, H: int, W: int,
     return xs.float(), ys.float()
 
 
+def sample_pixels_patches(xb, yb, patch_size: int):
+    """n patches of patch_size x patch_size pixels whose top-left corners
+    are (xb, yb) [n] (integer offsets, drawn in [0, W - patch_size) and
+    [0, H - patch_size)), each patch row-major. Returns float32 (xs, ys)."""
+    d = torch.arange(patch_size, device=xb.device)
+    ys = (yb[:, None, None] + d[None, :, None]).expand(-1, -1, patch_size)
+    xs = (xb[:, None, None] + d[None, None, :]).expand(-1, patch_size, -1)
+    return xs.reshape(-1).float(), ys.reshape(-1).float()
+
+
+def _linspace(start: float, stop: float, num: int, device=None):
+    """``jnp.linspace``'s float32 values: start (1 - i / (num - 1)) +
+    stop i / (num - 1), the last one stop (``torch.linspace`` rounds other
+    elements otherwise)."""
+    step = torch.arange(num - 1, dtype=torch.float32, device=device) / \
+        float(num - 1)
+    out = start * (1.0 - step) + stop * step
+    return torch.cat([out, torch.full((1,), stop, device=device)])
+
+
+def graf_min_scale(step: int, scale_anneal: float, min_scale: float = 0.25,
+                   max_scale: float = 1.0):
+    """The least patch scale at ``step``: with ``scale_anneal`` > 0 it
+    decays from max_scale as max_scale exp(-(step // 1000 * 3) anneal),
+    held between min_scale and 0.9. A float32 0-d tensor."""
+    if scale_anneal <= 0:
+        return torch.tensor(min_scale, dtype=torch.float32)
+    k_iter = torch.tensor(step // 1000 * 3, dtype=torch.float32)
+    min_s = torch.clamp(max_scale * torch.exp(-k_iter * scale_anneal),
+                        min=min_scale)
+    return torch.clamp(min_s, max=0.9)
+
+
+def sample_pixels_graf(draws, H: int, W: int, patch_size: int, step: int,
+                       scale_anneal: float = -1.0, min_scale: float = 0.25,
+                       max_scale: float = 1.0):
+    """GRAF's patch: a patch_size x patch_size lattice over [-1, 1]^2,
+    scaled by s in [min_s, max_scale) and shifted within the image, its
+    coordinates truncated to pixels. ``draws`` [5] float32 holds the five
+    random numbers: u_s, u_h, u_w in [0, 1) (the scale and the two offsets'
+    sizes) and two bits (the offsets' signs). The lattice's first axis
+    scales to y by (H - 1), its second to x by (W - 1), as the reference's
+    coordinate mapping nets out. Returns float32 (xs, ys), row-major."""
+    dev = draws.device
+    min_s = graf_min_scale(step, scale_anneal, min_scale, max_scale).to(dev)
+    u_s, u_h, u_w, f_h, f_w = draws.float()
+    scale = torch.maximum(min_s, u_s * (max_scale - min_s) + min_s)
+    lin = _linspace(-1.0, 1.0, patch_size, dev)
+    max_offset = 1.0 - scale
+    h = lin[None, :] * scale + u_h * max_offset * (f_h - 0.5) * 2
+    w = lin[:, None] * scale + u_w * max_offset * (f_w - 0.5) * 2
+    xs = torch.trunc((h + 1.0) * 0.5 * (W - 1)).expand(patch_size, -1)
+    ys = torch.trunc((w + 1.0) * 0.5 * (H - 1)).expand(-1, patch_size)
+    return xs.reshape(-1), ys.reshape(-1)
+
+
 def sample_motion_pixels(motion_coords, idx):
     """The motion-mask pixels at rows idx of motion_coords [M, 2] (row, col).
     Returns float32 (xs, ys)."""
@@ -67,18 +123,42 @@ def sample_motion_pixels(motion_coords, idx):
     return hard[:, 1].float(), hard[:, 0].float()
 
 
-def sample_draws(generator: torch.Generator, cfg, H: int, W: int,
-                 motion_count: int, extra_samples: bool) -> Draws:
-    """Every random number of one training step, on ``generator``'s device:
-    ``cfg.batch_size`` random pixels, ``cfg.num_extra_samples`` motion-mask
-    picks among the first ``motion_count`` coordinates when
-    ``extra_samples`` (the step's phase) and ``cfg.train_sceneflow``, the
-    depth jitter and, when ``cfg.raw_noise_std`` > 0, the density noise of
-    the five passes (of the static field's alone without scene flow)."""
+def sample_pixels(generator: torch.Generator, cfg, H: int, W: int,
+                  step: int = 0):
+    """The step's pixels as ``cfg`` samples them: GRAF's patch of
+    ``patch_size``^2 pixels with ``gan_type="graf"`` (whatever
+    ``batch_size`` is), ``batch_size // patch_size^2`` square patches with
+    another ``patch_size`` > 0, else ``batch_size`` random pixels.
+    Returns float32 (xs, ys) on ``generator``'s device."""
     dev = generator.device
-    xs, ys = sample_pixels_random(generator, H, W, cfg.batch_size)
+    P = cfg.patch_size
+    if cfg.gan_type == "graf":
+        u = torch.rand(3, generator=generator, device=dev)
+        bits = torch.randint(0, 2, (2,), generator=generator, device=dev)
+        return sample_pixels_graf(torch.cat([u, bits.float()]), H, W, P, step,
+                                  cfg.scale_anneal)
+    if P > 0:
+        n = cfg.batch_size // (P * P)
+        xb = torch.randint(0, W - P, (n,), generator=generator, device=dev)
+        yb = torch.randint(0, H - P, (n,), generator=generator, device=dev)
+        return sample_pixels_patches(xb, yb, P)
+    return sample_pixels_random(generator, H, W, cfg.batch_size)
+
+
+def sample_draws(generator: torch.Generator, cfg, H: int, W: int,
+                 motion_count: int, extra_samples: bool,
+                 step: int = 0) -> Draws:
+    """Every random number of one training step, on ``generator``'s device:
+    the step's pixels (``sample_pixels``; GRAF's patch scale reads
+    ``step``), ``cfg.num_extra_samples`` motion-mask picks among the first
+    ``motion_count`` coordinates when ``extra_samples`` (the step's phase)
+    and ``cfg.train_sceneflow``, the depth jitter and, when
+    ``cfg.raw_noise_std`` > 0, the density noise of the five passes (of the
+    static field's alone without scene flow)."""
+    dev = generator.device
+    xs, ys = sample_pixels(generator, cfg, H, W, step)
     motion_idx = None
-    n_rays = cfg.batch_size
+    n_rays = xs.shape[0]
     if extra_samples and cfg.train_sceneflow:
         motion_idx = torch.randint(0, max(int(motion_count), 1),
                                    (cfg.num_extra_samples,),

@@ -6,12 +6,16 @@ once, then renders the target view in fixed-size ray chunks with a plain
 Python loop. ``make_eval_path_step()(params, batch, path_c2ws, path_w2cs)``
 builds them once and renders the target view from each of P camera poses.
 ``make_train_step(optimizer)(state, batch, draws, phase)`` builds the
-volumes, renders the step's rays through the fields (with scene flow the
-t±1 and chain passes included), takes the scene-flow loss bundle (without
-it the render MSE) and its gradients, and applies Adam with global-norm
-clipping and a cosine learning rate. The configurations: both fields
-(``train_sceneflow``) or the static one alone (MVSNeRF's), each with its
-volume or without (NSFF's plain fields, the one-volume ablations).
+volumes, renders the step's rays (random pixels, square patches or GRAF's
+patch) through the fields (with scene flow the t±1 and chain passes
+included), takes the scene-flow loss bundle (without it the render MSE)
+plus the patch regularizers the config switches on, and its gradients, and
+applies Adam with global-norm clipping and a cosine learning rate
+(``MultiSteps`` accumulates ``acc_grad`` steps' gradients). The
+configurations: both fields (``train_sceneflow``) or the static one alone
+(MVSNeRF's), each with its volume or without (NSFF's plain fields, the
+one-volume ablations); the adversarial (SVS) step around it is
+``system_gan.GanSystem``'s.
 ``params`` is a state dict (from ``init_params`` or
 ``convert.from_jax_params``) applied with ``torch.func.functional_call``;
 ``batch`` is a dataset sample as tensors on one device (``to_batch``);
@@ -42,7 +46,8 @@ from torch import nn
 from . import render, sampling
 from .data.synthetic import IMAGENET_MEAN, IMAGENET_STD
 from .geometry import normalize_frame_idx
-from .losses import sceneflow_losses
+from .losses import (distortion_loss, get_disparity_smoothness,
+                     sceneflow_losses, total_variation_loss)
 from .render import EVAL_KEYS, STATIC_EVAL_KEYS
 from .kernels.fused_mlp import fused_nerf_forward
 from .kernels.trilinear import sample_volume
@@ -88,11 +93,13 @@ class TrainState(NamedTuple):
 class Optimizer:
     """Global-norm clip at 1.0, then Adam (0.9, 0.999, eps 1e-8) at the
     learning rate ``lr_fn(count)`` of the updates already made: optax's
-    ``chain(clip_by_global_norm(1.0), adam(schedule))`` written out."""
+    ``chain(clip_by_global_norm(1.0), adam(schedule))`` written out; with
+    ``clip=False`` optax's ``adam(schedule)`` alone."""
     B1, B2, EPS, MAX_NORM = 0.9, 0.999, 1e-8, 1.0
 
-    def __init__(self, lr_fn):
+    def __init__(self, lr_fn, clip: bool = True):
         self.lr_fn = lr_fn
+        self.clip = clip
 
     def init(self, params: dict) -> dict:
         return {"mu": {k: torch.zeros_like(v) for k, v in params.items()},
@@ -102,40 +109,63 @@ class Optimizer:
     def update(self, grads: dict, opt_state: dict, params: dict):
         """Returns (new params, new optimizer state)."""
         b1, b2 = self.B1, self.B2
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-        keep = g_norm < self.MAX_NORM
+        if self.clip:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            keep = g_norm < self.MAX_NORM
         count = opt_state["count"] + 1
         lr = self.lr_fn(opt_state["count"])
         c1, c2 = 1.0 - b1 ** count, 1.0 - b2 ** count
         mu, nu, new = {}, {}, {}
         for k, p in params.items():
             # optax divides by the norm only when it reaches MAX_NORM
-            g = torch.where(keep, grads[k], grads[k] / g_norm * self.MAX_NORM)
+            g = grads[k] if not self.clip else torch.where(
+                keep, grads[k], grads[k] / g_norm * self.MAX_NORM)
             mu[k] = (1.0 - b1) * g + b1 * opt_state["mu"][k]
             nu[k] = (1.0 - b2) * g * g + b2 * opt_state["nu"][k]
             new[k] = p - lr * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.EPS))
         return new, {"mu": mu, "nu": nu, "count": count}
 
 
+class MultiSteps:
+    """Gradient accumulation, optax's ``MultiSteps(inner, k)``: each call
+    folds the gradient into a running mean (acc + (g - acc) / (n + 1)); the
+    k-th call hands the mean to ``inner`` and starts a new one, the others
+    leave the parameters as they are. ``inner``'s learning rate therefore
+    counts optimizer steps, one per k calls."""
+
+    def __init__(self, inner: Optimizer, k: int):
+        self.inner, self.k = inner, k
+
+    def init(self, params: dict) -> dict:
+        return {"inner": self.inner.init(params), "mini_step": 0,
+                "acc": {k: torch.zeros_like(v) for k, v in params.items()}}
+
+    def update(self, grads: dict, opt_state: dict, params: dict):
+        n = opt_state["mini_step"]
+        acc = {k: a + (grads[k] - a) / (n + 1)
+               for k, a in opt_state["acc"].items()}
+        if n + 1 < self.k:
+            return params, dict(opt_state, mini_step=n + 1, acc=acc)
+        new, inner = self.inner.update(acc, opt_state["inner"], params)
+        return new, {"inner": inner, "mini_step": 0,
+                     "acc": {k: torch.zeros_like(v) for k, v in acc.items()}}
+
+
 def _check_supported(cfg) -> None:
     """The port covers the eval and training paths of v0 fields with view
     directions, with or without scene flow (``train_sceneflow``: the static
     field alone, or both fields) and with each field's volume or without it
-    (``use_mvs``, ``use_mvs_dy``), at 32- and 16-bit precision. It refuses by
-    name what only the SVS configurations (the GAN branch) or none of the
-    repo's configuration files use: another ``net_type``, ``train_video``,
-    ``use_color_volume``, patches, the GAN and the depth, smoothness and
-    distortion regularizers, and any other precision."""
+    (``use_mvs``, ``use_mvs_dy``), patches and GRAF's patch
+    (``patch_size``, ``gan_type``), the depth, smoothness and distortion
+    regularizers, at 32- and 16-bit precision; the GAN branch itself is
+    ``system_gan.GanSystem``. It refuses by name what none of the repo's
+    configuration files use: another ``net_type``, ``train_video``,
+    ``use_color_volume`` and any other precision."""
     unsupported = {
         f"net_type={cfg.net_type!r}": cfg.net_type != "v0",
         "train_video": cfg.train_video,
         "use_color_volume": cfg.use_color_volume,
         f"precision={cfg.precision}": cfg.precision not in (16, 32),
-        f"patch_size={cfg.patch_size}": cfg.patch_size > 0,
-        f"gan_type={cfg.gan_type!r}": cfg.gan_type is not None,
-        "with_depth_loss_reg": cfg.with_depth_loss_reg,
-        "with_depth_smoothness": cfg.with_depth_smoothness,
-        "with_distortion_loss": cfg.with_distortion_loss,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -368,9 +398,10 @@ class ZestSystem(nn.Module):
         return Optimizer(lr_fn)
 
     def train_rays(self, batch, draws: sampling.Draws, phase: Phase):
-        """The step's rays: the random pixels, plus the motion-mask pixels in
-        the extra-samples phase of a scene-flow system, with the draws'
-        depth jitter."""
+        """The step's rays: the draws' pixels (random ones, square patches
+        or GRAF's patch, ``sampling.sample_pixels``), plus the motion-mask
+        pixels in the extra-samples phase of a scene-flow system, with the
+        draws' depth jitter."""
         cfg = self.cfg
         xs, ys = draws.xs, draws.ys
         if phase.extra_samples and cfg.train_sceneflow:
@@ -399,22 +430,53 @@ class ZestSystem(nn.Module):
             raw_noise_std=self.cfg.raw_noise_std)
         return results, rays
 
+    def regularizers(self, results, rays) -> dict:
+        """The patch regularizers the config switches on, each times its
+        lambda: ``tv_depth_loss`` (total variation of each patch's depth),
+        ``depth_smooth_loss`` (its image-weighted smoothness) and
+        ``distortion_loss``. The depth and the RGB are the static render's,
+        reshaped to [patches, P, P, ...]."""
+        cfg = self.cfg
+        P = cfg.patch_size
+        depth = results["depth_map"][..., None]
+        out = {}
+        if cfg.with_depth_loss_reg:
+            out["tv_depth_loss"] = cfg.lambda_depth_reg * \
+                total_variation_loss(depth.reshape(-1, P, P))
+        if cfg.with_depth_smoothness:
+            out["depth_smooth_loss"] = cfg.lambda_depth_smooth * \
+                get_disparity_smoothness(depth.reshape(-1, P, P, 1),
+                                         results["rgb_map"].reshape(-1, P, P, 3))
+        if cfg.with_distortion_loss:
+            out["distortion_loss"] = cfg.lambda_distortion * \
+                distortion_loss(results["weights"], rays.t_vals)
+        return out
+
     def compute_losses(self, results, rays, batch, step: int, phase: Phase):
         """The scene-flow loss bundle, or without scene flow the static
-        render's MSE (``render_loss``) → (train_loss, logs), with the logs of
+        render's MSE (``render_loss``), plus the regularizers
+        (``regularizers``) times their lambda once more, as the reference
+        double-scales them → (train_loss, logs), with the logs of
         ``zest_tpu.system.ZestSystem.compute_losses``."""
-        if not self.cfg.train_sceneflow:
+        cfg = self.cfg
+        regs = self.regularizers(results, rays)
+        if not cfg.train_sceneflow:
             total = torch.mean((results["rgb_map"] - rays.color_gt) ** 2)
-            logs = {"render_loss": total}
+            logs = {"render_loss": total, **regs}
         else:
             _, H, W, _ = batch["images"].shape
-            total, logs = sceneflow_losses(
-                self.cfg, results, rays, step=step, frame_t=batch["time"],
+            total, sf_logs = sceneflow_losses(
+                cfg, results, rays, step=step, frame_t=batch["time"],
                 total_frames=batch["total_frames"], H=H, W=W,
                 focal=batch["intrinsics"][-1, 0, 0],
                 fnb_w2cs=batch["fnb_w2cs"], chain_bwd=step % 2 == 0,
                 chain_5frames=phase.chain_5frames)
-            logs["sceneflow_loss"] = total
+            logs = {**regs, **sf_logs, "sceneflow_loss": total}
+        lam = {"tv_depth_loss": cfg.lambda_depth_reg,
+               "depth_smooth_loss": cfg.lambda_depth_smooth,
+               "distortion_loss": cfg.lambda_distortion}
+        for k, v in regs.items():
+            total = total + lam[k] * v
         logs["train_loss"] = total
         mse = torch.mean((results["rgb_map"] - rays.color_gt) ** 2)
         logs["train_PSNR"] = -10.0 * torch.log10(mse)

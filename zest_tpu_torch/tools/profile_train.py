@@ -1,10 +1,13 @@
 """Where the flagship training step's time goes on one CUDA card.
 
-    python -m zest_tpu_torch.tools.profile_train [--precision {32,16}]
+    python -m zest_tpu_torch.tools.profile_train [--precision {32,16}] [--svs]
 
 Runs ``zest_tpu_torch.presets.FLAGSHIP_TRAIN`` (``FLAGSHIP_TRAIN_16`` with
 ``--precision 16``; seeded weights, the step-0 phase: 600 random plus 512
-motion-mask rays, no chain pass) and prints:
+motion-mask rays, no chain pass), or with ``--svs`` the adversarial step of
+``FLAGSHIP_SVS`` (``_16``: MVSNeRF's generator on one 64x64 GRAF patch,
+GRAF's discriminator, LPIPS on a seeded random ``.npz`` written to
+``presets.RANDOM_LPIPS``), and prints:
 
 1. the wall time of ``REPS`` unprofiled steps after one warm-up (host clock
    around each step, ended by reading its loss), their range, and train
@@ -14,7 +17,11 @@ motion-mask rays, no chain pass) and prints:
    device time, the union of their intervals (busy time) and the idle share
    ``1 - busy / unprofiled wall``, where the wall is the median step;
 3. device time by group (each ported kernel forward and backward, then the
-   library kernels) and the top kernels by self device time.
+   library kernels) and the top kernels by self device time;
+4. with ``--svs``, the step's parts run alone: the generator's update, the
+   discriminator's update and LPIPS's forward and backward on the step's
+   patch, each its median wall over 5 runs (ended by a synchronise) beside
+   its kernel launches and kernel time under the profiler.
 
 TF32 is off, as in ``chip_smoke.py``.
 """
@@ -66,28 +73,42 @@ def main(argv=()) -> int:
         return 2
     parser = argparse.ArgumentParser(prog="profile_train")
     parser.add_argument("--precision", type=int, choices=(32, 16), default=32)
+    parser.add_argument("--svs", action="store_true")
     args = parser.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    preset = (presets.FLAGSHIP_TRAIN_16 if args.precision == 16
-              else presets.FLAGSHIP_TRAIN)
-    cfg, system, batch, params = presets.build(preset, presets.FLAGSHIP_SCENE,
-                                               dev)
-    print(f"precision {args.precision}")
-    opt = system.make_optimizer(presets.STEPS_PER_EPOCH)
-    step_fn = system.make_train_step(opt)
-    phase = phase_for_step(cfg, 0)
+    print(f"precision {args.precision}{', SVS' if args.svs else ''}")
     gen = torch.Generator(device=dev).manual_seed(1)
-    n_rays = cfg.batch_size + cfg.num_extra_samples
+    if args.svs:
+        presets.write_random_lpips()
+        preset = (presets.FLAGSHIP_SVS_16 if args.precision == 16
+                  else presets.FLAGSHIP_SVS)
+        cfg, gan, batch, state = presets.build_gan(
+            preset, presets.MVSNERF_SCENE, dev)
+        opt = gan.system.make_optimizer(presets.STEPS_PER_EPOCH)
+        d_opt = gan.make_disc_optimizer(presets.STEPS_PER_EPOCH)
+        step_fn = gan.make_train_step(opt, d_opt)
+        n_rays = cfg.patch_size ** 2
+    else:
+        preset = (presets.FLAGSHIP_TRAIN_16 if args.precision == 16
+                  else presets.FLAGSHIP_TRAIN)
+        cfg, system, batch, params = presets.build(
+            preset, presets.FLAGSHIP_SCENE, dev)
+        opt = system.make_optimizer(presets.STEPS_PER_EPOCH)
+        step_fn = system.make_train_step(opt)
+        state = TrainState(params, opt.init(params), 0)
+        n_rays = cfg.batch_size + cfg.num_extra_samples
+    phase = phase_for_step(cfg, 0)
+
+    def draw():
+        return sampling.sample_draws(gen, cfg, cfg.img_h, cfg.img_w,
+                                     int(batch["motion_count"]),
+                                     phase.extra_samples)
 
     def run(state):
-        draws = sampling.sample_draws(gen, cfg, cfg.img_h, cfg.img_w,
-                                      int(batch["motion_count"]),
-                                      phase.extra_samples)
-        return step_fn(state, batch, draws, phase)
+        return step_fn(state, batch, draw(), phase)
 
-    state = TrainState(params, opt.init(params), 0)
     walls = []
     for rep in range(REPS + 1):
         torch.cuda.synchronize()
@@ -127,7 +148,50 @@ def main(argv=()) -> int:
               f"{100 * us / total_us:6.2f} %")
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=25, max_name_column_width=60))
+    if args.svs:
+        svs_parts(gan, state, batch, draw(), phase, opt, d_opt)
     return 0
+
+
+def kernel_ms(fn) -> tuple:
+    """(kernel launches, their summed device ms) of one fn() under the
+    profiler."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def svs_parts(gan, state, batch, draws, phase, opt, d_opt) -> None:
+    """The GAN step's parts alone: wall (median of 5 after one, each ended
+    by a synchronise) beside launches and kernel time."""
+    outs = gan.generator_update(state, batch, draws, phase, opt)[3]
+    P = gan.cfg.patch_size
+    fake = outs[0].reshape(P, P, 3).clone().requires_grad_(True)
+    real = outs[1].reshape(P, P, 3)
+
+    def lpips():
+        with torch.enable_grad():
+            torch.autograd.grad(gan.lpips(fake, real), fake)
+    for name, fn in (
+            ("generator update", lambda: gan.generator_update(
+                state, batch, draws, phase, opt)),
+            ("discriminator update", lambda: gan.discriminator_update(
+                state, outs, d_opt)),
+            ("LPIPS forward and backward", lpips)):
+        fn()
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        n, ms = kernel_ms(fn)
+        print(f"part {name}: wall {statistics.median(walls):.2f} ms (median "
+              f"of 5), {n} kernel launches, kernel time {ms:.2f} ms")
 
 
 if __name__ == "__main__":

@@ -16,9 +16,15 @@ Every system ``system.ZestSystem`` builds trains here: with or without
 scene flow (``validate`` and the test read ``rgb_map_ref`` /
 ``depth_map_ref``, or ``rgb_map`` / ``depth_map`` without it) and with
 either, both or neither volume (the synthetic scene then has no keyframes
-or no neighbours). Not ported yet, and refused by name: gradient
-accumulation (``acc_grad`` > 1), the GAN branch, LPIPS, ``vis_cnn``'s
-encoder dumps and the real-data loaders. The loop has no W&B sink.
+or no neighbours), and with ``gan_type`` the adversarial (SVS) step of
+``system_gan.GanSystem`` (generator and discriminators, its whole state
+checkpointed), where ``acc_grad`` > 1 is warned about and ignored, as
+``zest_tpu`` does. Elsewhere ``acc_grad`` > 1 accumulates the mean
+gradient over that many steps (``system.MultiSteps``). With
+``lpips_weights`` validation and the test report ``val_LPIPS``; a file that
+does not load is an error. Not ported yet, and refused by name:
+``vis_cnn``'s encoder dumps and the real-data loaders. The loop has no W&B
+sink.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ from . import metrics, sampling
 from .checkpoint import CheckpointManager, restore_path
 from .data.pipeline import prefetch_to_device
 from .data.synthetic import SyntheticDataset
-from .system import TrainState, ZestSystem, phase_for_step, to_batch, unpreprocess
+from .system import (MultiSteps, TrainState, ZestSystem, phase_for_step,
+                     to_batch, unpreprocess)
 from .utils.visualize import save_image, visualize_depth
 
 
@@ -111,27 +118,36 @@ class MetricLogger:
             self._fh.close()
 
 
-def _refuse_lpips(cfg) -> None:
-    if cfg.lpips_weights:
-        raise NotImplementedError(
-            f"zest_tpu_torch does not port LPIPS yet (lpips_weights="
-            f"{cfg.lpips_weights!r})")
+def _maybe_lpips(cfg, device="cpu"):
+    """The LPIPS metric (``models.lpips.LPIPS``) when ``lpips_weights`` is
+    set, else None. A file that does not load is an error, not a metric
+    quietly dropped."""
+    if not cfg.lpips_weights:
+        return None
+    from .models.lpips import load_lpips
+    try:
+        return load_lpips(cfg.lpips_weights, device)
+    except Exception as e:
+        raise RuntimeError(
+            f"--lpips_weights {cfg.lpips_weights!r} was set but loading "
+            f"failed; refusing to silently disable the LPIPS metric") from e
 
 
 def validate(cfg, system, eval_fn, params, val_ds, save_dir: Path, step: int,
              max_images: Optional[int] = None, tag="val") -> dict:
     """Full-image validation on the device ``params`` lie on: the mean
-    val_loss (MSE), val_PSNR and val_SSIM of the first ``max_images`` images
-    (all by default), the rendered RGB clipped to [0, 1], and rgb / depth /
-    error PNGs of the first 4 under ``<save_dir>/<tag>_images``."""
-    _refuse_lpips(cfg)
+    val_loss (MSE), val_PSNR and val_SSIM (and val_LPIPS with
+    ``lpips_weights``) of the first ``max_images`` images (all by default),
+    the rendered RGB clipped to [0, 1], and rgb / depth / error PNGs of the
+    first 4 under ``<save_dir>/<tag>_images``."""
+    device = next(iter(params.values())).device
+    lpips_fn = _maybe_lpips(cfg, device)
     img_dir = save_dir / f"{tag}_images"
     img_dir.mkdir(parents=True, exist_ok=True)
-    device = next(iter(params.values())).device
     n = len(val_ds) if max_images is None else min(len(val_ds), max_images)
     key = "rgb_map_ref" if cfg.train_sceneflow else "rgb_map"
     dkey = "depth_map_ref" if cfg.train_sceneflow else "depth_map"
-    psnrs, ssims, losses = [], [], []
+    psnrs, ssims, losses, lpips_vals = [], [], [], []
     with torch.no_grad():
         for i in range(n):
             batch = to_batch(val_ds[i], device)
@@ -141,6 +157,8 @@ def validate(cfg, system, eval_fn, params, val_ds, save_dir: Path, step: int,
             losses.append(float(torch.mean((pred - tgt) ** 2)))
             psnrs.append(float(metrics.psnr(pred, tgt)))
             ssims.append(float(metrics.ssim(pred, tgt, 5)))
+            if lpips_fn is not None:
+                lpips_vals.append(float(lpips_fn(pred, tgt)))
             if i < 4:
                 save_image(img_dir / f"{step:08d}_{i:02d}_rgb.png",
                            pred.cpu().numpy())
@@ -148,32 +166,31 @@ def validate(cfg, system, eval_fn, params, val_ds, save_dir: Path, step: int,
                            visualize_depth(maps[dkey].cpu().numpy()))
                 save_image(img_dir / f"{step:08d}_{i:02d}_err.png",
                            (pred - tgt).abs().cpu().numpy() * 5)
-    return {"val_loss": float(np.mean(losses)),
-            "val_PSNR": float(np.mean(psnrs)),
-            "val_SSIM": float(np.mean(ssims))}
+    out = {"val_loss": float(np.mean(losses)),
+           "val_PSNR": float(np.mean(psnrs)),
+           "val_SSIM": float(np.mean(ssims))}
+    if lpips_vals:
+        out["val_LPIPS"] = float(np.mean(lpips_vals))
+    return out
 
 
-def _check_supported(cfg) -> None:
-    unsupported = {
-        f"gan_type={cfg.gan_type!r}": cfg.gan_type is not None,
-        f"acc_grad={cfg.acc_grad}": cfg.acc_grad > 1,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"zest_tpu_torch's training loop does not port {bad} yet")
-    _refuse_lpips(cfg)
-
-
-def _check_like(restored: TrainState, state: TrainState, path) -> None:
-    """A restored state must have the system's parameter names and shapes."""
-    want = {k: tuple(v.shape) for k, v in state.params.items()}
-    got = {k: tuple(v.shape) for k, v in restored.params.items()}
-    if got != want:
-        diff = sorted(set(got) ^ set(want)) or sorted(
-            k for k in want if got[k] != want[k])
-        raise ValueError(f"checkpoint {path} does not fit this config's "
-                         f"parameters: {diff[:5]}")
+def _check_like(restored, state, path) -> None:
+    """A restored state must be of the state's kind (with or without the
+    GAN) and hold its parameter, discriminator and spectral names and
+    shapes."""
+    if type(restored) is not type(state):
+        raise ValueError(f"checkpoint {path} holds a {type(restored).__name__}"
+                         f", this config trains a {type(state).__name__}")
+    fields = ("params", "disc_params", "depth_disc_params", "disc_vars") \
+        if hasattr(state, "disc_params") else ("params",)
+    for field in fields:
+        want = {k: tuple(v.shape) for k, v in getattr(state, field).items()}
+        got = {k: tuple(v.shape) for k, v in getattr(restored, field).items()}
+        if got != want:
+            diff = sorted(set(got) ^ set(want)) or sorted(
+                k for k in want if got[k] != want[k])
+            raise ValueError(f"checkpoint {path} does not fit this config's "
+                             f"parameters: {diff[:5]}")
 
 
 def run_training(cfg, datasets: Optional[dict] = None,
@@ -182,11 +199,12 @@ def run_training(cfg, datasets: Optional[dict] = None,
     """Train on ``datasets["train"]`` (validating on ``datasets["val"]``
     when given; ``build_datasets(cfg)`` when None) up to ``max_steps``
     steps (default: ``max_train_steps``, else ``num_epochs *
-    steps_per_epoch``). Returns (the final TrainState, the system).
+    steps_per_epoch``). Returns (the final state, the ``ZestSystem``):
+    a ``TrainState``, or with ``gan_type`` a ``GanTrainState``.
 
     The state starts from fresh weights, or from ``cfg.ckpt``, or else from
     ``<save_dir>/<expname>/ckpts/last`` when that exists, at the saved step
-    with the saved Adam state. After each pass over the frames the loop
+    with the saved Adam states (and spectral state). After each pass over the frames the loop
     validates when the epoch is due (then writes a top-k checkpoint) and
     writes ``last``; it writes ``last`` again at the end.
 
@@ -199,7 +217,6 @@ def run_training(cfg, datasets: Optional[dict] = None,
     is taken at its start. Metrics are read from the device only at log
     steps and validations."""
     device = torch.device(device)
-    _check_supported(cfg)
     if cfg.N_importance > 0:
         warnings.warn("N_importance > 0 builds an unused fine network in the "
                       "reference and is a no-op here", stacklevel=2)
@@ -212,10 +229,27 @@ def run_training(cfg, datasets: Optional[dict] = None,
     ckpt = CheckpointManager(run_dir / "ckpts", cfg)
     logger = MetricLogger(run_dir)
     system = ZestSystem(cfg).to(device)
-    params = {k: v.to(device) for k, v in
-              system.init_params(torch.Generator().manual_seed(seed)).items()}
-    optimizer = system.make_optimizer(steps_per_epoch)
-    state = TrainState(params, optimizer.init(params), 0)
+    init_gen = torch.Generator().manual_seed(seed)
+    if cfg.gan_type:
+        from .system_gan import GanSystem
+        if cfg.acc_grad > 1:
+            warnings.warn("acc_grad > 1 is not supported on the GAN path; "
+                          "ignoring it", stacklevel=2)
+        gan = GanSystem(system).to(device)
+        state = gan.init(init_gen, steps_per_epoch).to(device)
+        step_fn = gan.make_train_step(
+            system.make_optimizer(steps_per_epoch),
+            gan.make_disc_optimizer(steps_per_epoch))
+    else:
+        params = {k: v.to(device) for k, v in
+                  system.init_params(init_gen).items()}
+        # the cosine counts optimizer steps: one per acc_grad steps
+        optimizer = system.make_optimizer(
+            max(steps_per_epoch // max(cfg.acc_grad, 1), 1))
+        if cfg.acc_grad > 1:
+            optimizer = MultiSteps(optimizer, cfg.acc_grad)
+        state = TrainState(params, optimizer.init(params), 0)
+        step_fn = system.make_train_step(optimizer)
     resume = cfg.ckpt or (ckpt.dir / "last" if ckpt.has_last() else None)
     if resume:
         restored = restore_path(resume, device)
@@ -223,7 +257,6 @@ def run_training(cfg, datasets: Optional[dict] = None,
         state = restored
         if not quiet and not cfg.ckpt:
             print(f"resumed from {resume} at step {state.step}", flush=True)
-    step_fn = system.make_train_step(optimizer)
     eval_fn = system.make_eval_step()
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -248,7 +281,7 @@ def run_training(cfg, datasets: Optional[dict] = None,
                     _, H, W, _ = batch["images"].shape
                     draws = sampling.sample_draws(
                         gen, cfg, H, W, int(batch["motion_count"]),
-                        phase.extra_samples)
+                        phase.extra_samples, host_step)
                     state, logs = step_fn(state, batch, draws, phase)
                     host_step += 1
                     if host_step % cfg.log_every == 0:
@@ -283,8 +316,9 @@ def run_test(cfg, datasets: Optional[dict] = None, quiet: bool = False,
     """Full-image metrics over the test split (``build_datasets(cfg,
     ("test",))`` when ``datasets`` is None) with the weights of
     ``cfg.ckpt``: ``validate`` (tag "test", PNGs of the first four) and
-    ``<save_dir>/<expname>/test_metrics.txt``. Without ``cfg.ckpt`` it
-    warns and evaluates fresh weights of seed 0."""
+    ``<save_dir>/<expname>/test_metrics.txt`` (PSNR, SSIM, and LPIPS with
+    ``lpips_weights``). Without ``cfg.ckpt`` it warns and evaluates fresh
+    weights of seed 0."""
     if cfg.vis_cnn:
         raise NotImplementedError(
             "zest_tpu_torch does not port vis_cnn's encoder dumps yet")
@@ -308,6 +342,8 @@ def run_test(cfg, datasets: Optional[dict] = None, quiet: bool = False,
     with open(save_dir / "test_metrics.txt", "w") as f:
         f.write(f"PSNR: {out['val_PSNR']}\n")
         f.write(f"SSIM: {out['val_SSIM']}\n")
+        if "val_LPIPS" in out:
+            f.write(f"LPIPS: {out['val_LPIPS']}\n")
     if not quiet:
         print(json.dumps(out), flush=True)
     return out
