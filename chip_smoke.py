@@ -147,7 +147,33 @@ sm_90a), then:
     (its launches SVS_LOOP_STEPS x one 16-bit SVS step's, the warning that
     the GAN ignores acc_grad), ``ckpts/last`` restored on the card equal to
     the loop's final state in all eight fields, and ``validate`` on one
-    image with a finite val_LPIPS.
+    image with a finite val_LPIPS;
+16. real data (``REAL_SCENES``: scenes written from a seed by
+    ``tools.scene_fixtures`` in each loader's layout, since no real scene
+    ships with the repository): the NSFF flagship file as written
+    (``config_zest_fine_nsff_cross1.txt``, a 24-frame kid-running scene of
+    1024x576 PNGs) trains REAL_STEPS steps of ``python -m
+    zest_tpu_torch.train``'s ``main`` at precision 16 and at float32, each
+    with its launches equal to REAL_STEPS step-0 steps of phase 11's / 8's
+    kind, a finite train_loss and moved parameters in ``ckpts/last``; then
+    ``test`` (every frame, its launches) and ``render_spiral --render_path
+    wander`` (frames 3 and 4, REAL_POSES poses: K1 once per frame, K3, K6
+    and K8 once per pose) from the 16-bit checkpoint, and the test split's
+    load (TEST_LOADS samples); the loader's seconds per sample on each
+    route (``ZEST_NATIVE_IO`` 1 and 0, the route it took and why) beside
+    the flagship step of phases 8 and 11 and the loop's steps/s beside
+    phase 12's. The LLFF file
+    (``config_mvsnerf_llff.txt``, 20 views) trains LLFF_STEPS steps at
+    precision 16 and renders its spiral and spheric paths (s/pose). DTU and
+    Neural 3D Video: one test sample through ``build_datasets`` at the
+    loader's own size and one MVSNeRF eval image at precision 16, launches
+    checked. Every kernel of these paths is held to its twin at their own
+    shapes, as phase 14 holds MVSNeRF's: on the LLFF training sample
+    (640x960, pad 24, 1,024 rays, precision 16) K6 and K7 in the 4-output
+    bf16 mode (rows ``*_llff``) and K1, K2, K3, K4 and K8 at the step's
+    rays; on the DTU test sample (512x640) K1, K2, K3, K4 and K8 at its
+    first eval chunk's points and K6 on that chunk; Neural 3D Video's
+    sample has LLFF's shapes (checked).
 
 The second-to-last line of stdout is a JSON object with one entry per kernel
 (``timing``: "device" for the rows timed by the profiler's kernel durations,
@@ -548,7 +574,8 @@ def step_inputs(system, batch, cfg, gen):
     from zest_tpu_torch.system import phase_for_step
     phase = phase_for_step(cfg, 0)
     draws = sampling.sample_draws(gen, cfg, cfg.img_h, cfg.img_w,
-                                  int(batch["motion_count"]), phase.extra_samples)
+                                  int(batch.get("motion_count", 1)),
+                                  phase.extra_samples)
     with torch.no_grad():
         models = system.render_models(batch)
         rays = system.train_rays(batch, draws, phase)
@@ -1181,11 +1208,13 @@ def blended(system) -> str:
     return "rgb_map_ref" if system.nerf_dynamic is not None else "rgb_map"
 
 
-def expected_eval_launches(system, cfg, batch) -> dict:
+def expected_eval_launches(system, batch) -> dict:
     """The launches of one eval image: K1 once per source view of the static
     volume, K3 and K8 once per chunk for each volume, K6 once per chunk for
-    each field conditioned on a volume, no backward kernel."""
-    n_chunks = -(-(cfg.img_h * cfg.img_w) // cfg.eval_chunk)
+    each field conditioned on a volume, no backward kernel (at the batch's
+    image size)."""
+    _, H, W, _ = batch["images"].shape
+    n_chunks = -(-(H * W) // system._chunk(H, W))
     vols = (system.enc_static is not None) + (system.enc_dy is not None)
     fused = sum(f is not None and f.use_mvs
                 for f in (system.nerf_static, system.nerf_dynamic))
@@ -1212,7 +1241,7 @@ def flagship(cfg, system, batch, params, tag="flagship", runs=3):
     first = time.perf_counter() - t0
     launches = read_counters()
     H, W = cfg.img_h, cfg.img_w
-    expected = expected_eval_launches(system, cfg, batch)
+    expected = expected_eval_launches(system, batch)
     log(f"[{tag}] first run {first:.2f} s, launches {launches}")
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
@@ -1836,7 +1865,7 @@ def quality(dev, system, batch, params, step_launches, tmp):
     gate's configuration with its launches, its CSV log and a validation.
     ``step_launches`` are one 16-bit step-0 step's launches (phase 11); the
     loop writes its run under the directory ``tmp``. Returns (the loop's
-    config, its final state)."""
+    config, its final state, the steps/s of its log rows)."""
     import csv
     import math
     from pathlib import Path
@@ -1910,7 +1939,7 @@ def quality(dev, system, batch, params, step_launches, tmp):
         f"{out['val_loss']:.5g}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (not gated "
         f"after {LOOP_STEPS} steps)")
-    return cfg, state
+    return cfg, state, [float(r["steps_per_sec"]) for r in rows]
 
 
 def png_size(path) -> tuple:
@@ -2052,12 +2081,13 @@ def row_rates(rows, name) -> str:
             f"twin {r['plain_ms']:.3f} ms")
 
 
-def new_widths(rows, dev, cfg, system, batch, rays):
+def new_widths(rows, dev, cfg, system, batch, rays, tag="mvsnerf"):
     """Phase 14: K1, K2, K3, K4 and K8 at the MVSNeRF flagship's shapes
     (288x544 images, the first run of those widths on the card), each held
     to its twin as phases 3 and 6 hold it: K1 on a source view's features
     over the padded frustum, K2 its adjoint, K3 and K4 on the static volume
-    at the step's points, K8 on the 8 source views at those points."""
+    at the points of ``rays``, K8 on the source views at those points.
+    Phase 16 holds them so at the real scenes' shapes (``tag``)."""
     from zest_tpu_torch import geometry
     from zest_tpu_torch.kernels import color_gather, plane_sweep, trilinear
     from zest_tpu_torch.models.mvsnet import depth_plane_values
@@ -2105,13 +2135,14 @@ def new_widths(rows, dev, cfg, system, batch, rays):
                    lambda: color_gather.gather_colors_plain(imgs, xy)))
     for name, tol, relative, kern, plain in checks:
         err, shapes = rows.verify(name, kern, plain, tol, relative)
-        log(f"[mvsnerf] {name} at {H}x{W}, pad {cfg.pad}: shapes {shapes} "
+        log(f"[{tag}] {name} at {H}x{W}, pad {cfg.pad}: shapes {shapes} "
             f"max_abs_err {err:.3e} (tol {tol:g}) -> ok")
     del vol, src, g, gv, xy, imgs
     torch.cuda.empty_cache()
 
 
-def four_output_kernels(rows, dev, cfg, system, batch):
+def four_output_kernels(rows, dev, cfg, system, batch, suffix="_mvsnerf",
+                        paths=None):
     """Phase 14: K6 and K7 in the 4-output geometry (MVSNeRF's static field:
     rgb and alpha, no extra head) in the system's mode, at the MVSNeRF
     flagship's own inputs (the first eval chunk, the step-0 training pass),
@@ -2120,19 +2151,20 @@ def four_output_kernels(rows, dev, cfg, system, batch):
     three launches each to its twin, at K6's forward, on the branch-agreeing
     points) or 9 (bf16: K6 and both bf16 packs, K7 with the kink-tolerant
     check, its recomputed rows equal to K6's; its first gate against the
-    float64 twin, ``hold_bf16_backward``'s ``float64_gate``). Returns the
-    step's rays."""
+    float64 twin, ``hold_bf16_backward``'s ``float64_gate``). The rows are
+    K6's and K7's names with ``suffix``, their launches read on ``paths``
+    (eval, train; by default phase 14's). Returns the step's rays."""
     from zest_tpu_torch.kernels import fused_mlp
     field = system.nerf_static
     if (field.out_ch, field.n_extra, system.nerf_dynamic) != (4, 0, None):
         raise AssertionError("the MVSNeRF system is not one 4-output field")
     bf16 = system.bf16
-    tag = "mvsnerf16" if bf16 else "mvsnerf"
-    paths = (f"eval_{tag}", f"train_{tag}")
+    tag = suffix[1:] + ("16" if bf16 else "")
+    paths = paths or (f"eval_{tag}", f"train_{tag}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    fwd = "fused_nerf_bf16_mvsnerf" if bf16 else "fused_nerf_mvsnerf"
-    bwd = "fused_nerf_backward_bf16_mvsnerf" if bf16 else \
-        "fused_nerf_backward_mvsnerf"
+    fwd = ("fused_nerf_bf16" if bf16 else "fused_nerf") + suffix
+    bwd = ("fused_nerf_backward_bf16" if bf16 else
+           "fused_nerf_backward") + suffix
     src = "zest_tpu_torch/csrc/"
     field_inputs = chunk_inputs(system, batch)[1]
     inputs = field_inputs["static"]
@@ -2169,7 +2201,7 @@ def four_output_kernels(rows, dev, cfg, system, batch):
     check_field_backward(rows, bwd, passes, gen,
                          BF16_FIELD_GRAD_TOL if bf16 else 1e-4, paths,
                          src + ("fused_mlp_tc_bwd.cu" if bf16 else
-                                "fused_mlp_tc32_dx.cu"), suffix="_mvsnerf",
+                                "fused_mlp_tc32_dx.cu"), suffix=suffix,
                          float64_gate=True)
     log(f"[{tag}] K7 on the training pass: {row_rates(rows, bwd)}")
     if bf16:
@@ -2189,7 +2221,7 @@ def four_output_kernels(rows, dev, cfg, system, batch):
     else:
         for what in ("recompute", "input_grads", "weight_grads"):
             log(f"[{tag}] K7 float32 {what} on the training pass: "
-                f"{row_rates(rows, f'fused_nerf_{what}_mvsnerf')}")
+                f"{row_rates(rows, f'fused_nerf_{what}{suffix}')}")
     del field_inputs, inputs, passes
     torch.cuda.empty_cache()
     return rays
@@ -2604,6 +2636,375 @@ def svs(dev, tmp, mvsnerf_launches):
     return launches, summary
 
 
+NSFF_FILE = "configs/config_files/config_zest_fine_nsff_cross1.txt"
+LLFF_FILE = "configs/config_files/config_mvsnerf_llff.txt"
+# phase 16's scenes (width x height of the files on disk): NSFF frames at
+# twice the file's 512x288 (its flow and disparity at 512x288, as NSFF's
+# preprocessing writes them), LLFF's images_4 of a 4032x3024 capture,
+# DTU's rectified images, Neural 3D Video frames at half its 2704x2028
+REAL_SCENES = dict(
+    nsff=dict(scene="kid-running", n_frames=24, size=(1024, 576),
+              flow_size=(512, 288)),
+    llff=dict(scene="fern", n_views=20, size=(1008, 756)),
+    dtu=dict(n_views=49, size=(640, 512), lights=(3,), depth_views=(0,)),
+    n3dv=dict(n_cams=6, n_frames=1, size=(1352, 1014)))
+REAL_STEPS = 20              # loop steps of the NSFF flagship file
+LLFF_STEPS = 10              # loop steps of the LLFF file
+LOADER_RUNS = 8              # samples timed per loader route
+TEST_LOADS = 3               # test-split samples timed after ``test``
+REAL_POSES = 4               # poses of each path
+
+
+def _cli(module, args) -> tuple:
+    """Run a command-line module's ``main`` with every launch counter reset
+    first -> (its stdout's last line, seconds, launches); raises unless it
+    exits with 0."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} {args} exited with {rc}")
+    lines = out.getvalue().strip().splitlines()
+    return (lines[-1] if lines else ""), wall, read_counters()
+
+
+def _times(counts: dict, n: int) -> dict:
+    return {k: n * v for k, v in counts.items()}
+
+
+def _path_launches(eval_launches: dict, frames: int, poses: int) -> dict:
+    """A path's launches: K1 as for one eval image per frame, K3, K6 and
+    K8 once per pose of each frame."""
+    out = _times(eval_launches, frames)
+    for k in ("sample_volume", "gather_colors", "fused_nerf_forward"):
+        out[k] = frames * poses * eval_launches[k]
+    return out
+
+
+def _check(tag, got, expected):
+    if got != expected:
+        raise AssertionError(f"{tag}: launches {got}, expected {expected}")
+
+
+def _train_real(tag, args, steps, sample):
+    """``zest_tpu_torch.train`` for ``steps`` steps: its launches against
+    ``steps`` x one step's (every step in the step-0 phase), finite
+    ``train_loss`` in metrics.csv, ``ckpts/last`` at ``steps`` with most
+    parameters moved from the seed's weights; ``sample`` is one of the
+    training split's, for its shapes. Returns (one step's launches, the
+    loop's wall, its log rows' steps/s)."""
+    import csv
+    import math
+    from zest_tpu_torch import train
+    from zest_tpu_torch.checkpoint import restore_path
+    from zest_tpu_torch.config import config_parser
+    from zest_tpu_torch.system import ZestSystem, phase_for_step, to_batch
+    cfg = config_parser(args)
+    system = ZestSystem(cfg)
+    phase = phase_for_step(cfg, 0)
+    if any(phase_for_step(cfg, s) != phase for s in range(steps)):
+        raise AssertionError(f"{tag}: the phase changes within {steps} steps")
+    step = expected_step_launches(system, cfg, to_batch(sample, "cpu"), phase)
+    _, wall, got = _cli(train, args)
+    _check(f"{tag} {steps} steps", got, _times(step, steps))
+    run_dir = Path(cfg.save_dir) / cfg.expname
+    with open(run_dir / "metrics.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["train_loss"]) for r in rows]
+    if not rows or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: train_loss {losses}")
+    state = restore_path(run_dir / "ckpts" / "last", "cpu")
+    init = system.init_params(torch.Generator().manual_seed(
+        max(cfg.seed_everything, 0)))
+    moved = sum(int(not torch.equal(state.params[k], v))
+                for k, v in init.items())
+    if state.step != steps or moved < len(init) // 2:
+        raise AssertionError(f"{tag}: ckpts/last at step {state.step}, "
+                             f"{moved} of {len(init)} tensors moved")
+    sps = [float(r["steps_per_sec"]) for r in rows]
+    log(f"[real-data] {tag}: {steps} steps of python -m zest_tpu_torch.train "
+        f"in {wall:.2f} s ({wall / steps:.4f} s/step, the datasets, the "
+        f"system and the first step included), launches {got}; train_loss "
+        + ", ".join(f"{v:.5g}" for v in losses) + "; steps_per_sec "
+        + ", ".join(f"{v:.3f}" for v in sps)
+        + f"; {moved} of {len(init)} parameter tensors moved")
+    return step, wall, sps
+
+
+def _eval_real(tag, dev, cfg, ds):
+    """One eval image of ``ds[0]`` with the seed's weights: its launches,
+    finite maps of the sample's size. Returns (the launches, the sample)."""
+    from zest_tpu_torch.system import ZestSystem, to_batch
+    t0 = time.perf_counter()
+    sample = ds[0]
+    load_s = time.perf_counter() - t0
+    system = ZestSystem(cfg).to(dev)
+    params = {k: v.to(dev) for k, v in system.init_params(
+        torch.Generator().manual_seed(SEED)).items()}
+    batch = to_batch(sample, dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    maps = system.make_eval_step()(params, batch)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    got = read_counters()
+    _check(tag, got, expected_eval_launches(system, batch))
+    _, H, W, _ = batch["images"].shape
+    for k, v in maps.items():
+        if v.shape[:2] != (H, W) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{tag} {k}: {tuple(v.shape)} or non-finite")
+    key = blended(system)
+    mean = float(maps[key].mean())
+    del system, params, batch, maps
+    log(f"[real-data] {tag}: {type(ds).__name__}, {len(ds)} samples, sample "
+        f"0 in {load_s:.3f} s ({tuple(sample['images'].shape)} images, keys "
+        f"{sorted(sample)}); one eval image at precision {cfg.precision} "
+        f"({H}x{W}, first run) in {eval_s:.3f} s, launches {got}; "
+        f"{key} mean {mean:.4f}")
+    return got, sample
+
+
+def real_widths(rows, dev, llff_cfg, llff_sample, dtu_cfg, dtu_sample,
+                n3dv_sample):
+    """Phase 16's kernels at the real scenes' own shapes, each held to its
+    twin as phase 14 holds them at MVSNeRF's, with the seed's weights: on
+    the LLFF file's training sample at its precision (16), K6 and K7 in the
+    4-output bf16 mode (``four_output_kernels``, rows ``*_llff``, launches
+    of the LLFF paths) and K1, K2, K3, K4 and K8 at that step's rays
+    (``new_widths``); on the DTU test sample, K1, K2, K3, K4 and K8 at its
+    first eval chunk's points and K6 on that chunk (into the LLFF row: the
+    eval chunk has one shape, 16384 rays x 128). Neural 3D Video's eval
+    image has LLFF's images, views and pad, which this checks."""
+    import dataclasses
+    from zest_tpu_torch import presets
+    from zest_tpu_torch.kernels import fused_mlp
+    from zest_tpu_torch.system import ZestSystem, to_batch
+
+    def build(cfg, sample):
+        system = ZestSystem(cfg).to(dev)
+        system.load_state_dict({k: v.to(dev) for k, v in
+                                presets.seeded_params(system, SEED).items()})
+        batch = to_batch(sample, dev)
+        _, H, W, _ = batch["images"].shape
+        return dataclasses.replace(cfg, img_h=H, img_w=W), system, batch
+
+    t0 = time.perf_counter()
+    shape = tuple(llff_sample["images"].shape)
+    if tuple(n3dv_sample["images"].shape) != shape:
+        raise AssertionError(f"Neural 3D Video's images "
+                             f"{n3dv_sample['images'].shape}, LLFF's {shape}")
+    cfg, system, batch = build(llff_cfg, llff_sample)
+    rays = four_output_kernels(rows, dev, cfg, system, batch, "_llff",
+                               ("eval_llff16", "train_llff16"))
+    new_widths(rows, dev, cfg, system, batch, rays, "llff16")
+    del system, batch, rays
+    cfg, system, batch = build(dtu_cfg, dtu_sample)
+    rays, field_inputs = chunk_inputs(system, batch)
+    new_widths(rows, dev, cfg, system, batch, rays, "dtu16")
+    field, inputs = system.nerf_static, field_inputs["static"]
+    err, shapes = rows.verify(
+        "fused_nerf_bf16_llff",
+        functools.partial(fused_mlp.fused_nerf_forward, field, *inputs),
+        functools.partial(field, *inputs), BF16_FIELD_TOL)
+    log(f"[dtu16] K6 bf16 on the eval chunk at {cfg.img_h}x{cfg.img_w}: "
+        f"shapes {shapes} max_abs_err {err:.3e} (tol {BF16_FIELD_TOL:g}) "
+        f"-> ok")
+    del system, batch, rays, field_inputs, inputs
+    torch.cuda.empty_cache()
+    log(f"[real-data] the kernels held at LLFF's {shape} and DTU's "
+        f"{tuple(dtu_sample['images'].shape)} images (Neural 3D Video's "
+        f"equal LLFF's) in {time.perf_counter() - t0:.1f} s")
+
+
+def real_data(rows, dev, tmp, step_ms, loop_sps):
+    """Phase 16: real scenes on disk through the entry points, written by
+    ``tools.scene_fixtures`` (``REAL_SCENES``). The NSFF flagship file as
+    written (``config_zest_fine_nsff_cross1.txt``: kid-running, 288x512,
+    both volumes, 600 + 512 rays) trains ``REAL_STEPS`` steps at precision
+    16 and at float32 (``_train_real``), then ``test`` and ``render_spiral
+    --render_path wander`` (frames 3 and 4, ``REAL_POSES`` poses) from the
+    16-bit ``ckpts/last``, their launches checked, and the test split's
+    load (``TEST_LOADS`` samples); the loader's s/sample
+    (median of ``LOADER_RUNS``) on each route beside the flagship step
+    (``step_ms``: {precision: ms} of phases 8 and 11) and the loop's
+    steps/s beside phase 12's (``loop_sps``). The LLFF file trains
+    ``LLFF_STEPS`` steps at precision 16, then renders its spiral and its
+    spheric path. DTU and Neural 3D Video: one sample through
+    ``build_datasets`` and one MVSNeRF eval image at precision 16. Then
+    ``real_widths`` holds the kernels at those scenes' shapes. Returns the
+    launches by path (one step or one eval image each)."""
+    import math
+    import os
+    from zest_tpu_torch import render_spiral
+    from zest_tpu_torch import test as test_cli
+    from zest_tpu_torch.config import config_parser
+    from zest_tpu_torch.data import native_io
+    from zest_tpu_torch.system import ZestSystem, to_batch
+    from zest_tpu_torch.tools import scene_fixtures as sf
+    from zest_tpu_torch.train_loop import build_datasets
+    t_phase = time.perf_counter()
+    root = Path(tmp)
+    t0 = time.perf_counter()
+    sf.write_nsff_scene(root / "nsff", **REAL_SCENES["nsff"])
+    sf.write_llff_scene(root / "llff", **REAL_SCENES["llff"])
+    scan = Path("configs/lists/dtu_test_all.txt").read_text().split()[0]
+    sf.write_dtu_scene(root / "dtu", scan, **REAL_SCENES["dtu"])
+    n3dv = Path("configs/lists/neural3Dvideo_test_all.txt").read_text().split()[0]
+    sf.write_n3dv_scene(root / "n3dv", n3dv, **REAL_SCENES["n3dv"])
+    log(f"[real-data] scenes written in {time.perf_counter() - t0:.2f} s: "
+        + "; ".join(f"{k} {v}" for k, v in REAL_SCENES.items())
+        + f"; DTU {scan}, Neural 3D Video {n3dv}")
+
+    runs = str(root / "runs")
+    nsff = ["--config", NSFF_FILE, "--datadir", str(root / "nsff"),
+            "--save_dir", runs, "--log_every", "5"]
+    train_ds = build_datasets(config_parser(nsff),
+                              ("train",))["train"]
+    saved = os.environ.get("ZEST_NATIVE_IO")
+    loader = []
+    for flag in ("1", "0"):
+        os.environ["ZEST_NATIVE_IO"] = flag
+        sample = train_ds[2]
+        route, why = native_io.last_route()
+        if flag == "1" and route != "native":
+            log(f"[real-data] NSFF loader, ZEST_NATIVE_IO=1: the native "
+                f"route is not taken here ({why}); PIL's is timed below")
+            continue
+        times = []
+        for i in range(LOADER_RUNS):
+            t0 = time.perf_counter()
+            sample = train_ds[3 + i]
+            times.append(time.perf_counter() - t0)
+        loader.append((route, float(np.median(times))))
+        log(f"[real-data] NSFF loader, ZEST_NATIVE_IO={flag}: route {route}"
+            + (f" ({why})" if why else "") + ", s/sample "
+            + ", ".join(f"{t:.4f}" for t in times)
+            + f" (median {np.median(times):.4f})")
+    if saved is None:
+        del os.environ["ZEST_NATIVE_IO"]
+    else:
+        os.environ["ZEST_NATIVE_IO"] = saved
+    native_why = native_io.unused_reason()
+
+    launches, real = {}, {}
+    for precision in (16, 32):
+        args = nsff + ["--expname", f"real_p{precision}", "--precision",
+                       str(precision), "--max_train_steps", str(REAL_STEPS)]
+        launches[f"train_real{precision}"], wall, sps = _train_real(
+            f"NSFF flagship, precision {precision}", args, REAL_STEPS,
+            sample)
+        real[precision] = (wall / REAL_STEPS, sps)
+        torch.cuda.empty_cache()
+
+    ckpt = ["--expname", "real_p16", "--precision", "16", "--ckpt",
+            str(root / "runs" / "real_p16" / "ckpts" / "last")]
+    cfg16 = config_parser(nsff + ckpt)
+    test_ds = build_datasets(cfg16, ("test",))["test"]
+    system16 = ZestSystem(cfg16)
+    one = expected_eval_launches(system16, to_batch(sample, "cpu"))
+    line, test_s, got = _cli(test_cli, nsff + ckpt)
+    _check("test", got, _times(one, len(test_ds)))
+    text = (root / "runs" / "real_p16" / "test_metrics.txt").read_text()
+    psnr = float(text.splitlines()[0].split(": ")[1])
+    if not math.isfinite(psnr):
+        raise AssertionError(f"test_metrics.txt {text!r}")
+    loads = []
+    for i in range(TEST_LOADS):
+        t0 = time.perf_counter()
+        test_ds[i]
+        loads.append(time.perf_counter() - t0)
+    log(f"[real-data] python -m zest_tpu_torch.test from ckpts/last: "
+        f"{len(test_ds)} frames in {test_s:.2f} s ({test_s / len(test_ds):.3f}"
+        f" s/frame with its sample's load), launches {got}; {line}; the test "
+        f"split's load, route {native_io.last_route()[0]}: "
+        + ", ".join(f"{t:.4f}" for t in loads)
+        + f" s/sample (median {np.median(loads):.4f})")
+    launches["test_real16"] = one
+    _, wander_s, got = _cli(render_spiral, nsff + ckpt + [
+        "--render_path", "wander", "--frame_range", "3", "4", "--n_poses",
+        str(REAL_POSES)])
+    _check("wander", got, _path_launches(one, 2, REAL_POSES))
+    pngs = [p for t in (3, 4) for p in (root / "runs" / "real_p16" /
+                                         f"render_wanderpath_frame{t}").iterdir()]
+    if len(pngs) != 2 * 2 * REAL_POSES:
+        raise AssertionError(f"wander path wrote {len(pngs)} PNGs")
+    log(f"[real-data] render_spiral --render_path wander, frames 3 and 4, "
+        f"{REAL_POSES} poses each: {wander_s:.2f} s "
+        f"({wander_s / (2 * REAL_POSES):.3f} s/pose with the frames' loads, "
+        f"the checkpoint and the volumes), launches {got}, {len(pngs)} PNGs")
+
+    llff = ["--config", LLFF_FILE, "--datadir", str(root / "llff"),
+            "--finetune_scene", REAL_SCENES["llff"]["scene"], "--save_dir",
+            runs, "--precision", "16", "--log_every", "5"]
+    llff_train = build_datasets(config_parser(llff),
+                                ("train", "test"))
+    launches["train_llff16"], _, _ = _train_real(
+        "LLFF MVSNeRF, precision 16", llff + ["--max_train_steps",
+                                              str(LLFF_STEPS)],
+        LLFF_STEPS, llff_train["train"][0])
+    ckpt = ["--ckpt", str(root / "runs" / "mvsnerf_llff" / "ckpts" / "last"),
+            "--n_poses", str(REAL_POSES)]
+    cfg_l = config_parser(llff)
+    one = expected_eval_launches(ZestSystem(cfg_l),
+                                 to_batch(llff_train["test"][0], "cpu"))
+    per_pose = {}
+    for kind in ("spiral", "spheric"):
+        line, wall, got = _cli(render_spiral, llff + ckpt + [
+            "--render_path", kind])
+        _check(kind, got, _path_launches(one, 1, REAL_POSES))
+        printed = json.loads(line)
+        per_pose[kind] = printed["render_s"] / REAL_POSES
+        n_png = len(list(Path(printed["out"]).glob("*.png")))
+        if n_png != 2 * REAL_POSES:
+            raise AssertionError(f"{kind} path wrote {n_png} PNGs")
+        w, h = llff_train["test"].img_wh
+        log(f"[real-data] render_spiral --render_path {kind}, "
+            f"{REAL_POSES} poses at {h}x{w}: {per_pose[kind]:.3f} s/pose "
+            f"(the render: volumes once, then each pose; "
+            f"{printed['render_s']:.3f} s of the command's {wall:.2f} s), "
+            f"launches {got}, {n_png} PNGs")
+    launches["eval_llff16"] = one
+
+    evals = {}
+    for name, data_root in (("dtu", "dtu"), ("neural3Dvideo", "n3dv")):
+        cfg = config_parser(["--config", LLFF_FILE, "--dataset_name", name,
+                             "--datadir", str(root / data_root),
+                             "--precision", "16"])
+        ds = build_datasets(cfg, ("test",))["test"]
+        launches[f"eval_{data_root}16"], one_sample = _eval_real(
+            f"{name} (MVSNeRF)", dev, cfg, ds)
+        evals[data_root] = (cfg, one_sample)
+        torch.cuda.empty_cache()
+    real_widths(rows, dev, cfg_l, llff_train["train"][0], *evals["dtu"],
+                evals["n3dv"][1])
+
+    cpus = os.cpu_count()
+    n_images = len(sample["images"]) + len(sample["nb_imgs"])
+    (w0, h0), (w1, h1) = REAL_SCENES["nsff"]["size"], train_ds.img_wh
+    log(f"[real-data] the loader against the card, NSFF flagship sample "
+        f"({n_images} images of {w0}x{h0} decoded and Lanczos-resized to "
+        f"{w1}x{h1}, 2 flows, a disparity, a mask; files in the page "
+        f"cache), host CPUs {cpus}: "
+        + "; ".join(f"route {route} {t:.4f} s/sample" for route, t in loader)
+        + ("" if any(r == "native" for r, _ in loader)
+           else f" (no native route: {native_why})")
+        + f"; flagship step (phases 11 and 8) {step_ms[16]:.1f} ms at "
+        f"precision 16, {step_ms[32]:.1f} ms at float32; the loop (its log "
+        f"rows after the first) {np.mean(real[16][1][1:]):.3f} steps/s at "
+        f"precision 16, {np.mean(real[32][1][1:]):.3f} at float32 on the "
+        f"loaded scene against {np.mean(loop_sps[1:]):.3f} on the synthetic "
+        f"scene (phase 12, precision 16)")
+    log(f"[real-data] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2635,14 +3036,18 @@ def main() -> int:
     train16, rays_s16 = flagship_train(cfg16, system16, batch16, params16,
                                        "train-16")
     with tempfile.TemporaryDirectory() as tmp:
-        loop_cfg, loop_state = quality(dev, system16, batch16, params16,
-                                       train16, tmp)
+        loop_cfg, loop_state, loop_sps = quality(dev, system16, batch16,
+                                                 params16, train16, tmp)
         del system16, params16, batch16
         torch.cuda.empty_cache()
         per_pose = paths(dev, tmp, loop_cfg, loop_state)
     new_paths, summary = ablations(rows, dev)
     with tempfile.TemporaryDirectory() as tmp:
         svs_paths, svs_summary = svs(dev, tmp, new_paths)
+    n_rays = cfg.batch_size + cfg.num_extra_samples
+    step_ms = {32: 1e3 * n_rays / rays_s, 16: 1e3 * n_rays / rays_s16}
+    with tempfile.TemporaryDirectory() as tmp:
+        real_paths = real_data(rows, dev, tmp, step_ms, loop_sps)
     log(f"[summary] flagship eval s/image: float32 {s_image:.3f}, precision "
         f"16 {s_image16:.3f}; train_rays_per_sec: float32 {rays_s:.1f}, "
         f"precision 16 {rays_s16:.1f}; path s/pose: float32 "
@@ -2660,12 +3065,12 @@ def main() -> int:
         f"{svs_summary['svs16'][0]:.1f}; seconds of a step's parts: " + "; ".join(
             f"{tag} " + ", ".join(f"{k} {v:.5f}" for k, v in parts.items())
             for tag, (_, parts) in svs_summary.items()))
-    for path, counts in {**new_paths, **svs_paths}.items():
+    for path, counts in {**new_paths, **svs_paths, **real_paths}.items():
         log(f"[summary] launches, {path}: "
             + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
     results = rows.finish({"eval": eval_launches, "train": train_launches,
                            "eval16": eval16, "train16": train16, **new_paths,
-                           **svs_paths})
+                           **svs_paths, **real_paths})
     for r in results:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never launched on the main path")

@@ -326,7 +326,8 @@ def test_cli_workflow_on_cpu(tmp_path, capsys):
     assert len(list((run / "render_wanderpath_frame4").iterdir())) == 2
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == {
         "frame": 4, "poses": 1, "out": str(run / "render_wanderpath_frame4")}
-    with pytest.raises(NotImplementedError, match="spiral"):
+    # the synthetic scene has no LLFF cameras to put a spiral around
+    with pytest.raises(ValueError, match="spiral"):
         render_spiral.main([*base, "--render_path", "spiral"])
 
     # fine-tuning warm-starts from --ckpt at its step, extra rays off

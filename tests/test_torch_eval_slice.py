@@ -62,7 +62,8 @@ def test_port_imports_no_jax():
     """The port runs its eval step and one training step in a fresh
     interpreter without JAX and without the JAX package ``zest_tpu``; its
     training loop, checkpoints, path rendering, config parser, command-line
-    modules, metrics and quality gate import neither."""
+    modules, metrics, quality gate, real-data loaders and scene fixtures
+    import neither."""
     script = textwrap.dedent("""
         import sys
         import torch
@@ -70,7 +71,9 @@ def test_port_imports_no_jax():
                                     metrics, presets, render_paths,
                                     render_spiral, sampling, test, train,
                                     train_loop)
-        from zest_tpu_torch.data import nsff
+        from zest_tpu_torch.data import (common, dtu, llff, native_io,
+                                         neural3dvideo, nsff, pfm, pose_utils)
+        from zest_tpu_torch.tools import scene_fixtures
         from zest_tpu_torch.tools import quality_gate
         from zest_tpu_torch.utils import visualize
         from zest_tpu_torch.system import TrainState, phase_for_step

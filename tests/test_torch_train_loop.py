@@ -252,15 +252,15 @@ def test_run_training_writes_metrics_with_validation(tmp_path):
 
 
 @pytest.mark.parametrize("change,name", [
-    (dict(dataset_name="llff"), "dataset_name='llff'"),
+    (dict(dataset_name="synthetic", train_video=True), "train_video"),
     (dict(train_video=True), "train_video"),
     (dict(use_color_volume=True), "use_color_volume"),
     (dict(precision=8), "precision=8"),
     (dict(dataset_name="synthetic", net_type="v2"), "net_type='v2'"),
 ])
 def test_run_training_refuses_what_it_does_not_port(tmp_path, change, name):
-    """Loaders other than the synthetic scene's are refused when the loop
-    builds its datasets from the config (``datasets=None``)."""
+    """What the system does not port is refused, also when the loop builds
+    its datasets from the config (``datasets=None``)."""
     cfg = ZestConfig(**dict(presets.SMALL_TRAIN, save_dir=str(tmp_path),
                             expname="refused", **change))
     datasets = None if "dataset_name" in change else {

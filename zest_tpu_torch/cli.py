@@ -17,7 +17,7 @@ def parse(prog: str, argv=None, path_args: bool = False) -> Optional[tuple]:
     after a message when ``--device cuda`` (the default) finds no CUDA
     device. ``options.device`` is "cuda" or "cpu"; with ``path_args``,
     ``options.frame_range`` (LO HI, default 20 51) and ``options.n_poses``
-    (default all 60) bound the wander path. On the card TF32 is turned off,
+    (default all 60) bound the path. On the card TF32 is turned off,
     so float32 products are float32's."""
     argv = sys.argv[1:] if argv is None else list(argv)
     p = argparse.ArgumentParser(prog=prog, add_help=False, allow_abbrev=False)

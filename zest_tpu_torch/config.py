@@ -8,11 +8,11 @@ Standard library only. ``precision`` 16 (or ``bf16``) selects the 16-bit
 path of ``system.ZestSystem``. ``train_sceneflow``, ``use_mvs`` and
 ``use_mvs_dy`` select the fields and volumes in any combination the
 reference's config files use, and ``gan_type`` the adversarial (SVS)
-step. What the port does not run is refused by name where it is read:
+step. ``dataset_name`` selects the loader (``data.dataset_dict``: the NSFF,
+LLFF, DTU and Neural 3D Video scenes under ``datadir``, or the synthetic
+scene). What the port does not run is refused by name where it is read:
 ``net_type`` v2, ``train_video`` and ``use_color_volume`` by
-``system.ZestSystem``, datasets other than the synthetic scene by
-``train_loop.build_datasets``, ``vis_cnn`` by ``train_loop.run_test``, the
-LLFF paths by ``render_spiral``. The TPU package's kernel choices and bands
+``system.ZestSystem``, ``vis_cnn`` by ``train_loop.run_test``. The TPU package's kernel choices and bands
 (``mesh_shape``, ``use_pallas_*``, ``warp_band``, ``warp_group``,
 ``z_band*``, ``use_fused_mlp``, ``color_band_train``) select among
 ``zest_tpu``'s implementations of the same values; the port has one CUDA

@@ -13,14 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .common import IMAGENET_MEAN, IMAGENET_STD, MOTION_COORDS_PAD
 from .nsff import wanderpath_poses
-
-# ImageNet statistics every loader normalizes with
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
-# static length of the motion-mask coordinate list (``motion_count`` rows
-# of it are valid)
-MOTION_COORDS_PAD = 16384
 
 
 def _procedural_image(H, W, t, seed=0):

@@ -44,7 +44,7 @@ import torch
 from torch import nn
 
 from . import render, sampling
-from .data.synthetic import IMAGENET_MEAN, IMAGENET_STD
+from .data.common import IMAGENET_MEAN, IMAGENET_STD
 from .geometry import normalize_frame_idx
 from .losses import (distortion_loss, get_disparity_smoothness,
                      sceneflow_losses, total_variation_loss)
@@ -326,8 +326,8 @@ class ZestSystem(nn.Module):
         nb_w2cs = batch.get("nb_w2cs")   # no neighbours: views unrotated
         return dict(im_w2c_ref=w2cs[0],
                     nb_w2c_ref=None if nb_w2cs is None else nb_w2cs[0],
-                    ref_frame_idx=normalize_frame_idx(batch["time"],
-                                                      batch["total_frames"]),
+                    ref_frame_idx=normalize_frame_idx(
+                        batch.get("time", 0.0), batch.get("total_frames", 1.0)),
                     white_bkgd=self.cfg.white_bkgd)
 
     def eval_image(self, models, batch, imgs_un, c2ws, w2cs):
@@ -413,8 +413,8 @@ class ZestSystem(nn.Module):
             depths=batch["depths"], w2cs=batch["w2cs"], c2ws=batch["c2ws"],
             intrinsics=batch["intrinsics"], near_fars=batch["near_fars"],
             n_samples=cfg.N_samples, pad=cfg.pad, jitter=draws.jitter,
-            flow_fwd=batch["flow_fwd"], flow_bwd=batch["flow_bwd"],
-            mask_fwd=batch["mask_fwd"], mask_bwd=batch["mask_bwd"])
+            flow_fwd=batch.get("flow_fwd"), flow_bwd=batch.get("flow_bwd"),
+            mask_fwd=batch.get("mask_fwd"), mask_bwd=batch.get("mask_bwd"))
 
     def forward_train(self, batch, draws: sampling.Draws, phase: Phase,
                       step: int):
@@ -424,7 +424,7 @@ class ZestSystem(nn.Module):
         rays = self.train_rays(batch, draws, phase)
         results = render.render_rays_train(
             models, rays, draws, **self.render_kwargs(batch),
-            num_frames=batch["total_frames"],
+            num_frames=batch.get("total_frames", 1.0),
             # the two-frame chain alternates every step, t-2 first
             chain_bwd=step % 2 == 0, chain_5frames=phase.chain_5frames,
             raw_noise_std=self.cfg.raw_noise_std)
