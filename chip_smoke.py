@@ -171,9 +171,26 @@ sm_90a), then:
     shapes, as phase 14 holds MVSNeRF's: on the LLFF training sample
     (640x960, pad 24, 1,024 rays, precision 16) K6 and K7 in the 4-output
     bf16 mode (rows ``*_llff``) and K1, K2, K3, K4 and K8 at the step's
-    rays; on the DTU test sample (512x640) K1, K2, K3, K4 and K8 at its
-    first eval chunk's points and K6 on that chunk; Neural 3D Video's
-    sample has LLFF's shapes (checked).
+    rays, K7 bf16 again on LLFF_HOLDS - 1 other training samples (other
+    source views); on the DTU test sample (512x640) K1, K2, K3, K4 and K8
+    at its first eval chunk's points and K6 on that chunk; Neural 3D Video's
+    sample has LLFF's shapes (checked);
+17. the three model options no configuration file sets (``options``):
+    the v2 flagship (``presets.FLAGSHIP_V2``: the flagship's fields
+    additive and plain) and the colour-volume flagship
+    (``presets.FLAGSHIP_COLORVOL``) at float32 and precision 16, each
+    eval image and its step-0 and chain steps with their launches (v2: no
+    K6 or K7), s/image, train rays/s and peak memory; K3 on the 40-channel
+    colour volume bit for bit equal to its twin on the first eval chunk
+    and K3 at 8 channels timed on the same points, K4 on the step's static
+    lookup (the gradient of its first 8 channels), K8 on the 2,703,360
+    voxel centres (device time); the video mode on a Neural 3D Video scene
+    written from a seed: VIDEO_STEPS steps of ``python -m
+    zest_tpu_torch.train --train_video True`` at both precisions (launches,
+    the trained time codes' rows moved in ``ckpts/last`` and no other, no
+    [n, 1087] input on the card), ``run_test`` on one frame, the fold and
+    its backward against their twins, K6 and K7 in the video geometry
+    under the gates of phases 3, 6 and 9 (``video_kernels``).
 
 The second-to-last line of stdout is a JSON object with one entry per kernel
 (``timing``: "device" for the rows timed by the profiler's kernel durations,
@@ -188,6 +205,7 @@ the synthetic scene and the seeded weights are the port's own
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -291,12 +309,18 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def device_ms(fn) -> float:
-    """Mean device time of fn(): the profiler's kernel durations
-    (``probe_trilinear.device_ms``). Rows whose kernel runs under 1 ms take
+    """Device time of fn() per call: the profiler's kernel durations
+    (``probe_trilinear.device_ms``), with the events it missed logged. Rows
+    whose kernel runs under 1 ms take
     it: there a wrapper's host side takes about as long as the kernel, and
     CUDA events around a loop of calls time the host."""
+    from zest_tpu_torch.tools.probe_trilinear import LAUNCHES
     from zest_tpu_torch.tools.probe_trilinear import device_ms as profiled
-    return profiled(fn)
+    ms = profiled(fn)
+    if profiled.lost:
+        log(f"[device_ms] device events the profiler missed over {LAUNCHES} "
+            f"calls, by kernel: {profiled.lost}")
+    return ms
 
 
 def nbytes(*tensors) -> int:
@@ -338,7 +362,7 @@ def image_pixels(xy, H, W) -> int:
 def counters():
     """Every kernel wrapper of the port, by the name its count is read as."""
     from zest_tpu_torch.kernels import (color_gather, dma_gather, fused_mlp,
-                                        plane_sweep, trilinear)
+                                        plane_sweep, time_codes, trilinear)
     return {"homo_warp_cm": plane_sweep.homo_warp_cm,
             "homo_warp_cm_grad": plane_sweep.homo_warp_cm_grad,
             "sample_volume": trilinear.sample_volume,
@@ -351,7 +375,9 @@ def counters():
             "input_grads": fused_mlp.input_grads,
             "weight_grads": fused_mlp.weight_grads,
             "gather_rows": dma_gather.gather_rows,
-            "scatter_rows": dma_gather.scatter_rows}
+            "scatter_rows": dma_gather.scatter_rows,
+            "fold_codes": time_codes.fold_codes,
+            "fold_codes_grad": time_codes.fold_codes_grad}
 
 
 def reset_counters() -> None:
@@ -610,8 +636,9 @@ def float64_twin(field):
     twin = NeRFField(field.depth, field.width, field.in_ch_pts,
                      field.in_ch_views, field.in_ch_feat, field.skips,
                      field.static, bf16=field.bf16,
-                     sceneflow=field.n_extra > 0,
-                     use_mvs=field.use_mvs).to(next(field.parameters()).device)
+                     sceneflow=field.n_extra > 0, use_mvs=field.use_mvs,
+                     net_type=field.net_type, code_dim=field.code_dim).to(
+                         next(field.parameters()).device)
     twin.load_state_dict({k: v.double() for k, v in field.state_dict().items()})
     return twin.double()
 
@@ -1208,22 +1235,34 @@ def blended(system) -> str:
     return "rgb_map_ref" if system.nerf_dynamic is not None else "rgb_map"
 
 
+def _video_fused(system) -> bool:
+    """The static field takes a time code and runs the fused kernels: the
+    fold runs once per field call."""
+    return system.cfg.train_video and system.nerf_static.fused
+
+
 def expected_eval_launches(system, batch) -> dict:
     """The launches of one eval image: K1 once per source view of the static
     volume, K3 and K8 once per chunk for each volume, K6 once per chunk for
-    each field conditioned on a volume, no backward kernel (at the batch's
-    image size)."""
+    each v0 field conditioned on a volume, no backward kernel (at the
+    batch's image size). With the colour volume K8 runs once per image on
+    the voxel centres instead of per chunk for the static field; with time
+    codes the fold runs once per chunk."""
     _, H, W, _ = batch["images"].shape
     n_chunks = -(-(H * W) // system._chunk(H, W))
     vols = (system.enc_static is not None) + (system.enc_dy is not None)
-    fused = sum(f is not None and f.use_mvs
+    fused = sum(f is not None and f.fused
                 for f in (system.nerf_static, system.nerf_dynamic))
+    colors = vols * n_chunks
+    if system.enc_static is not None and system.cfg.use_color_volume:
+        colors += 1 - n_chunks
     expected = dict.fromkeys(counters(), 0)
     expected.update(
         homo_warp_cm=(batch["images"].shape[0] - 2
                       if system.enc_static is not None else 0),
-        sample_volume=vols * n_chunks, gather_colors=vols * n_chunks,
-        fused_nerf_forward=fused * n_chunks)
+        sample_volume=vols * n_chunks, gather_colors=colors,
+        fused_nerf_forward=fused * n_chunks,
+        fold_codes=n_chunks if _video_fused(system) else 0)
     return expected
 
 
@@ -1491,18 +1530,20 @@ def expected_step_launches(system, cfg, batch, phase) -> dict:
     (one per volume) and per warped one (t±1 and the chain, dynamic volume),
     K5 once per warped lookup (at 16 bits K9 and its backward take the
     warped lookups, and K5 none); K8 once per volume; K6 and K7 once per
-    pass of a field conditioned on a volume (the static field; the dynamic
-    one at t, at t±1 stacked and on the chain), and K7 float32's three
-    launches once per chunk of each such pass."""
+    pass of a v0 field conditioned on a volume (the static field; the
+    dynamic one at t, at t±1 stacked and on the chain), and K7 float32's
+    three launches once per chunk of each such pass; with time codes the
+    fold and its backward once."""
     from zest_tpu_torch.kernels import fused_mlp
     chain = int(phase.chain_5frames)
     rays = cfg.batch_size + (cfg.num_extra_samples if phase.extra_samples
                              and cfg.train_sceneflow else 0)
     points = rays * cfg.N_samples
-    passes = [points] if system.nerf_static.use_mvs else []
-    if system.nerf_dynamic is not None and system.nerf_dynamic.use_mvs:
+    passes = [points] if system.nerf_static.fused else []
+    if system.nerf_dynamic is not None and system.nerf_dynamic.fused:
         passes += [points, 2 * points] + [points] * chain
     chunks = sum(-(-n // fused_mlp.CHUNK_ROWS) for n in passes)
+    folds = int(_video_fused(system))
     n_src = (batch["images"].shape[0] - 2 if system.enc_static is not None
              else 0)
     unwarped = (system.enc_static is not None) + (system.enc_dy is not None)
@@ -1513,7 +1554,7 @@ def expected_step_launches(system, cfg, batch, phase) -> dict:
                     gather_colors=unwarped, fused_nerf_forward=len(passes),
                     fused_nerf_backward=len(passes), recompute=chunks,
                     input_grads=chunks, weight_grads=chunks, gather_rows=0,
-                    scatter_rows=0)
+                    scatter_rows=0, fold_codes=folds, fold_codes_grad=folds)
     if system.bf16:
         # the warped lookups are row gathers; K7's bf16 mode runs inside
         # its own entry
@@ -2297,32 +2338,29 @@ def gan_step(preset, scene, on, step=0):
     and a CPU generator's draws, its optimizers capturing the gradients.
     Returns (logs, generator gradients, discriminator gradients, the new
     spectral state, the state it started from, the GanSystem, the
-    discriminators' outputs on the step's patches), on the CPU."""
-    from zest_tpu_torch import presets, sampling
+    discriminators' outputs in that step, on the CPU: the judged output
+    of every call, in the step's order, which the adversarial terms
+    read)."""
+    from zest_tpu_torch import presets, sampling, system_gan
     from zest_tpu_torch.system import phase_for_step
-    from zest_tpu_torch.system_gan import apply_disc
     cfg, gan, batch, state = presets.build_gan(preset, scene, on, SEED)
     phase = phase_for_step(cfg, step)
     draws = sampling.sample_draws(torch.Generator().manual_seed(SEED + 5),
                                   cfg, cfg.img_h, cfg.img_w, 0, False, step)
-    new, logs = gan.make_train_step(_Capture(), _Capture())(
-        state, batch, draws.to(on), phase)
-    # the discriminators' outputs on the step's patches, which the
-    # adversarial terms read
-    outs = gan.generator_update(state, batch, draws.to(on), phase,
-                                _Capture())[3]
-    ppx = cfg.patch_size ** 2
-    preds = []
-    with torch.no_grad():
-        for x in outs[:2]:
-            d, _ = apply_disc(gan.disc, state.disc_params, state.disc_vars,
-                              x.reshape(-1, ppx, 3))
-            preds.append((d[-1] if cfg.getIntermFeat else d).cpu())
-        if gan.depth_disc is not None:
-            for x in outs[2:]:
-                preds.append(apply_disc(gan.depth_disc,
-                                        state.depth_disc_params, {},
-                                        x.reshape(-1, ppx, 1))[0].cpu())
+    preds, apply_disc = [], system_gan.apply_disc
+
+    def judged(disc, params, spectral, x):
+        out, new_spectral = apply_disc(disc, params, spectral, x)
+        last = out[-1] if isinstance(out, (list, tuple)) else out
+        preds.append(last.detach().cpu())
+        return out, new_spectral
+
+    system_gan.apply_disc = judged
+    try:
+        new, logs = gan.make_train_step(_Capture(), _Capture())(
+            state, batch, draws.to(on), phase)
+    finally:
+        system_gan.apply_disc = apply_disc
 
     def cpu(tree):
         return {k: v.detach().cpu() for k, v in tree.items()}
@@ -2650,6 +2688,7 @@ REAL_SCENES = dict(
     n3dv=dict(n_cams=6, n_frames=1, size=(1352, 1014)))
 REAL_STEPS = 20              # loop steps of the NSFF flagship file
 LLFF_STEPS = 10              # loop steps of the LLFF file
+LLFF_HOLDS = 6               # LLFF training samples K7 bf16 is held on
 LOADER_RUNS = 8              # samples timed per loader route
 TEST_LOADS = 3               # test-split samples timed after ``test``
 REAL_POSES = 4               # poses of each path
@@ -2683,7 +2722,8 @@ def _path_launches(eval_launches: dict, frames: int, poses: int) -> dict:
     """A path's launches: K1 as for one eval image per frame, K3, K6 and
     K8 once per pose of each frame."""
     out = _times(eval_launches, frames)
-    for k in ("sample_volume", "gather_colors", "fused_nerf_forward"):
+    for k in ("sample_volume", "gather_colors", "fused_nerf_forward",
+              "fold_codes"):
         out[k] = frames * poses * eval_launches[k]
     return out
 
@@ -2771,14 +2811,45 @@ def _eval_real(tag, dev, cfg, ds):
     return got, sample
 
 
-def real_widths(rows, dev, llff_cfg, llff_sample, dtu_cfg, dtu_sample,
+def llff_holds(dev, cfg, system, samples) -> None:
+    """K7's bf16 mode on the step-0 static pass of each LLFF training
+    sample in ``samples`` (source views drawn apart from the first's),
+    under ``hold_bf16_backward``'s gates with its float64 gate, as
+    ``four_output_kernels`` holds it on the first: one pass's reading is
+    one draw of the bf16 roundings that land the other way."""
+    from zest_tpu_torch.kernels import fused_mlp
+    from zest_tpu_torch.system import to_batch
+    field = system.nerf_static
+    with torch.no_grad():
+        pack, offsets = fused_mlp.pack_weights(field)
+    for i, sample in enumerate(samples, 1):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        batch = to_batch(sample, dev)
+        _, _, passes = step_inputs(system, batch, cfg, gen)
+        flat = [t.reshape(-1, t.shape[-1]).contiguous()
+                for t in passes["static"][1]]
+        g = torch.randn((flat[0].shape[0], field.out_ch), generator=gen,
+                        device=dev)
+        hold_bf16_backward("fused_nerf_backward_bf16_llff",
+                           f"static, training sample {i}", field, flat, g,
+                           pack, offsets, float64_gate=True)
+        del batch, passes, flat, g
+        field.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    log(f"[llff16] K7 bf16 held on {len(samples) + 1} LLFF training "
+        f"samples' step-0 passes")
+
+
+def real_widths(rows, dev, llff_cfg, llff_samples, dtu_cfg, dtu_sample,
                 n3dv_sample):
     """Phase 16's kernels at the real scenes' own shapes, each held to its
     twin as phase 14 holds them at MVSNeRF's, with the seed's weights: on
-    the LLFF file's training sample at its precision (16), K6 and K7 in the
-    4-output bf16 mode (``four_output_kernels``, rows ``*_llff``, launches
-    of the LLFF paths) and K1, K2, K3, K4 and K8 at that step's rays
-    (``new_widths``); on the DTU test sample, K1, K2, K3, K4 and K8 at its
+    the LLFF file's first training sample at its precision (16), K6 and K7
+    in the 4-output bf16 mode (``four_output_kernels``, rows ``*_llff``,
+    launches of the LLFF paths) and K1, K2, K3, K4 and K8 at that step's
+    rays (``new_widths``); K7 again, under the same gates, on the step-0
+    pass of each other sample (other source views: ``llff_holds``); on the
+    DTU test sample, K1, K2, K3, K4 and K8 at its
     first eval chunk's points and K6 on that chunk (into the LLFF row: the
     eval chunk has one shape, 16384 rays x 128). Neural 3D Video's eval
     image has LLFF's images, views and pad, which this checks."""
@@ -2796,15 +2867,17 @@ def real_widths(rows, dev, llff_cfg, llff_sample, dtu_cfg, dtu_sample,
         return dataclasses.replace(cfg, img_h=H, img_w=W), system, batch
 
     t0 = time.perf_counter()
-    shape = tuple(llff_sample["images"].shape)
+    shape = tuple(llff_samples[0]["images"].shape)
     if tuple(n3dv_sample["images"].shape) != shape:
         raise AssertionError(f"Neural 3D Video's images "
                              f"{n3dv_sample['images'].shape}, LLFF's {shape}")
-    cfg, system, batch = build(llff_cfg, llff_sample)
+    cfg, system, batch = build(llff_cfg, llff_samples[0])
     rays = four_output_kernels(rows, dev, cfg, system, batch, "_llff",
                                ("eval_llff16", "train_llff16"))
     new_widths(rows, dev, cfg, system, batch, rays, "llff16")
-    del system, batch, rays
+    del batch, rays
+    llff_holds(dev, cfg, system, llff_samples[1:])
+    del system
     cfg, system, batch = build(dtu_cfg, dtu_sample)
     rays, field_inputs = chunk_inputs(system, batch)
     new_widths(rows, dev, cfg, system, batch, rays, "dtu16")
@@ -2982,7 +3055,13 @@ def real_data(rows, dev, tmp, step_ms, loop_sps):
             f"{name} (MVSNeRF)", dev, cfg, ds)
         evals[data_root] = (cfg, one_sample)
         torch.cuda.empty_cache()
-    real_widths(rows, dev, cfg_l, llff_train["train"][0], *evals["dtu"],
+    # the holds' training samples, LLFF_HOLDS draws of the source views
+    # (the loader picks them at random) from the script's seed on
+    llff_samples = []
+    for i in range(LLFF_HOLDS):
+        llff_train["train"].rng = np.random.default_rng(SEED + i)
+        llff_samples.append(llff_train["train"][0])
+    real_widths(rows, dev, cfg_l, llff_samples, *evals["dtu"],
                 evals["n3dv"][1])
 
     cpus = os.cpu_count()
@@ -3003,6 +3082,484 @@ def real_data(rows, dev, tmp, step_ms, loop_sps):
         f"scene (phase 12, precision 16)")
     log(f"[real-data] phase 16 in {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+MVSNERF_FILE = "configs/config_files/config_mvsnerf_nsff_cross1.txt"
+OPTION_RUNS = 1              # timed eval images of each option's flagship
+OPTION_WINDOW = 3            # timed training steps of each option's flagship
+VIDEO_STEPS = 3              # loop steps of each precision's video run
+VIDEO_SLICE = 1 << 16        # points of the video field's kernel holds
+
+
+def option_flagships(tag, preset, scene, dev) -> tuple:
+    """An option's flagship preset at float32 and at precision 16: the eval
+    image (``flagship``: its launches, OPTION_RUNS timed runs with the
+    input changed) and the step-0 and chain training steps
+    (``flagship_train``: their launches, train rays/s over OPTION_WINDOW
+    steps, the peak memory). Returns ({path: launches}, {tag: (s/image,
+    rays/s)})."""
+    from zest_tpu_torch import presets
+    launches, summary = {}, {}
+    for suffix, config in (("", preset), ("16", dict(preset, precision=16))):
+        name = tag + suffix
+        cfg, system, batch, params = presets.build(config, scene, dev, SEED)
+        launches[f"eval_{name}"], s_image = flagship(
+            cfg, system, batch, params, f"flagship-{name}", runs=OPTION_RUNS)
+        launches[f"train_{name}"], rays_s = flagship_train(
+            cfg, system, batch, params, f"train-{name}", window=OPTION_WINDOW)
+        summary[name] = (s_image, rays_s)
+        del system, params, batch
+        torch.cuda.empty_cache()
+    return launches, summary
+
+
+def colour_volume_kernels(rows, dev):
+    """Phase 17, the colour volume (``presets.FLAGSHIP_COLORVOL``: the
+    static volume with 8 source views' RGB and masks, 40 channels): K3 at
+    C = 40 on the flagship's first eval chunk, bit for bit equal to its
+    twin, and K3 at C = 8 on the same points timed beside it; K4 on the
+    step's static lookup (the gradient of the first 8 channels of a C = 40
+    lookup); K8 on the 2,703,360 voxel centres of the colour volume's
+    build, 8 views in one launch. Device time for all three."""
+    import torch.nn.functional as F
+    from zest_tpu_torch import geometry, presets, render
+    from zest_tpu_torch.kernels import trilinear
+    from zest_tpu_torch.kernels.color_gather import (gather_colors,
+                                                     gather_colors_plain)
+    from zest_tpu_torch.kernels.trilinear import (sample_volume,
+                                                  sample_volume_plain)
+    from zest_tpu_torch.system import unpreprocess
+    cfg, system, batch, _ = presets.build(presets.FLAGSHIP_COLORVOL,
+                                          presets.FLAGSHIP_SCENE, dev, SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    paths = ("eval_colorvol", "train_colorvol")
+    near_far = batch["near_fars"][0]
+    with torch.no_grad():
+        vol8, _, _ = system.enc_static(batch["images"][:-1],
+                                       batch["proj_mats"][:-1], near_far,
+                                       pad=cfg.pad)
+        imgs = unpreprocess(batch["images"][:-1]).contiguous()
+        vol = render.append_color_volume(vol8, imgs, batch["w2cs"],
+                                         batch["intrinsics"], near_far,
+                                         cfg.pad)
+        ndc = system.chunk_rays(batch, 0).ndc.contiguous()
+    D, Hv, Wv, C = vol.shape
+    n = ndc.numel() // 3
+    log(f"[colorvol] volume {tuple(vol.shape)}, eval chunk {tuple(ndc.shape)}")
+    vol5 = vol.permute(3, 0, 1, 2)[None].contiguous()
+    grid5 = (ndc * 2.0 - 1.0).reshape(1, -1, 1, 1, 3)
+    rows.check("trilinear_sample_colorvol", "zest_tpu_torch/csrc/trilinear.cu",
+               "zest_tpu/kernels/trilinear.py:279", "sample_volume",
+               lambda: sample_volume(vol, ndc),
+               lambda: sample_volume_plain(vol, ndc),
+               lambda: F.grid_sample(vol5, grid5, align_corners=True),
+               1e-5, 20, 4 * C * volume_cells(ndc, (D, Hv, Wv)) + nbytes(ndc)
+               + 4 * C * n, 16 * C * n, timing="device", paths=paths)
+    with torch.no_grad():
+        same = torch.equal(sample_volume(vol, ndc), sample_volume_plain(vol, ndc))
+        ms40 = device_ms(lambda: sample_volume(vol, ndc))
+        ms8 = device_ms(lambda: sample_volume(vol8, ndc))
+    if not same:
+        raise AssertionError("K3 at C = 40 differs from its twin")
+    log(f"[colorvol] K3 at C = {C} on the eval chunk bitwise equal to its "
+        f"twin: {same}; device time {ms40:.4f} ms against {ms8:.4f} ms at "
+        f"C = 8 on the same points (PERF.md §6's row: 0.0645 ms on a random "
+        f"volume)")
+    del vol5
+
+    rays, _, _ = step_inputs(system, batch, cfg, gen)
+    ndc_t = rays.ndc.contiguous()
+    n_t = ndc_t.numel() // 3
+    g = torch.randn((*ndc_t.shape[:-1], C), generator=gen, device=dev)
+    v5 = vol8.permute(3, 0, 1, 2)[None].contiguous()
+    t5 = (ndc_t * 2.0 - 1.0).reshape(1, -1, 1, 1, 3).contiguous()
+    g5 = g[..., :8].reshape(1, -1, 8).permute(0, 2, 1).reshape(
+        1, 8, -1, 1, 1).contiguous()
+    rows.check("trilinear_grad_volume_colorvol",
+               "zest_tpu_torch/csrc/trilinear.cu",
+               "zest_tpu/kernels/trilinear.py:303", "volume_grad",
+               lambda: trilinear.volume_grad(vol8.shape, ndc_t, g),
+               lambda: trilinear.sample_volume_grads_plain(vol, ndc_t, g)[0][
+                   ..., :8],
+               lambda: torch.ops.aten.grid_sampler_3d_backward(
+                   g5, v5, t5, 0, 0, True, [True, False]),
+               1e-5, 5, nbytes(ndc_t) + 32 * n_t + nbytes(vol8), 128 * n_t,
+               relative=True, timing="device", paths=paths)
+    del g, g5, v5, t5
+
+    V, H, W, _ = imgs.shape
+    inv_scale = torch.tensor([W - 1, H - 1], dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        grid = torch.stack(torch.meshgrid(
+            *(torch.linspace(0.0, 1.0, k, device=dev) for k in (D, Hv, Wv)),
+            indexing="ij")[::-1], -1)
+        pts = geometry.ndc_to_world(grid, batch["w2cs"][0],
+                                    batch["intrinsics"][0], inv_scale,
+                                    near_far[0], near_far[1], cfg.pad)
+        xy = torch.stack([
+            geometry.world_to_ndc(pts.reshape(-1, 3), batch["w2cs"][v],
+                                  batch["intrinsics"][v], inv_scale, 2.0,
+                                  6.0)[..., :2] * inv_scale
+            for v in range(V)]).contiguous()
+    N = xy.shape[1]
+    if N != D * Hv * Wv:
+        raise AssertionError(f"{N} voxel centres, the volume has {D * Hv * Wv}")
+    imgs_nchw = imgs.permute(0, 3, 1, 2).contiguous()
+    grid8 = (xy / torch.tensor([(W - 1) * 0.5, (H - 1) * 0.5], device=dev)
+             - 1.0)[:, :, None, :]
+    rows.check("color_gather_voxels", "zest_tpu_torch/csrc/color_gather.cu",
+               "zest_tpu/kernels/color_gather.py:138", "gather_colors",
+               lambda: gather_colors(imgs, xy),
+               lambda: gather_colors_plain(imgs, xy),
+               lambda: F.grid_sample(imgs_nchw, grid8, padding_mode="border",
+                                     align_corners=True),
+               1e-5, 5, 12 * image_pixels(xy, H, W) + nbytes(xy)
+               + 12 * V * N, 24 * V * N, timing="device", paths=paths)
+    log(f"[colorvol] K8 on the {N} voxel centres x {V} views: "
+        f"{row_rates(rows, 'color_gather_voxels')}")
+    del system, batch, vol, vol8, xy, grid8, imgs_nchw, pts, grid
+    torch.cuda.empty_cache()
+
+
+def _video_end_to_end(tag, field, narrow, flat, code, g) -> None:
+    """The video field's whole backward through autograd (the fold, K7 on
+    the folded operands, the fold's backward), every input, the code and
+    every leaf of the field. At float32 against the twin field's autograd
+    on [n, 1087] inputs, within 1e-4 of each one's largest, on the points
+    where K7's forward takes the same ReLU branches as the twin's and as
+    the folded field's twin (``branch_rows``; the others at most phase 6's
+    share). In the bf16-operand mode, whose K7 the gates of phase 9 hold on
+    the folded field, the fold's two kernels against their twins inside the
+    same backward (1e-5 of each one's largest: K7's pass 2 adds with
+    atomics), since on such a slice the twin's bf16 roundings alone exceed
+    phase 9's norm-wise bound."""
+    from zest_tpu_torch.kernels import fused_mlp, time_codes
+    from zest_tpu_torch.models.nerf import append_code
+    keep = torch.ones(flat[0].shape[0], dtype=torch.bool, device=g.device)
+    if not field.bf16:
+        with torch.no_grad():
+            pack, offsets = fused_mlp.pack_weights(narrow)
+        saved = {}
+        fused_mlp.fused_nerf_backward(narrow, *flat, g, pack, offsets,
+                                      saved=saved)
+        wide = fused_mlp.forward_values_plain(
+            field, append_code(flat[0], code), *flat[1:])
+        keep = ~(fused_mlp.branch_rows(saved, wide) | fused_mlp.branch_rows(
+            saved, fused_mlp.forward_values_plain(narrow, *flat)))
+        del wide
+    sub = [t[keep].contiguous() for t in (*flat, g)]
+
+    def kernels(p, f, v, c):
+        return fused_mlp.fused_nerf_forward(field, p, f, v, c)
+
+    def wide(p, f, v, c):
+        return field(append_code(p, c), f, v)
+
+    grads = []
+    for fn, ctx in ((kernels, contextlib.nullcontext),
+                    (kernels, plain_fold) if field.bf16 else
+                    (wide, contextlib.nullcontext)):
+        ins = [t.clone().requires_grad_(True) for t in (*sub[:3], code)]
+        field.zero_grad(set_to_none=True)
+        with torch.enable_grad(), ctx():
+            (fn(*ins) * sub[3]).sum().backward()
+        grads.append([t.grad for t in ins]
+                     + [p.grad.clone() for p in field.parameters()])
+    field.zero_grad(set_to_none=True)
+    names = ["d_pts", "d_feats", "d_views", "d_code"] + [
+        k for k, _ in field.named_parameters()]
+    limit = 1e-5 if field.bf16 else 1e-4
+    worst = 0.0
+    for name, a, b in zip(names, *grads):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, err)
+        if not err <= limit:
+            raise AssertionError(f"{tag} {name}: {err} of its largest, limit "
+                                 f"{limit}")
+    dropped = int((~keep).sum())
+    against = ("the same backward with the fold's twins" if field.bf16 else
+               f"the twin's autograd on [n, {field.in_ch_pts + field.code_dim}]"
+               f" inputs")
+    log(f"[{tag}] the whole backward (fold, K7, the fold's backward) against "
+        f"{against}: worst {worst:.3e} of the largest over every input, the "
+        f"code and {len(names) - 4} leaves, on {int(keep.sum())} points"
+        + (f" ({dropped} with other ReLU branches left out)"
+           if not field.bf16 else ""))
+    if dropped > max(F32_FLIPPED_FLOOR, F32_FLIPPED_SHARE * len(keep)):
+        raise AssertionError(f"{tag}: {dropped} points on other branches")
+
+
+@contextlib.contextmanager
+def plain_fold():
+    """The fold's two kernels replaced by their twins while a forward and
+    its backward run."""
+    from zest_tpu_torch.kernels import time_codes
+    saved = time_codes._launch_fold, time_codes.fold_codes_grad
+    time_codes._launch_fold = time_codes.fold_codes_plain
+    time_codes.fold_codes_grad = time_codes.fold_codes_grad_plain
+    try:
+        yield
+    finally:
+        time_codes._launch_fold, time_codes.fold_codes_grad = saved
+
+
+def video_kernels(rows, dev, cfg, system, batch, tag):
+    """Phase 17, the video geometry (``presets.FLAGSHIP_VIDEO``: MVSNeRF's
+    4-output static field with 1,024 time-code channels, 3 source views) in
+    the system's mode: the fold and its backward against their twins; K6
+    on a VIDEO_SLICE-point slice of the first eval chunk and of the step-0
+    pass against the twin field with 1,087 inputs (on [n, 1087] inputs),
+    at float32 also within max(8 x the twin's, 2^-20) of a float64 twin
+    (phase 3's gate), its operand packs equal to their twins' and the
+    folded pack equal to ``folded_field``'s bit for bit; K7 on the whole
+    step-0 pass under phase 6's or 9's gates on the folded field (the same
+    operands; no [n, 1087] input is needed there), in the bf16 mode also on
+    the pass's slice, then the whole backward on the step's slice
+    (``_video_end_to_end``). Rows ``*_video``, launches of ``tag``'s
+    paths."""
+    from zest_tpu_torch.kernels import fused_mlp, time_codes
+    from zest_tpu_torch.models.nerf import append_code
+    field = system.nerf_static
+    bf16 = field.bf16
+    sfx = "_bf16" if bf16 else ""
+    paths = (f"eval_{tag}", f"train_{tag}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    src = "zest_tpu_torch/csrc/"
+    with torch.no_grad():
+        code = system.time_code(batch)
+        P, T = field.in_ch_pts, field.code_dim
+        lins = [field.pts_linears[i] for i in fused_mlp.code_layers(field)]
+        wc = torch.stack([lin.weight[:, P:P + T] for lin in lins]).contiguous()
+        b = torch.stack([lin.bias for lin in lins]).contiguous()
+    L, Wd = b.shape
+    d_c = torch.randn(b.shape, generator=gen, device=dev)
+    rows.check("fold_codes" + sfx, src + "time_codes.cu",
+               "zest_tpu/kernels/fused_mlp.py:376", "fold_codes",
+               lambda: time_codes.fold_codes(code, wc, b, bf16),
+               lambda: time_codes.fold_codes_plain(code, wc, b, bf16),
+               lambda: torch.matmul(wc.view(L * Wd, T), code), 1e-5, 20,
+               nbytes(code, wc, b) + 4 * L * Wd, 2 * L * Wd * T,
+               timing="device", paths=paths)
+    rows.check("fold_codes_grad" + sfx, src + "time_codes.cu",
+               "zest_tpu/kernels/fused_mlp.py:398", "fold_codes_grad",
+               lambda: time_codes.fold_codes_grad(code, wc, d_c, bf16),
+               lambda: time_codes.fold_codes_grad_plain(code, wc, d_c, bf16),
+               lambda: torch.matmul(d_c.view(1, -1), wc.view(-1, T)), 1e-5,
+               20, 2 * nbytes(code, wc) + nbytes(d_c), 3 * L * Wd * T,
+               relative=True, timing="device", paths=paths)
+
+    narrow = fused_mlp.folded_field(field, code)
+    with torch.no_grad():
+        pack, offsets = fused_mlp.pack_weights(field, code)
+        if not torch.equal(pack, fused_mlp.pack_weights(narrow)[0]):
+            raise AssertionError("the folded pack differs from folded_field's")
+        makes = ([(fused_mlp.pack_bf16, fused_mlp.pack_bf16_plain),
+                  (fused_mlp.pack_bf16_bwd, fused_mlp.pack_bf16_bwd_plain)]
+                 if bf16 else [(fused_mlp.pack_tc32,
+                                fused_mlp.pack_tc32_plain)])
+        for make, plain in makes:
+            if not torch.equal(make(narrow, pack, offsets),
+                               plain(narrow, pack, offsets)[0]):
+                raise AssertionError(f"{make.__name__} of the video field "
+                                     f"differs from its twin")
+    fwd = ("fused_nerf_bf16" if bf16 else "fused_nerf") + "_video"
+    tol = BF16_FIELD_TOL if bf16 else 1e-4
+    _, field_inputs = chunk_inputs(system, batch)
+    eval_flat = [t.reshape(-1, t.shape[-1])[:VIDEO_SLICE].contiguous()
+                 for t in field_inputs["static"]]
+    del field_inputs
+    _, _, passes = step_inputs(system, batch, cfg, gen)
+    step_pass = [t.reshape(-1, t.shape[-1]).contiguous()
+                 for t in passes["static"][1]]
+    step_flat = [t[:VIDEO_SLICE] for t in step_pass]
+    del passes
+    n = VIDEO_SLICE
+    f32_ops, bf16_ops, tf32_ops = field_ops(narrow, n, 1, True)
+    for label, flat in (("eval chunk", eval_flat), ("step-0 pass", step_flat)):
+        wide = (append_code(flat[0], code), *flat[1:])
+        kern = functools.partial(fused_mlp.fused_nerf_forward, field, *flat,
+                                 code)
+        twin = functools.partial(field, *wide)
+        if label == "eval chunk":
+            rows.check(fwd, src + ("fused_mlp_tc.cu" if bf16 else
+                                   "fused_mlp_tc32.cu"),
+                       "zest_tpu/kernels/fused_mlp.py:376",
+                       "fused_nerf_forward", kern, twin, None, tol, 3,
+                       nbytes(*flat) + 4 * n * field.out_ch
+                       + 4 * sum(p.numel() for p in narrow.parameters()),
+                       f32_ops, flops_bf16=bf16_ops, paths=paths,
+                       flops_tf32=tf32_ops)
+        err, shapes = rows.verify(fwd, kern, twin, tol)
+        log(f"[{tag}] K6 with the time code folded, on a {n}-point slice of "
+            f"the {label}: shapes {shapes}, max_abs_err {err:.3e} against the "
+            f"twin on {tuple(wide[0].shape)} (tol {tol:g}) -> ok")
+        if not bf16:
+            with torch.no_grad():
+                out, ref = kern(), twin()
+            got, own = float64_distances(field, wide, (out, ref))
+            limit = max(F32_CLASS_FACTOR * own, F32_CLASS_FLOOR)
+            log(f"[{tag}] K6 on the {label} slice, norm-wise from a float64 "
+                f"twin of the 1,087-input field {got:.3e}, the float32 "
+                f"twin's {own:.3e} (limit {limit:.3e})")
+            if not got <= limit:
+                raise AssertionError(f"K6 video float32 on the {label}: {got}")
+        del wide
+
+    bwd = ("fused_nerf_backward_bf16" if bf16 else "fused_nerf_backward") \
+        + "_video"
+    check_field_backward(rows, bwd, {"step-0 pass": (narrow, step_pass)},
+                         gen, BF16_FIELD_GRAD_TOL if bf16 else 1e-4, paths,
+                         src + ("fused_mlp_tc_bwd.cu" if bf16 else
+                                "fused_mlp_tc32_dx.cu"), suffix="_video",
+                         float64_gate=True)
+    del step_pass
+    g = torch.randn((step_flat[0].shape[0], field.out_ch), generator=gen,
+                    device=dev)
+    if bf16:
+        with torch.no_grad():
+            slice_pack, slice_offsets = fused_mlp.pack_weights(narrow)
+        hold_bf16_backward(bwd, f"step-0 pass, its first {VIDEO_SLICE} "
+                           f"points", narrow, step_flat, g, slice_pack,
+                           slice_offsets, float64_gate=True)
+        del slice_pack
+    _video_end_to_end(tag, field, narrow, step_flat, code, g)
+    log(f"[{tag}] K6: {row_rates(rows, fwd)}; K7: {row_rates(rows, bwd)}")
+    del narrow, eval_flat, step_flat, g
+    torch.cuda.empty_cache()
+
+
+def video(rows, dev, tmp) -> tuple:
+    """Phase 17, the video mode: a Neural 3D Video scene written by
+    ``tools.scene_fixtures.write_n3dv_scene`` (``presets.VIDEO_SCENE``: 6
+    cameras, 4 frames, so keyframe ids 0-3) through MVSNeRF's file with
+    ``--train_video True --num_input 3`` at the loader's 960x640:
+    VIDEO_STEPS steps of ``python -m zest_tpu_torch.train``'s ``main`` at
+    precision 16 and at float32 (``_train_real``: VIDEO_STEPS x one
+    step-0 step's launches, the fold's included), the time codes' rows of
+    the frames trained moved in ``ckpts/last`` and no other, and no [n,
+    1087] input built on the card; ``train_loop.run_test`` on one test
+    frame from each checkpoint (one eval image's launches); then
+    ``video_kernels`` at both precisions. Returns ({path: launches},
+    {tag: seconds per step})."""
+    import dataclasses
+    import zest_tpu_torch.system as zsystem
+    from zest_tpu_torch import presets, train_loop
+    from zest_tpu_torch.checkpoint import restore_path
+    from zest_tpu_torch.config import config_parser
+    from zest_tpu_torch.kernels import fused_mlp
+    from zest_tpu_torch.system import ZestSystem, to_batch
+    from zest_tpu_torch.tools import scene_fixtures as sf
+    root = Path(tmp)
+    scene = Path("configs/lists/neural3Dvideo_test_all.txt").read_text().split()[0]
+    t0 = time.perf_counter()
+    sf.write_n3dv_scene(root / "n3dv", scene, **presets.VIDEO_SCENE)
+    log(f"[video] scene {scene} {presets.VIDEO_SCENE} written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    args = ["--config", MVSNERF_FILE, "--dataset_name", "neural3Dvideo",
+            "--datadir", str(root / "n3dv"), "--finetune_scene", scene,
+            "--train_video", "True", "--num_input", "3", "--save_dir",
+            str(root / "runs"), "--log_every", "1"]
+    train_ds = train_loop.build_datasets(config_parser(args), ("train",))[
+        "train"]
+    sample = train_ds[0]
+    wide = []
+
+    def spy(pts, code, _append=zsystem.append_code):
+        if pts.is_cuda:
+            wide.append(tuple(pts.shape))
+        return _append(pts, code)
+
+    launches, per_step = {}, {}
+    for precision in (16, 32):
+        tag = "video16" if precision == 16 else "video"
+        run = args + ["--expname", f"video_p{precision}", "--precision",
+                      str(precision), "--max_train_steps", str(VIDEO_STEPS)]
+        saved = zsystem.append_code, fused_mlp.append_code
+        zsystem.append_code = fused_mlp.append_code = spy
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            launches[f"train_{tag}"], wall, _ = _train_real(
+                f"video, precision {precision}", run, VIDEO_STEPS, sample)
+        finally:
+            zsystem.append_code, fused_mlp.append_code = saved
+        per_step[tag] = wall / VIDEO_STEPS
+        if wide:
+            raise AssertionError(f"[n, 1087] inputs built on the card: {wide}")
+        cfg = config_parser(run)
+        seed = max(cfg.seed_everything, 0)
+        order = np.random.default_rng(seed).permutation(len(train_ds))
+        trained = sorted({int(train_ds.key_frames[scene][train_ds.metas[i][2]])
+                          for i in order[:VIDEO_STEPS]})
+        last = root / "runs" / f"video_p{precision}" / "ckpts" / "last"
+        codes = restore_path(last, "cpu").params["time_codes"]
+        init = ZestSystem(cfg).init_params(
+            torch.Generator().manual_seed(seed))["time_codes"]
+        moved = [int(i) for i in torch.nonzero((codes != init).any(-1))]
+        log(f"[video] precision {precision}: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; time code "
+            f"rows trained {trained}, moved in ckpts/last {moved} of "
+            f"{codes.shape[0]}; no [n, {cfg.time_code_dim + 63}] tensor on the "
+            f"card")
+        if moved != trained:
+            raise AssertionError(f"time codes moved {moved}, trained {trained}")
+
+        cfg = config_parser(run + ["--ckpt", str(last)])
+        test_ds = train_loop.build_datasets(cfg, ("test",))["test"]
+        one = test_ds[0]
+        expected = expected_eval_launches(ZestSystem(cfg), to_batch(one, "cpu"))
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        out = train_loop.run_test(cfg, {"test": [one]}, quiet=True,
+                                  device=dev)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        got = read_counters()
+        _check(f"video test, precision {precision}", got, expected)
+        if not all(np.isfinite(v) for v in out.values()):
+            raise AssertionError(f"video test metrics {out}")
+        launches[f"eval_{tag}"] = got
+        log(f"[video] run_test on one frame (keyframe_id "
+            f"{int(one['keyframe_id'])}) from ckpts/last at precision "
+            f"{precision}: {test_s:.2f} s, {out}, launches {got}")
+
+        system = ZestSystem(cfg).to(dev)
+        system.load_state_dict({k: v.to(dev) for k, v in
+                                presets.seeded_params(system, SEED).items()})
+        batch = to_batch(one, dev)
+        _, H, W, _ = batch["images"].shape
+        video_kernels(rows, dev, dataclasses.replace(cfg, img_h=H, img_w=W),
+                      system, batch, tag)
+        del system, batch
+        torch.cuda.empty_cache()
+    return launches, per_step
+
+
+def options(rows, dev, tmp) -> tuple:
+    """Phase 17: the three model options no configuration file sets. v2
+    (``presets.FLAGSHIP_V2``: the flagship's fields additive and plain)
+    and the colour volume (``presets.FLAGSHIP_COLORVOL``) through
+    ``option_flagships``, the v2 paths without a K6 or K7 launch; the
+    colour volume's kernels (``colour_volume_kernels``); the video mode
+    (``video``). Returns ({path: launches}, {tag: (s/image, rays/s)},
+    {tag: seconds per video step})."""
+    from zest_tpu_torch import presets
+    t0 = time.perf_counter()
+    launches, summary = option_flagships("v2", presets.FLAGSHIP_V2,
+                                         presets.FLAGSHIP_SCENE, dev)
+    fused = [p for p, c in launches.items() if c["fused_nerf_forward"]
+             or c["fused_nerf_backward"] or c["recompute"]]
+    if fused:
+        raise AssertionError(f"a v2 path launched K6 or K7: {fused}")
+    colour_volume_kernels(rows, dev)
+    more, colour = option_flagships("colorvol", presets.FLAGSHIP_COLORVOL,
+                                    presets.FLAGSHIP_SCENE, dev)
+    launches.update(more)
+    summary.update(colour)
+    video_paths, per_step = video(rows, dev, tmp)
+    launches.update(video_paths)
+    log(f"[options] phase 17 in {time.perf_counter() - t0:.1f} s")
+    return launches, summary, per_step
 
 
 def main() -> int:
@@ -3048,6 +3605,8 @@ def main() -> int:
     step_ms = {32: 1e3 * n_rays / rays_s, 16: 1e3 * n_rays / rays_s16}
     with tempfile.TemporaryDirectory() as tmp:
         real_paths = real_data(rows, dev, tmp, step_ms, loop_sps)
+    with tempfile.TemporaryDirectory() as tmp:
+        option_paths, option_summary, video_step = options(rows, dev, tmp)
     log(f"[summary] flagship eval s/image: float32 {s_image:.3f}, precision "
         f"16 {s_image16:.3f}; train_rays_per_sec: float32 {rays_s:.1f}, "
         f"precision 16 {rays_s16:.1f}; path s/pose: float32 "
@@ -3065,12 +3624,18 @@ def main() -> int:
         f"{svs_summary['svs16'][0]:.1f}; seconds of a step's parts: " + "; ".join(
             f"{tag} " + ", ".join(f"{k} {v:.5f}" for k, v in parts.items())
             for tag, (_, parts) in svs_summary.items()))
-    for path, counts in {**new_paths, **svs_paths, **real_paths}.items():
+    log("[summary] the options' flagships (s/image, train_rays_per_sec): "
+        + "; ".join(f"{tag} {v[0]:.3f}, {v[1]:.1f}"
+                    for tag, v in option_summary.items())
+        + "; the video loop's s/step (first step included): "
+        + ", ".join(f"{tag} {v:.3f}" for tag, v in video_step.items()))
+    for path, counts in {**new_paths, **svs_paths, **real_paths,
+                         **option_paths}.items():
         log(f"[summary] launches, {path}: "
             + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
     results = rows.finish({"eval": eval_launches, "train": train_launches,
                            "eval16": eval16, "train16": train16, **new_paths,
-                           **svs_paths, **real_paths})
+                           **svs_paths, **real_paths, **option_paths})
     for r in results:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never launched on the main path")

@@ -13,9 +13,13 @@ volume, on the CPU.
   PNGs, and its training logs ``render_loss``.
 - A checkpoint of each preset's parameters and Adam state restores whole,
   and one preset's does not fit another's system.
-- Each option the port still refuses raises ``NotImplementedError`` naming
-  it, and every configuration file (89) builds its system, the SVS files'
-  GAN system with a seeded random LPIPS ``.npz``.
+- In each family, another precision raises ``NotImplementedError``
+  naming it; each of the three model options (``net_type="v2"``,
+  ``train_video``, ``use_color_volume``) builds zest_tpu's parameters
+  (names and shapes through ``convert``), or where zest_tpu cannot run it
+  (a v2 field without its volume: NSFF's) raises by name; and every
+  configuration file (89) builds its system, the SVS files' GAN system
+  with a seeded random LPIPS ``.npz``.
 """
 import csv
 from pathlib import Path
@@ -26,7 +30,7 @@ import torch
 
 from zest_tpu.data.synthetic import SyntheticDataset as JSyntheticDataset
 # _few_threads: its module-scoped autouse fixture applies here too
-from test_torch_ablation_mvsnerf import _few_threads
+from test_torch_ablation_mvsnerf import _few_threads, zest_tpu_shapes
 
 from zest_tpu_torch import (ZestConfig, presets, render_spiral, train,
                             train_loop)
@@ -145,16 +149,34 @@ def test_checkpoint_round_trip_of_each_preset(tmp_path, family):
 ])
 @pytest.mark.parametrize("family", ["mvsnerf", "nsff", "svs"])
 def test_each_option_still_refused_raises_by_name(change, name, family):
+    """Another precision is still refused by name. The three model
+    options, refused before they were ported, now build the parameters of
+    zest_tpu's system in the family, names and shapes; a v2 field without
+    its volume (NSFF's fields), which zest_tpu cannot run, raises by
+    name."""
     config = dict(presets.FAMILIES[family][0], **change)
-    with pytest.raises(NotImplementedError, match=name):
-        ZestSystem(ZestConfig(**config))
+    if "precision" in change:
+        with pytest.raises(NotImplementedError, match=name):
+            ZestSystem(ZestConfig(**config))
+        return
+    if family == "nsff" and "net_type" in change:
+        with pytest.raises(ValueError, match="net_type='v2'.*use_mvs=False"):
+            ZestSystem(ZestConfig(**config))
+        return
+    system = ZestSystem(ZestConfig(**config))
+    sample = JSyntheticDataset(**presets.SMALL_SCENE,
+                               use_mvs=config["use_mvs"],
+                               use_mvs_dy=config.get("use_mvs_dy", False))[
+        presets.TARGET_FRAME]
+    assert {k: tuple(v.shape) for k, v in system.state_dict().items()} == \
+        zest_tpu_shapes(config, sample)
+    assert ("time_codes" in system.state_dict()) == ("train_video" in change)
 
 
-def test_the_port_runs_69_of_the_89_configuration_files(tmp_path):
+def test_the_port_runs_all_89_configuration_files(tmp_path):
     """All 89 configuration files build the system the training loop
-    builds for them (at width 64: the checks do not read the width): the
-    20 SVS files (69 without them before the GAN branch was ported) their
-    GAN system, given a seeded random LPIPS ``.npz``."""
+    builds for them (at width 64: the checks do not read the width), the
+    20 SVS files their GAN system, given a seeded random LPIPS ``.npz``."""
     from zest_tpu_torch.config import config_parser
     from zest_tpu_torch.models.lpips import make_random_lpips_npz
     from zest_tpu_torch.system_gan import GanSystem

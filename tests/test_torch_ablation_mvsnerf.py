@@ -94,17 +94,34 @@ def jax_params_of(jsys, jbatch, tparams):
                               for a, n, leaf in zip(starts, sizes, leaves)])
 
 
+def zest_tpu_shapes(config, sample) -> dict:
+    """zest_tpu's ``init_params`` for ``config`` on a numpy sample, as the
+    port's state-dict names and shapes (``convert.from_jax_params`` on the
+    tree of ``jax.eval_shape``, which compiles nothing)."""
+    jsys = JZestSystem(JZestConfig(**config))
+    shapes = jax.eval_shape(jsys.init_params, jax.random.PRNGKey(0),
+                            {k: jnp.asarray(v) for k, v in sample.items()})
+    tree = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    return {k: tuple(v.shape) for k, v in from_jax_params(tree).items()}
+
+
 class Family:
     """One small preset in both packages: the sample, the weights (the
     port's ``presets.seeded_params``, the dynamic flow head scaled by 0.1),
-    the systems; each result computed once (``cache``)."""
+    the systems; each result computed once (``cache``). ``samples`` is
+    (zest_tpu's sample, the port's), the small synthetic scene's target
+    frame by default."""
 
-    def __init__(self, config, params=None):
+    def __init__(self, config, params=None, samples=None):
         self.config = config
         self.jcfg = JZestConfig(**config)
-        self.sample = JSyntheticDataset(
-            **presets.SMALL_SCENE, use_mvs=self.jcfg.use_mvs,
-            use_mvs_dy=self.jcfg.use_mvs_dy)[presets.TARGET_FRAME]
+        if samples is None:
+            samples = (JSyntheticDataset(
+                **presets.SMALL_SCENE, use_mvs=self.jcfg.use_mvs,
+                use_mvs_dy=self.jcfg.use_mvs_dy)[presets.TARGET_FRAME],
+                presets.scene_of(config, presets.SMALL_SCENE)[
+                    presets.TARGET_FRAME])
+        self.sample, self.psample = samples
         self.jbatch = {k: jnp.asarray(v) for k, v in self.sample.items()}
         self.jsys = JZestSystem(self.jcfg)
         self.system = ZestSystem(ZestConfig(**config))
@@ -117,8 +134,6 @@ class Family:
             params = jax_params_of(self.jsys, self.jbatch, tparams)
         self.params = params
         self.tparams = from_jax_params(params)
-        self.psample = presets.scene_of(config, presets.SMALL_SCENE)[
-            presets.TARGET_FRAME]
         self.batch = to_batch(self.psample, "cpu")
         self.jeval = self.jsys.make_eval_step()
         jopt = self.jsys.make_optimizer(presets.STEPS_PER_EPOCH)
@@ -190,7 +205,7 @@ class Family:
         jnew = self.jupdate(jgrads, self.params)
         H, W = self.batch["images"].shape[1:3]
         draws = jax_draws(self.jcfg, KEY, step, phase, H, W,
-                          int(self.sample["motion_count"]))
+                          int(self.sample.get("motion_count", 1)))
         tparams = self.tparams
         loss, logs, grads = self.system.loss_and_grads(tparams, self.batch,
                                                        draws, phase, step)

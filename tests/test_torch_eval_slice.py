@@ -26,6 +26,8 @@ from zest_tpu.config import ZestConfig as JZestConfig
 from zest_tpu.data.synthetic import SyntheticDataset as JSyntheticDataset
 from zest_tpu.system import ZestSystem as JZestSystem
 
+from test_torch_ablation_mvsnerf import zest_tpu_shapes
+
 from zest_tpu_torch import ZestConfig, presets
 from zest_tpu_torch.convert import from_jax_params
 from zest_tpu_torch.system import EVAL_KEYS, ZestSystem, to_batch
@@ -129,5 +131,16 @@ def test_init_params_covers_the_state_dict():
                                     dict(train_video=True),
                                     dict(precision=8)])
 def test_configs_outside_the_port_raise(change):
-    with pytest.raises(NotImplementedError):
-        ZestSystem(ZestConfig(**{**CFG, **change}))
+    """Another precision is outside the port and raises. The three model
+    options, outside it before they were ported, build the parameters of
+    zest_tpu's system for the small configuration: names and shapes
+    through ``convert``."""
+    config = {**CFG, **change}
+    if "precision" in change:
+        with pytest.raises(NotImplementedError):
+            ZestSystem(ZestConfig(**config))
+        return
+    sample = JSyntheticDataset(**presets.SMALL_SCENE)[presets.TARGET_FRAME]
+    system = ZestSystem(ZestConfig(**config))
+    assert {k: tuple(v.shape) for k, v in system.state_dict().items()} == \
+        zest_tpu_shapes(config, sample)

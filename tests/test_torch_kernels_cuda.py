@@ -1267,3 +1267,108 @@ def test_float32_input_grads_are_float32_class(dev, width, static):
     for name, a, b, c in zip(fused_mlp._INPUTS, got, twin, exact):
         own = _norm_err(b, c)
         assert _norm_err(a, c) <= max(8 * own, 2.0 ** -20), (name, own)
+
+
+@pytest.mark.parametrize("channels", [12, 20, 40, 48])
+def test_trilinear_kernel_bitwise_on_a_colour_volume(dev, channels):
+    """K3 on the colour volume of ``use_color_volume`` (8 + 4V channels,
+    C / 4 float4 per corner): each channel's arithmetic is the 8-channel
+    kernel's, so the output is F.grid_sample's bit for bit, on rays and on
+    [n, 3] points."""
+    g = _gen(dev, 60)
+    vol = torch.randn((16, 12, 20, channels), generator=g, device=dev)
+    for shape in ((37, 29), (12345,)):
+        ndc = torch.rand((*shape, 3), generator=g, device=dev) * 1.4 - 0.2
+        before = sample_volume.launches
+        out = sample_volume(vol, ndc)
+        assert sample_volume.launches == before + 1
+        torch.cuda.synchronize()
+        assert out.shape == (*shape, channels)
+        assert torch.equal(out, sample_volume_plain(vol, ndc))
+
+
+@pytest.mark.parametrize("channels", [20, 40])
+def test_volume_backward_kernel_on_the_lead_channels(dev, channels):
+    """K4 on the colour volume's lookup: the gradient of its first 8
+    channels (``lead``) against autograd through the whole volume, 1e-5 of
+    its largest; the colour channels take none."""
+    g = _gen(dev, 61)
+    lead = torch.randn((16, 12, 20, 8), generator=g, device=dev)
+    colors = torch.rand((16, 12, 20, channels - 8), generator=g, device=dev)
+    ndc = torch.rand((300, 7, 3), generator=g, device=dev) * 1.4 - 0.2
+    cot = torch.randn((300, 7, channels), generator=g, device=dev)
+    lead_k = lead.clone().requires_grad_(True)
+    before = trilinear.volume_grad.launches
+    (sample_volume(torch.cat([lead, colors], -1), ndc, lead_k) * cot).sum() \
+        .backward()
+    assert trilinear.volume_grad.launches == before + 1
+    whole = torch.cat([lead, colors], -1).requires_grad_(True)
+    (sample_volume_plain(whole, ndc) * cot).sum().backward()
+    ref = whole.grad[..., :8]
+    assert _max_err(lead_k.grad, ref) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fold_kernels_match_twins(dev, bf16):
+    """The time code's fold (b + s @ W_code^T over 2 layers of 256 rows and
+    1,024 code channels) and its backward against their twins: float32
+    sums in another order, 1e-5 of each output's largest; d_wc is one
+    product per element, equal."""
+    from zest_tpu_torch.kernels import time_codes
+    g = _gen(dev, 62)
+    code = torch.rand(1024, generator=g, device=dev)
+    wc = torch.randn((2, 256, 1024), generator=g, device=dev) / 32
+    b = torch.randn((2, 256), generator=g, device=dev)
+    d_c = torch.randn((2, 256), generator=g, device=dev)
+    before = time_codes.fold_codes.launches
+    got = time_codes.fold_codes(code, wc, b, bf16)
+    assert time_codes.fold_codes.launches == before + 1
+    ref = time_codes.fold_codes_plain(code, wc, b, bf16)
+    assert _max_err(got, ref) <= 1e-5 * float(ref.abs().max())
+    d_code, d_wc = time_codes.fold_codes_grad(code, wc, d_c, bf16)
+    r_code, r_wc = time_codes.fold_codes_grad_plain(code, wc, d_c, bf16)
+    assert _max_err(d_code, r_code) <= 1e-5 * float(r_code.abs().max())
+    assert torch.equal(d_wc, r_wc)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_video_field_runs_the_fold_and_the_narrow_kernels(dev, bf16):
+    """A field with a time code of 1,024 channels on the card: K6 on the
+    folded pack (63 point channels) equals K6 on ``folded_field``, the same
+    operands, bit for bit, and is within the field kernels' tolerance of
+    the twin on the concatenated [n, 1087] input; through autograd the
+    fold's backward runs once and every input, the code and every leaf of
+    the wide field are within 1e-4 (bf16-operand mode: 2^-6) of their
+    largest of the twin's autograd."""
+    from zest_tpu_torch.kernels import time_codes
+    from zest_tpu_torch.models.nerf import append_code
+    torch.manual_seed(63)
+    field = NeRFField(8, 64, 63, 27, 20, sceneflow=False, bf16=bf16,
+                      code_dim=1024).to(dev)
+    g = _gen(dev, 64)
+    pts, feats, views = (torch.randn((300, c), generator=g, device=dev)
+                         for c in (63, 20, 27))
+    code = torch.rand(1024, generator=g, device=dev)
+    cot = torch.randn((300, 4), generator=g, device=dev)
+    with torch.no_grad():
+        out = fused_nerf_forward(field, pts, feats, views, code)
+        narrow = fused_nerf_forward(fused_mlp.folded_field(field, code), pts,
+                                    feats, views)
+        twin = field(append_code(pts, code), feats, views)
+    torch.cuda.synchronize()
+    assert torch.equal(out, narrow)
+    tol = 1e-3 if bf16 else 1e-4
+    assert _max_err(out, twin) <= tol * max(1.0, float(twin.abs().max()))
+    ins = [t.clone().requires_grad_(True) for t in (pts, feats, views, code)]
+    before = time_codes.fold_codes_grad.launches
+    (fused_nerf_forward(field, *ins) * cot).sum().backward()
+    assert time_codes.fold_codes_grad.launches == before + 1
+    got = [t.grad for t in ins] + [p.grad for p in field.parameters()]
+    field.zero_grad()
+    ref_ins = [t.clone().requires_grad_(True) for t in (pts, feats, views, code)]
+    (field(append_code(ref_ins[0], ref_ins[3]), *ref_ins[1:3]) * cot).sum() \
+        .backward()
+    ref = [t.grad for t in ref_ins] + [p.grad for p in field.parameters()]
+    rel = 2.0 ** -6 if bf16 else 1e-4
+    for a, b in zip(got, ref):
+        assert _max_err(a, b) <= rel * float(b.abs().max())

@@ -6,8 +6,10 @@ import pytest
 import torch
 
 from zest_tpu_torch.kernels import trilinear
-from zest_tpu_torch.tools import (probe_trilinear, probe_wgrad, profile_eval,
-                                  profile_train, quality_gate)
+from zest_tpu_torch.kernels import fused_mlp
+from zest_tpu_torch.models.nerf import NeRFField
+from zest_tpu_torch.tools import (probe_bf16_sums, probe_trilinear, probe_wgrad,
+                                  profile_eval, profile_train, quality_gate)
 
 
 @pytest.mark.parametrize("intervals,busy", [
@@ -100,6 +102,85 @@ def test_probe_wgrad_refuses_without_cuda(monkeypatch):
 def test_probe_trilinear_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert probe_trilinear.main() == 2
+
+
+class _Events:
+    """A stand-in for ``torch.profiler.profile`` that records the given
+    device events, each (kernel name, microseconds)."""
+
+    recorded = []
+
+    def __init__(self, **_):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *_):
+        return False
+
+    def events(self):
+        from types import SimpleNamespace
+        return [SimpleNamespace(name=n, device_type=probe_trilinear.DeviceType
+                                .CUDA, time_range=SimpleNamespace(
+                                    elapsed_us=lambda us=us: us))
+                for n, us in _Events.recorded]
+
+
+@pytest.mark.parametrize("events,ms,lost", [
+    # two launches of b per call, 4 of its 100 events missed; copies and
+    # spin kernels left out
+    ([("a", 10.0)] * 50 + [("b", 2.0)] * 96 + [("Memcpy HtoD", 1.0)] * 7
+     + [("spin_kernel", 5.0)] * 16, 0.014, {"b": 4}),
+    ([("a", 10.0)] * 49 + [("a", 1000.0)], 0.010, {}),   # the median
+    ([("a", 10.0)] * 30, None, None),                     # too many missed
+])
+def test_device_ms_counts_each_kernel_and_names_missed_events(
+        monkeypatch, events, ms, lost):
+    monkeypatch.setattr(probe_trilinear, "profile", _Events)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda _: None)
+    monkeypatch.setattr(_Events, "recorded", events)
+    if ms is None:
+        with pytest.raises(RuntimeError, match="a 30"):
+            probe_trilinear.device_ms(lambda: None)
+        return
+    assert probe_trilinear.device_ms(lambda: None) == pytest.approx(ms)
+    assert probe_trilinear.device_ms.lost == lost
+
+
+def test_probe_bf16_sums_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe_bf16_sums.main() == 2
+    assert probe_bf16_sums.main(["--samples", "2"]) == 2
+
+
+def test_probe_bf16_sums_reads_the_twin_as_its_own_sums():
+    """The probe's readings, given the twin's forward values where K7's
+    would be: no bf16 rounding or ReLU mask differs between the two, each
+    trunk layer that reads h alone has K7's sum error equal to the twin's
+    (the skip layer's successor, which reads [pts, h], is left out), and a
+    gradient is at distance 0 from itself."""
+    torch.manual_seed(0)
+    field = NeRFField(4, 32, 6, 5, 8, skips=(1,), bf16=True,
+                      sceneflow=False)
+    wide = probe_bf16_sums.float64_twin(field)
+    gen = torch.Generator().manual_seed(1)
+    flat = [torch.randn((64, c), generator=gen) for c in (6, 8, 5)]
+    g = torch.randn((64, field.out_ch), generator=gen)
+    fwd = fused_mlp.forward_values_plain(field, *flat)
+    fwd64 = fused_mlp.forward_values_plain(wide, *(t.double() for t in flat))
+    flips = probe_bf16_sums.flips(field, fwd, fwd, fwd64)
+    assert flips["K7"] == flips["twin"]
+    sums = probe_bf16_sums.sums(field, fwd)
+    assert sorted(sums) == ["z1", "z3"]
+    for layer in sums.values():
+        assert layer["K7"] == layer["twin"] < 1e-6
+    _, offsets = fused_mlp.pack_weights(field)
+    grads = fused_mlp.fused_nerf_backward_plain(field, *flat, g)
+    dist = probe_bf16_sums.distances(field, offsets, grads, grads)
+    linears = sum(isinstance(m, torch.nn.Linear) for m in field.modules())
+    assert len(dist) == 3 + 2 * linears and set(dist.values()) == {0.0}
 
 
 def _ray_points(rays, samples, dims, jitter, seed):

@@ -45,7 +45,10 @@ from zest_tpu.config import ZestConfig as JZestConfig
 from zest_tpu.data.synthetic import SyntheticDataset as JSyntheticDataset
 from zest_tpu.system import ZestSystem as JZestSystem
 
+from test_torch_ablation_mvsnerf import zest_tpu_shapes
+
 from zest_tpu_torch import ZestConfig, presets, sampling, train_loop
+from zest_tpu_torch.checkpoint import restore_path
 from zest_tpu_torch.convert import from_jax_params
 from zest_tpu_torch.data.pipeline import epoch_order, prefetch_to_device
 from zest_tpu_torch.data.synthetic import SyntheticDataset
@@ -259,14 +262,36 @@ def test_run_training_writes_metrics_with_validation(tmp_path):
     (dict(dataset_name="synthetic", net_type="v2"), "net_type='v2'"),
 ])
 def test_run_training_refuses_what_it_does_not_port(tmp_path, change, name):
-    """What the system does not port is refused, also when the loop builds
-    its datasets from the config (``datasets=None``)."""
-    cfg = ZestConfig(**dict(presets.SMALL_TRAIN, save_dir=str(tmp_path),
-                            expname="refused", **change))
+    """What the system does not port (another precision) is refused, also
+    when the loop builds its datasets from the config (``datasets=None``);
+    so is ``train_video`` on a scene without ``keyframe_id`` (the synthetic
+    one), by name before the first step, where zest_tpu's step fails on
+    the missing key. The two other model options, refused before they were
+    ported, train a step here, and the checkpoint holds zest_tpu's
+    parameter names and shapes."""
+    config = dict(presets.SMALL_TRAIN, save_dir=str(tmp_path),
+                  expname="refused", **change)
+    cfg = ZestConfig(**config)
     datasets = None if "dataset_name" in change else {
         "train": SyntheticDataset(**presets.SMALL_SCENE)}
-    with pytest.raises(NotImplementedError, match=name):
-        train_loop.run_training(cfg, datasets, max_steps=1, device="cpu")
+    if "precision" in change:
+        with pytest.raises(NotImplementedError, match=name):
+            train_loop.run_training(cfg, datasets, max_steps=1, device="cpu")
+        return
+    if "train_video" in change:
+        with pytest.raises(ValueError, match="train_video.*keyframe_id"):
+            train_loop.run_training(cfg, datasets, max_steps=1, device="cpu")
+        assert not (tmp_path / "refused" / "ckpts" / "last").exists()
+        return
+    # one step, without the validation pass a built val split would add
+    state, _ = train_loop.run_training(
+        cfg, {"train": SyntheticDataset(**presets.SMALL_SCENE)}, max_steps=1,
+        device="cpu", quiet=True)
+    assert state.step == 1
+    sample = JSyntheticDataset(**presets.SMALL_SCENE)[presets.TARGET_FRAME]
+    saved = restore_path(tmp_path / "refused" / "ckpts" / "last").params
+    assert {k: tuple(v.shape) for k, v in saved.items()} == \
+        zest_tpu_shapes(config, sample)
 
 
 def test_validate_refuses_lpips(tmp_path):

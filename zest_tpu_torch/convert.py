@@ -73,8 +73,10 @@ def from_jax_params(params) -> dict:
     """``zest_tpu.system.ZestSystem.init_params`` tree (arrays of any kind that
     numpy reads) → state dict of ``zest_tpu_torch.system.ZestSystem``.
 
-    Converts whichever of the four top-level entries the tree holds, so a
-    single field or encoder converts on its own."""
+    Converts whichever of the top-level entries the tree holds (the two
+    fields, the two encoders, ``train_video``'s ``time_codes``, which keep
+    their [40, time_code_dim] layout), so a single field or encoder
+    converts on its own."""
     out = {}
     for field in ("nerf_static", "nerf_dynamic"):
         if field in params:
@@ -82,6 +84,8 @@ def from_jax_params(params) -> dict:
     for enc in ("enc_static", "enc_dy"):
         if enc in params:
             _encoder(params[enc], enc, out)
+    if "time_codes" in params:
+        out["time_codes"] = np.asarray(params["time_codes"])
     return _tensors(out)
 
 

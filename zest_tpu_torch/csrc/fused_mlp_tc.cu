@@ -16,7 +16,8 @@
 //   hv  = relu([h @ Wf + bf, views] @ Wv + bv)      (width / 2)
 //   rgb = hv @ Wr + br
 // The conditioning, trunk, feature and views products take bf16-rounded
-// operands with float32 sums (mma.sync.m16n8k16 bf16 -> f32); biases, cond,
+// operands with float32 sums (mma.sync.m16n8k16 bf16 -> f32, each k16 step
+// summed from zero and added by FADD: mma_bf16_step); biases, cond,
 // the product with cond, h_last as the heads read it and hv stay float32,
 // and the heads (alpha, blend / flow / probability, rgb: ~2.7 K
 // multiply-adds per point against ~603 K in the products) run on the CUDA
@@ -53,10 +54,11 @@
 //
 // What bounds it on an H100: the products are 5.31 TFLOP of bf16 operands
 // per flagship eval chunk (both fields, 2,097,152 points each), 5.37 ms at
-// the 989 TFLOP/s bf16 peak; this kernel takes ~32 ms (~157 TFLOP/s; PERF.md
-// §6). Measured on the card, not the limit: the L2 weight stream (1.2 MB
-// per field per 64 points, ~39 GB per chunk; a fourth ring slot changed
-// nothing), the input loads at a block's start and the barrier before each
+// the 989 TFLOP/s bf16 peak; this kernel took ~32 ms (~157 TFLOP/s; PERF.md
+// §6) before its k16 steps were summed by FADD (mma_bf16_step), which
+// costs ~18 % (and 20 bytes of spills at width 256). Measured on the card,
+// not the limit: the L2 weight stream (1.2 MB per field per 64 points,
+// ~39 GB per chunk; a fourth ring slot changed nothing), the input loads at a block's start and the barrier before each
 // epilogue (both removed in trials, no change). What is left is the
 // mma.sync loop itself: two warps per scheduler (one block of 8 warps per
 // SM, by registers and ~180 KB of shared memory) and 24 KB of ldmatrix

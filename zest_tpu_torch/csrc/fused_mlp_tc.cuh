@@ -428,7 +428,23 @@ __device__ __forceinline__ void mma_3xtf32_step(float (&acc)[2][NT][4],
   }
 }
 
-// bf16: one mma m16n8k16 per tile
+// d += a * b as mma_bf16, but the k16 step's 16 products summed from zero
+// and then added into d by FADD, which rounds to nearest. Chained through
+// its C operand over K, the mma's float32 sum drops the low bits of every
+// step toward zero (as it does for TF32, mma_3xtf32_step): over a K of 256
+// that doubled the sums' distance from float64, and with it the bf16
+// activations rounded the other way, against the bf16 twin's cuBLAS sums
+// (PERF.md §6).
+__device__ __forceinline__ void mma_bf16_step(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(t, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// bf16: one mma m16n8k16 per tile (mma_bf16_step)
 template <int NT>
 __device__ __forceinline__ void mma_bf16_frags(float (&acc)[2][NT][4],
                                                const Frags<NT>& f) {
@@ -436,13 +452,13 @@ __device__ __forceinline__ void mma_bf16_frags(float (&acc)[2][NT][4],
   for (int np = 0; np < NT / 2; ++np)
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
-      mma_bf16(acc[mt][2 * np], f.a[mt], f.b[np][0], f.b[np][1]);
-      mma_bf16(acc[mt][2 * np + 1], f.a[mt], f.b[np][2], f.b[np][3]);
+      mma_bf16_step(acc[mt][2 * np], f.a[mt], f.b[np][0], f.b[np][1]);
+      mma_bf16_step(acc[mt][2 * np + 1], f.a[mt], f.b[np][2], f.b[np][3]);
     }
   if constexpr (NT % 2 == 1) {
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
-      mma_bf16(acc[mt][NT - 1], f.a[mt], f.b[NT / 2][0], f.b[NT / 2][1]);
+      mma_bf16_step(acc[mt][NT - 1], f.a[mt], f.b[NT / 2][0], f.b[NT / 2][1]);
   }
 }
 

@@ -550,8 +550,8 @@ wgrad_tc_kernel(WJobs jobs, float* d_pack, long long K, long long split) {
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
-          mma_bf16(acc[i][2 * p], a[i], b[p][0], b[p][1]);
-          mma_bf16(acc[i][2 * p + 1], a[i], b[p][2], b[p][3]);
+          mma_bf16_step(acc[i][2 * p], a[i], b[p][0], b[p][1]);
+          mma_bf16_step(acc[i][2 * p + 1], a[i], b[p][2], b[p][3]);
         }
     }
   }

@@ -1,13 +1,17 @@
 // Trilinear encoding-volume lookup at ray points: forward (K3), and its two
 // gradients (K4 d/d volume, K5 d/d coordinates) further down.
 //
-// Semantics: vol [D, Hv, Wv, 8] channels-last, ndc [R, S, 3] (R rays of S
-// samples) as (x, y, z) in [0, 1]; out [R, S, 8]. Equal to
+// Semantics: vol [D, Hv, Wv, C] channels-last, ndc [R, S, 3] (R rays of S
+// samples) as (x, y, z) in [0, 1]; out [R, S, C]. Equal to
 // F.grid_sample(vol, ndc*2-1) with zeros padding and align_corners=True:
 // every kernel forms ndc*2-1 and unnormalizes it the way PyTorch does
-// (taps_of), so both see the same coordinate. Each corner is 8 channels = 32
-// contiguous bytes, read or added as two float4.
+// (taps_of), so both see the same coordinate. C is 8 (the encoding volume:
+// a corner is 32 contiguous bytes, read or added as two float4) for all
+// three; K3 also reads a volume with the source views' colours appended
+// (use_color_volume: C = 8 + 4V, C / 4 float4 per corner), and K4 then
+// takes the gradient of its first 8 channels.
 #include <algorithm>
+#include <utility>
 
 #include "common.cuh"
 
@@ -114,6 +118,53 @@ trilinear_sample_kernel(const float4* __restrict__ vol,
   out[2 * i + 1] = b;
 }
 
+// K3 on the colour volume (use_color_volume: C = 8 + 4V channels, Q = C / 4
+// float4 per corner; the same lookup, zest_tpu's _fwd_pallas takes any C).
+//
+// Why the layout: with a thread per point, as above, its Q output stores
+// land 16 Q bytes apart across a warp's lanes, and at Q = 10 that took
+// 0.393 ms per flagship eval chunk against a 0.115 ms bound. Here a thread
+// owns one float4 of one point (point t / Q, quad t % Q): a point's Q
+// threads are neighbouring lanes, so each corner load is one contiguous
+// 16 Q-byte run of the cell's row and each store instruction writes 512
+// contiguous bytes; every thread repeats its point's taps_of (a few
+// flops): 0.300 ms (device time, PERF.md §6). A warp then holds ~3
+// consecutive samples of one ray, on 3 z planes, which share no corner;
+// blocks of 32 neighbouring rays at 2 samples, the rays fastest, so that a
+// warp's points share corners as the 8-channel kernel's lanes do, measured
+// slower (0.323 ms): their stores land in 160-byte runs 20 KB apart. The
+// per-channel arithmetic and the corner order are the 8-channel kernel's,
+// so the output is F.grid_sample's bit for bit.
+//
+// What bounds it on an H100: its output, 160 bytes per point at V = 8:
+// 335.5 MB per eval chunk, 0.100 ms at 3.35 TB/s; then the corner loads,
+// 1,280 bytes per point from L2.
+constexpr int kMaxQuads = 12;                    // C up to 8 + 4 * 10
+
+template <int Q>
+__global__ void __launch_bounds__(kThreads)
+trilinear_sample_wide_kernel(const float4* __restrict__ vol,
+                             const float* __restrict__ ndc,
+                             float4* __restrict__ out, long long n, int D,
+                             int Hv, int Wv) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= n * Q) return;
+  const long long i = t / Q;
+  const int q = static_cast<int>(t - i * Q);
+  const Taps p = taps_of(ndc[3 * i], ndc[3 * i + 1], ndc[3 * i + 2], D, Hv, Wv);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
+    const int zi = p.z0 + dz, yi = p.y0 + dy, xi = p.x0 + dx;
+    if (!inside(zi, yi, xi, D, Hv, Wv)) continue;
+    const float wgt = corner_weight(dz, dy, dx, p.fx, p.fy, p.fz);
+    const float4 c = __ldg(vol + cell_of(zi, yi, xi, Hv, Wv) * Q + q);
+    acc.x += c.x * wgt; acc.y += c.y * wgt; acc.z += c.z * wgt; acc.w += c.w * wgt;
+  }
+  out[t] = acc;
+}
+
 // K4: d_vol += g * (trilinear weight) at each in-range corner.
 //
 // Replaces zest_tpu/kernels/trilinear.py:_bwd_pallas (pallas_call at :303),
@@ -143,11 +194,17 @@ trilinear_sample_kernel(const float4* __restrict__ vol,
 // one plane, or two planes apart, as the jitter puts them) are left to the
 // atomics. The caller's zero fill of d_vol (86.5 MB at the flagship) is
 // part of the work.
+//
+// On the colour volume (use_color_volume) g has gq = C / 4 float4 per
+// point and only its first two (the encoding volume's 8 channels) carry a
+// gradient to a parameter: the colours are made from the input images. K4
+// reads those two and writes the 8-channel d_vol as above, so its atomics
+// stay 86.5 MB at the flagship where all 40 channels would be 432.5 MB.
 __global__ void __launch_bounds__(kThreads)
 trilinear_grad_volume_kernel(const float4* __restrict__ g,
                              const float* __restrict__ ndc,
-                             float4* __restrict__ d_vol, int n, int D, int Hv,
-                             int Wv) {
+                             float4* __restrict__ d_vol, int n, int gq, int D,
+                             int Hv, int Wv) {
   constexpr unsigned kAll = 0xffffffffu;
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const int lane = threadIdx.x & 31;
@@ -156,8 +213,8 @@ trilinear_grad_volume_kernel(const float4* __restrict__ g,
   float4 g0 = make_float4(0.f, 0.f, 0.f, 0.f), g1 = g0;
   if (valid) {
     t = taps_of(ndc[3 * i], ndc[3 * i + 1], ndc[3 * i + 2], D, Hv, Wv);
-    g0 = __ldg(g + 2 * i);
-    g1 = __ldg(g + 2 * i + 1);
+    g0 = __ldg(g + gq * i);
+    g1 = __ldg(g + gq * i + 1);
   }
   // the neighbours' floor cells: is the previous (next) lane's point one z
   // plane below (above) this one, within one voxel in y and x?
@@ -307,20 +364,39 @@ trilinear_grad_coords_kernel(const float4* __restrict__ vol,
 
 }  // namespace
 
-// vol [D, Hv, Wv, 8], ndc [R, S, 3] -> out [R, S, 8]; vol and out 16-byte
-// aligned. Rays of one sample are taken as rows of 2 consecutive points
-// (any grouping of the points gives the same output).
+template <int... Qs>
+void launch_wide(int quads, std::integer_sequence<int, Qs...>,
+                 cudaStream_t stream, const float* vol, const float* ndc,
+                 float* out, long long n, int D, int Hv, int Wv) {
+  ((quads == Qs + 3
+        ? trilinear_sample_wide_kernel<Qs + 3>
+              <<<zt::blocks_for(n * (Qs + 3), kThreads), kThreads, 0,
+                 stream>>>(reinterpret_cast<const float4*>(vol), ndc,
+                           reinterpret_cast<float4*>(out), n, D, Hv, Wv)
+        : void()),
+   ...);
+}
+
+// vol [D, Hv, Wv, C], ndc [R, S, 3] -> out [R, S, C]; C a multiple of 4
+// from 8 to 4 * kMaxQuads; vol and out 16-byte aligned. Rays of one sample
+// are taken as rows of 2 consecutive points (any grouping of the points
+// gives the same output).
 ZT_API int zt_trilinear_sample(const float* vol, const float* ndc, float* out,
-                               int R, int S, int D, int Hv, int Wv,
+                               int R, int S, int D, int Hv, int Wv, int C,
                                void* stream) {
-  if (R < 0 || S < 0) return cudaErrorInvalidValue;
+  if (R < 0 || S < 0 || C % 4 || C < 8 || C > 4 * kMaxQuads)
+    return cudaErrorInvalidValue;
   const long long n = static_cast<long long>(R) * S;
   if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (S < kWarpSamples || S > 65535LL * kBlockSamples) {
     S = kWarpSamples;
     R = static_cast<int>((n + S - 1) / S);
   }
-  if (n > 0) {
+  if (n > 0 && C > 8) {
+    launch_wide(C / 4, std::make_integer_sequence<int, kMaxQuads - 2>(),
+                static_cast<cudaStream_t>(stream), vol, ndc, out, n, D, Hv,
+                Wv);
+  } else if (n > 0) {
     const dim3 grid(zt::blocks_for(R, kBlockRays), zt::blocks_for(S, kBlockSamples));
     trilinear_sample_kernel<<<grid, kSampleThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
@@ -330,14 +406,17 @@ ZT_API int zt_trilinear_sample(const float* vol, const float* ndc, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// g [n, gC] (its first 8 channels taken; gC a multiple of 4, >= 8), ndc
+// [n, 3] -> d_vol [D, Hv, Wv, 8] added to
 ZT_API int zt_trilinear_grad_volume(const float* g, const float* ndc,
-                                    float* d_vol, int n, int D, int Hv, int Wv,
-                                    void* stream) {
+                                    float* d_vol, int n, int gC, int D, int Hv,
+                                    int Wv, void* stream) {
+  if (gC % 4 || gC < 8) return cudaErrorInvalidValue;
   if (n > 0) {
     trilinear_grad_volume_kernel<<<zt::blocks_for(n, kThreads), kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(g), ndc,
-        reinterpret_cast<float4*>(d_vol), n, D, Hv, Wv);
+        reinterpret_cast<float4*>(d_vol), n, gC / 4, D, Hv, Wv);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,6 +49,24 @@ def world_to_ndc(points, w2c_ref, intrinsic_ref, inv_scale, near, far,
     return torch.cat([xy, z], -1)
 
 
+def ndc_to_world(ndc, w2c_ref, intrinsic_ref, inv_scale, near, far,
+                 pad: int = 0):
+    """Inverse of ``world_to_ndc`` (its pad correction undone first): ndc
+    [..., 3] in [0, 1] → world points [..., 3]. ``w2c_ref`` None skips the
+    camera transform."""
+    xy = ndc[..., :2]
+    if pad > 0:
+        wh_feat = (inv_scale + 1.0) / 4.0
+        scale = wh_feat / (wh_feat + pad * 2)
+        xy = (xy - pad / (wh_feat + pad * 2)) / scale
+    z_cam = ndc[..., 2:3] * (far - near) + near
+    homog = torch.cat([xy * inv_scale, torch.ones_like(z_cam)], -1) * z_cam
+    points = homog @ torch.linalg.inv(intrinsic_ref).T
+    if w2c_ref is not None:
+        points = (points - w2c_ref[:3, 3]) @ w2c_ref[:3, :3]
+    return points
+
+
 def ndc_to_euclidean(xyz_ndc, H: float, W: float, f: float):
     """Forward-facing NDC → Euclidean: z_e = 2 / (clamp(z, -1, 0.99) - 1),
     x_e = -x * z_e * W / (2f), y_e = -y * z_e * H / (2f)."""

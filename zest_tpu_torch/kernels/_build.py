@@ -31,8 +31,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # src, grid, out, D, h, w, C, P, stream
     "zt_plane_sweep_warp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # vol, ndc, out, R rays, S samples, D, Hv, Wv, stream
-    "zt_trilinear_sample": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # vol, ndc, out, R rays, S samples, D, Hv, Wv, C, stream
+    "zt_trilinear_sample": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # images, xy, out, V, N, H, W, stream
     "zt_color_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     # wpack, offsets(host int*), wt, P, F, V, width, depth, skip, stream
@@ -98,8 +98,8 @@ SIGNATURES = {
                                          _P],
     # width, P, F, V -> bytes of dynamic shared memory per block of pass 1
     "zt_fused_nerf_backward_tc_smem": [_I, _I, _I, _I],
-    # g, ndc, d_vol, n_points, D, Hv, Wv, stream
-    "zt_trilinear_grad_volume": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # g, ndc, d_vol, n_points, g channels, D, Hv, Wv, stream
+    "zt_trilinear_grad_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # vol, ndc, g, d_ndc, n_points, D, Hv, Wv, stream
     "zt_trilinear_grad_coords": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # g, grid, d_src, D, h, w, C, Hp, Wp, stream
@@ -108,6 +108,10 @@ SIGNATURES = {
     "zt_row_gather": [_P, _P, _P, _L, _L, _I, _P],
     # g, idx, acc, n, m, cw, elem_bytes, stream
     "zt_row_scatter_add": [_P, _P, _P, _L, _L, _I, _I, _P],
+    # s, wc, b, c, rows, T, bf16, stream
+    "zt_fold_codes": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # s, wc, d_c, d_s, d_wc, rows, T, bf16, stream
+    "zt_fold_codes_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

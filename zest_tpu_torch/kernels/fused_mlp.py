@@ -24,7 +24,12 @@ reaches each Linear. The twin is the port's ``models.nerf.NeRFField`` itself
 and its autograd. The kernels take a field conditioned on a volume
 (``use_mvs``) with any of its head geometries, ``NeRFField.n_extra``: no
 extra head (4 outputs, MVSNeRF's static field), the blend (5) or the flow
-and probabilities (12); every entry gets ``n_extra``.
+and probabilities (12); every entry gets ``n_extra``. A field with a
+time code (``train_video``: ``NeRFField.code_dim``, its first and skip
+layers that much wider) runs them on ``in_ch_pts`` point channels: the
+pack drops the code's columns and carries the code folded into those
+layers' biases (``pack_weights(field, code)``, ``kernels.time_codes``), so
+K7's bias gradient of those layers is the fold's input gradient.
 
 At float32 K6 splits every operand of the conditioning, trunk, feature and
 views products into two TF32 values (``zest_tpu``'s ``approx=False``, exact
@@ -52,7 +57,8 @@ import math
 import torch
 
 from . import _build
-from ..models.nerf import round_bf16
+from .time_codes import fold_codes
+from ..models.nerf import append_code, round_bf16
 
 WIDTHS = (64, 128, 256)          # kernel instantiations
 MAX_LAYERS = 16                  # kMaxLayers in csrc/fused_mlp.cuh
@@ -94,11 +100,67 @@ def _pack(parts_by_slot):
     return torch.cat(parts).contiguous(), offsets
 
 
-def pack_weights(field):
+def code_layers(field):
+    """The trunk layers that read the points input, and so the time code:
+    the first and the one after each skip."""
+    return [i for i in range(len(field.pts_linears))
+            if i == 0 or i - 1 in field.skips]
+
+
+def _narrow(field, lin):
+    """lin's weight without the time code's columns [P, P + code_dim)."""
+    P, T = field.in_ch_pts, field.code_dim
+    return torch.cat([lin.weight[:, :P], lin.weight[:, P + T:]], 1)
+
+
+def folded_biases(field, code):
+    """The biases of ``code_layers`` with the time code s [code_dim] folded
+    in, b + s @ W_code^T ([len(code_layers), W], ``time_codes.fold_codes``:
+    the fold kernel on CUDA tensors), differentiable in s and the
+    weights."""
+    P, T = field.in_ch_pts, field.code_dim
+    lins = [field.pts_linears[i] for i in code_layers(field)]
+    return fold_codes(code, torch.stack([lin.weight[:, P:P + T]
+                                         for lin in lins]),
+                      torch.stack([lin.bias for lin in lins]), field.bf16)
+
+
+def pack_weights(field, code=None):
     """All of a field's Linear layers as one [in][out]-major float buffer and
-    the offsets table the kernels read. Differentiable in the weights.
+    the offsets table the kernels read. Differentiable in the weights. A
+    field with a time code (``code_dim``) takes its code s: the layers that
+    read it are packed without its columns and with the folded biases
+    (``folded_biases``), so the kernels see ``in_ch_pts`` point channels.
     Returns (pack, offsets)."""
-    return _pack([(slot, (lin.weight.T, lin.bias)) for slot, lin in _slots(field)])
+    parts = [(slot, (lin.weight.T, lin.bias)) for slot, lin in _slots(field)]
+    if field.code_dim:
+        if code is None:
+            raise ValueError(f"a field with a time code of {field.code_dim} "
+                             f"channels needs its code")
+        for c, i in zip(folded_biases(field, code), code_layers(field)):
+            parts[1 + i] = (_LAYER0 + 2 * i,
+                            (_narrow(field, field.pts_linears[i]).T, c))
+    return _pack(parts)
+
+
+@torch.no_grad()
+def folded_field(field, code):
+    """``field`` at the time code s [code_dim] as a field without a code:
+    the same module with the code's columns dropped and their share in the
+    biases (``folded_biases``). Its forward on pts equals field's on
+    [pts, s]; K6 and K7 run on it as ``pack_weights(field, s)`` runs them."""
+    from ..models.nerf import NeRFField
+    out = NeRFField(field.depth, field.width, field.in_ch_pts,
+                    field.in_ch_views, field.in_ch_feat, field.skips,
+                    field.static, bf16=field.bf16,
+                    sceneflow=field.n_extra > 0, use_mvs=field.use_mvs,
+                    net_type=field.net_type).to(field.pts_bias.weight)
+    state = dict(field.state_dict())
+    for c, i in zip(folded_biases(field, code), code_layers(field)):
+        state[f"pts_linears.{i}.weight"] = _narrow(field, field.pts_linears[i])
+        state[f"pts_linears.{i}.bias"] = c
+    out.load_state_dict(state)
+    return out
 
 
 def pack_grads(field):
@@ -270,9 +332,9 @@ def pack_bf16_bwd(field, pack, offsets):
 
 def _check(name, field, pts, feats, views):
     P, F, V = field.in_ch_pts, field.in_ch_feat, field.in_ch_views
-    if not field.use_mvs:
-        raise ValueError(f"{name}: the kernels take a field conditioned on "
-                         f"a volume (use_mvs)")
+    if not field.fused:
+        raise ValueError(f"{name}: the kernels take a v0 field conditioned "
+                         f"on a volume (use_mvs)")
     if field.width not in WIDTHS:
         raise ValueError(f"{name}: width {field.width} not in {WIDTHS}")
     if len(field.pts_linears) > MAX_LAYERS or len(field.skips) > 1:
@@ -328,21 +390,27 @@ class _FusedField(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def fused_nerf_forward(field, pts, feats, views):
+def fused_nerf_forward(field, pts, feats, views, code=None):
     """Evaluate a v0 ``NeRFField`` on pts/feats/views [..., ch] → [..., out_ch],
-    differentiable in the inputs and the field's weights.
+    differentiable in the inputs and the field's weights; a field with a
+    time code (``code_dim``) takes its code [code_dim], the same for every
+    point, and pts without it.
 
-    CPU tensors take the twin (the module itself); CUDA tensors launch the
-    kernels or raise.
+    CPU tensors take the twin (the module itself, on pts with the code
+    after its channels); CUDA tensors launch the kernels (with a code, the
+    fold into the biases and K6 / K7 on ``in_ch_pts`` point channels) or
+    raise.
     """
     if pts.device.type == "cpu":
+        if field.code_dim:
+            pts = append_code(pts, code)
         return field(pts, feats, views)
     _check("fused_nerf_forward", field, pts, feats, views)
     lead = pts.shape[:-1]
     n = pts.numel() // field.in_ch_pts
     pts2, feats2, views2 = (t.reshape(n, t.shape[-1]).contiguous()
                             for t in (pts, feats, views))
-    pack, offsets = pack_weights(field)
+    pack, offsets = pack_weights(field, code)
     _build.require_cuda_f32("fused_nerf_forward", pts2, feats2, views2, pack)
     out = _FusedField.apply(pts2, feats2, views2, pack, field, offsets)
     return out.reshape(*lead, field.out_ch)

@@ -51,6 +51,22 @@ on disk). ``SMALL_SVS`` is ``SMALL_MVSNERF`` with the same block at a
 at a file. ``SMALL_PATCHGAN`` (on ``PATCHGAN_SCENE``, 64x64) holds the GAN
 options no configuration file sets. ``build_gan`` builds any of them with
 its discriminators.
+
+The three model options no configuration file sets, each over the
+configuration it belongs to, with ``_16`` and ``SMALL_*`` twins:
+
+- ``FLAGSHIP_V2``: ``FLAGSHIP_TRAIN`` with the additive ``net_type="v2"``
+  fields (plain PyTorch, float32 at either precision);
+- ``FLAGSHIP_COLORVOL``: ``FLAGSHIP_TRAIN`` with ``use_color_volume`` (the
+  static field's features one lookup of a volume of 8 + 4 * 8 = 40
+  channels);
+- ``FLAGSHIP_VIDEO``: ``FLAGSHIP_MVSNERF``'s field and encoder with
+  ``train_video`` (40 learnable time codes of 1,024 channels, the
+  reference's default) on the Neural 3D Video loader's own 960x640 and its
+  3 source views; its scene is one that ``tools.scene_fixtures.
+  write_n3dv_scene`` writes (``VIDEO_SCENE``, its keyword arguments), not
+  the synthetic one. ``SMALL_VIDEO`` takes the loader at ``downSample``
+  0.1 (96x64) and 32 code channels.
 """
 from __future__ import annotations
 
@@ -125,6 +141,25 @@ SMALL_PATCHGAN = dict(SMALL_MVSNERF, img_h=64, gan_type="n_layers",
                       with_depth_loss_reg=True, patch_size=32,
                       batch_size=2048, lambda_rec=20.0, lambda_adv=1.0)
 PATCHGAN_SCENE = dict(SMALL_SCENE, img_h=64)
+# the three model options that no configuration file sets
+FLAGSHIP_V2 = dict(FLAGSHIP_TRAIN, net_type="v2")
+FLAGSHIP_V2_16 = dict(FLAGSHIP_V2, precision=16)
+SMALL_V2 = dict(SMALL_TRAIN, net_type="v2")
+SMALL_V2_16 = dict(SMALL_V2, precision=16)
+FLAGSHIP_COLORVOL = dict(FLAGSHIP_TRAIN, use_color_volume=True)
+FLAGSHIP_COLORVOL_16 = dict(FLAGSHIP_COLORVOL, precision=16)
+SMALL_COLORVOL = dict(SMALL_TRAIN, use_color_volume=True)
+SMALL_COLORVOL_16 = dict(SMALL_COLORVOL, precision=16)
+_VIDEO = dict(train_video=True, dataset_name="neural3Dvideo", num_input=3)
+FLAGSHIP_VIDEO = dict(FLAGSHIP_MVSNERF, **_VIDEO, time_code_dim=1024,
+                      img_h=640, img_w=960)
+FLAGSHIP_VIDEO_16 = dict(FLAGSHIP_VIDEO, precision=16)
+SMALL_VIDEO = dict(SMALL_MVSNERF, **_VIDEO, time_code_dim=32, img_h=64,
+                   img_w=96, imgScale_train=0.1, imgScale_test=0.1)
+SMALL_VIDEO_16 = dict(SMALL_VIDEO, precision=16)
+# write_n3dv_scene's keyword arguments: 6 cameras (3 source views of the 5
+# others), 4 frames (keyframe ids 0-3), frames at the videos' 1352x1014
+VIDEO_SCENE = dict(n_cams=6, n_frames=4, size=(1352, 1014))
 # family -> (small preset, flagship preset, flagship scene, source file)
 FAMILIES = {
     "mvsnerf": (SMALL_MVSNERF, FLAGSHIP_MVSNERF, MVSNERF_SCENE,
@@ -137,6 +172,13 @@ FAMILIES = {
                "config_kid-running_mvs_dyonly_general.txt"),
     "svs": (SMALL_SVS, FLAGSHIP_SVS, MVSNERF_SCENE,
             "config_svs_nsff_cross1.txt"),
+    # the options over the files they belong to (none sets them)
+    "v2": (SMALL_V2, FLAGSHIP_V2, FLAGSHIP_SCENE,
+           "config_zest_fine_nsff_cross1.txt"),
+    "colorvol": (SMALL_COLORVOL, FLAGSHIP_COLORVOL, FLAGSHIP_SCENE,
+                 "config_zest_fine_nsff_cross1.txt"),
+    "video": (SMALL_VIDEO, FLAGSHIP_VIDEO, VIDEO_SCENE,
+              "config_mvsnerf_nsff_cross1.txt"),
 }
 STEPS_PER_EPOCH = 24
 TARGET_FRAME = 3

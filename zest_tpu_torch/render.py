@@ -130,6 +130,35 @@ def build_color_features(pts_world, images, w2cs, intrinsics):
     return feats.permute(1, 2, 0, 3).reshape(R, S, V * 4)
 
 
+def append_color_volume(volume, images, w2cs, intrinsics, near_far,
+                        pad: int = 0):
+    """The encoding volume [D, Hv, Wv, 8] with each source view's RGB and
+    strict in-bounds mask at every voxel centre appended → [D, Hv, Wv, 8 +
+    4V] (``use_color_volume``): the static field's conditioning then is one
+    lookup of this volume instead of a lookup and a colour gather per point.
+
+    The voxel centres are ``linspace(0, 1)`` on each axis, taken to world
+    space by ``geometry.ndc_to_world`` with the reference view (slot 0 of
+    ``w2cs`` / ``intrinsics``), its ``near_far`` and ``pad``; their colours
+    are ``build_color_features`` (one gather launch for all V views) of the
+    float32 images [V, H, W, 3] and the first V poses.
+    """
+    D, Hv, Wv, _ = volume.shape
+    V, H, W, _ = images.shape
+    dev = volume.device
+    inv_scale = torch.tensor([W - 1, H - 1], dtype=torch.float32, device=dev)
+    gz, gy, gx = torch.meshgrid(
+        *(torch.linspace(0.0, 1.0, n, device=dev) for n in (D, Hv, Wv)),
+        indexing="ij")
+    pts = geometry.ndc_to_world(torch.stack([gx, gy, gz], -1), w2cs[0],
+                                intrinsics[0], inv_scale, near_far[0],
+                                near_far[1], pad)
+    colors = build_color_features(pts.reshape(D * Hv, Wv, 3), images,
+                                  w2cs[:V], intrinsics[:V])
+    return torch.cat([volume, colors.reshape(D, Hv, Wv, V * 4)
+                      .to(volume.dtype)], -1)
+
+
 class RenderModels(NamedTuple):
     """Field evaluators and conditioning-feature callables for render_rays.
     Without scene flow dynamic_fn is None; a field without a volume has no

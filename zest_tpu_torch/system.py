@@ -14,16 +14,18 @@ applies Adam with global-norm clipping and a cosine learning rate
 (``MultiSteps`` accumulates ``acc_grad`` steps' gradients). The
 configurations: both fields (``train_sceneflow``) or the static one alone
 (MVSNeRF's), each with its volume or without (NSFF's plain fields, the
-one-volume ablations); the adversarial (SVS) step around it is
-``system_gan.GanSystem``'s.
+one-volume ablations), v0 or v2 fields (``net_type``), the colour volume
+(``use_color_volume``) and the learnable time codes (``train_video``); the
+adversarial (SVS) step around it is ``system_gan.GanSystem``'s.
 ``params`` is a state dict (from ``init_params`` or
 ``convert.from_jax_params``) applied with ``torch.func.functional_call``;
 ``batch`` is a dataset sample as tensors on one device (``to_batch``);
 ``draws`` are the step's random numbers (``sampling.sample_draws``). On a
 CUDA device every kernel of both paths is the port's own: the plane-sweep
 warp, the volume lookup, the color gather and the fused field, and on the
-training path the backward of the warp, the lookup and the field; a field
-without a volume is plain PyTorch, as it is ``zest_tpu``'s Flax module.
+training path the backward of the warp, the lookup and the field, and with
+time codes their fold into the field's biases; a field without a volume or
+of net_type v2 is plain PyTorch, as it is ``zest_tpu``'s Flax module.
 Callers on the card turn TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``) for float32 results.
 
@@ -54,7 +56,7 @@ from .kernels.trilinear import sample_volume
 from .models import MVSEncoder, NeRFField
 from .models.embedding import embedding_out_channels
 from .models.feature_net import BatchNormAct
-from .models.nerf import round_bf16
+from .models.nerf import append_code, round_bf16
 from .ops.grid_sample import grid_sample_3d_rows
 
 
@@ -94,12 +96,15 @@ class Optimizer:
     """Global-norm clip at 1.0, then Adam (0.9, 0.999, eps 1e-8) at the
     learning rate ``lr_fn(count)`` of the updates already made: optax's
     ``chain(clip_by_global_norm(1.0), adam(schedule))`` written out; with
-    ``clip=False`` optax's ``adam(schedule)`` alone."""
+    ``clip=False`` optax's ``adam(schedule)`` alone. ``leaf_lr`` maps a
+    leaf's name to a schedule of its own (optax's ``multi_transform`` of
+    Adams after the clip, which runs over every leaf)."""
     B1, B2, EPS, MAX_NORM = 0.9, 0.999, 1e-8, 1.0
 
-    def __init__(self, lr_fn, clip: bool = True):
+    def __init__(self, lr_fn, clip: bool = True, leaf_lr: dict = None):
         self.lr_fn = lr_fn
         self.clip = clip
+        self.leaf_lr = leaf_lr or {}
 
     def init(self, params: dict) -> dict:
         return {"mu": {k: torch.zeros_like(v) for k, v in params.items()},
@@ -113,6 +118,7 @@ class Optimizer:
             g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
             keep = g_norm < self.MAX_NORM
         count = opt_state["count"] + 1
+        lrs = {k: fn(opt_state["count"]) for k, fn in self.leaf_lr.items()}
         lr = self.lr_fn(opt_state["count"])
         c1, c2 = 1.0 - b1 ** count, 1.0 - b2 ** count
         mu, nu, new = {}, {}, {}
@@ -122,7 +128,8 @@ class Optimizer:
                 keep, grads[k], grads[k] / g_norm * self.MAX_NORM)
             mu[k] = (1.0 - b1) * g + b1 * opt_state["mu"][k]
             nu[k] = (1.0 - b2) * g * g + b2 * opt_state["nu"][k]
-            new[k] = p - lr * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.EPS))
+            new[k] = p - lrs.get(k, lr) * ((mu[k] / c1) /
+                                           (torch.sqrt(nu[k] / c2) + self.EPS))
         return new, {"mu": mu, "nu": nu, "count": count}
 
 
@@ -151,25 +158,24 @@ class MultiSteps:
                      "acc": {k: torch.zeros_like(v) for k, v in acc.items()}}
 
 
+N_TIME_CODES = 40   # learnable time codes of train_video (the reference's)
+
+
 def _check_supported(cfg) -> None:
-    """The port covers the eval and training paths of v0 fields with view
-    directions, with or without scene flow (``train_sceneflow``: the static
-    field alone, or both fields) and with each field's volume or without it
-    (``use_mvs``, ``use_mvs_dy``), patches and GRAF's patch
-    (``patch_size``, ``gan_type``), the depth, smoothness and distortion
-    regularizers, at 32- and 16-bit precision; the GAN branch itself is
-    ``system_gan.GanSystem``. It refuses by name what none of the repo's
-    configuration files use: another ``net_type``, ``train_video``,
-    ``use_color_volume`` and any other precision."""
-    unsupported = {
-        f"net_type={cfg.net_type!r}": cfg.net_type != "v0",
-        "train_video": cfg.train_video,
-        "use_color_volume": cfg.use_color_volume,
-        f"precision={cfg.precision}": cfg.precision not in (16, 32),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"zest_tpu_torch does not port {bad} yet")
+    """The port covers the eval and training paths of fields with view
+    directions, v0 or v2 (``net_type``), with or without scene flow
+    (``train_sceneflow``: the static field alone, or both fields), with
+    each field's volume or without it (``use_mvs``, ``use_mvs_dy``), the
+    colour volume (``use_color_volume``), the learnable time codes
+    (``train_video``), patches and GRAF's patch (``patch_size``,
+    ``gan_type``), the depth, smoothness and distortion regularizers, at
+    32- and 16-bit precision; the GAN branch itself is
+    ``system_gan.GanSystem``. It refuses by name any other precision (a v2
+    field without its volume, which ``zest_tpu`` cannot run either, is
+    refused by ``NeRFField``)."""
+    if cfg.precision not in (16, 32):
+        raise NotImplementedError(
+            f"zest_tpu_torch does not port precision={cfg.precision}")
 
 
 class ZestSystem(nn.Module):
@@ -180,9 +186,12 @@ class ZestSystem(nn.Module):
     blend, only with scene flow), the dynamic field only with scene flow,
     each conditioned on its volume when the config has it, and an encoder
     per volume (``enc_static`` with ``use_mvs``, ``enc_dy`` with
-    ``use_mvs_dy``). A conditioned field runs the fused
-    kernels; one without a volume is the plain module, float32 at either
-    precision (``zest_tpu``'s Flax field)."""
+    ``use_mvs_dy``), and with ``train_video`` the [N_TIME_CODES,
+    time_code_dim] ``time_codes``. A conditioned v0 field runs the fused
+    kernels; one without a volume, or of net_type v2, is the plain module,
+    float32 at either precision (``zest_tpu``'s Flax field). The static
+    field of ``train_video`` reads the embedded points and then the time
+    code (its ``code_dim``)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -194,17 +203,23 @@ class ZestSystem(nn.Module):
         multires_views = cfg.multires_views if cfg.dir_embedder else 0
         in_ch_views = embedding_out_channels(cfg.dir_dim, multires_views)
         sceneflow = cfg.train_sceneflow
+        v0 = cfg.net_type == "v0"
+        code_dim = int(cfg.time_code_dim) if cfg.train_video else 0
         self.nerf_static = NeRFField(
             cfg.netdepth, cfg.netwidth, embedding_out_channels(cfg.pts_dim, multires),
             in_ch_views, cfg.feat_dim, static=True, sceneflow=sceneflow,
-            use_mvs=cfg.use_mvs, bf16=self.bf16 and cfg.use_mvs)
+            use_mvs=cfg.use_mvs, bf16=self.bf16 and cfg.use_mvs and v0,
+            net_type=cfg.net_type, code_dim=code_dim)
         self.nerf_dynamic = self.enc_static = self.enc_dy = None
         if sceneflow:
             self.nerf_dynamic = NeRFField(
                 cfg.netdepth, cfg.netwidth,
                 embedding_out_channels(cfg.pts_dim + 1, multires), in_ch_views,
                 cfg.feat_dim_dy, static=False, use_mvs=cfg.use_mvs_dy,
-                bf16=self.bf16 and cfg.use_mvs_dy)
+                bf16=self.bf16 and cfg.use_mvs_dy and v0,
+                net_type=cfg.net_type)
+        if cfg.train_video:
+            self.time_codes = nn.Parameter(torch.zeros(N_TIME_CODES, code_dim))
         if cfg.use_mvs:
             self.enc_static = MVSEncoder(dtype=enc_dtype)
         if cfg.use_mvs_dy:
@@ -218,10 +233,14 @@ class ZestSystem(nn.Module):
         ``zest_tpu/models/init.py`` (PyTorch's defaults): weights and Linear
         biases U(±1/sqrt(fan_in)), conv biases 0, BatchNorm scale 1, shift 0.
         fan_in is counted on this port's layers, so the first cost-volume
-        conv has 41 input channels where the TPU package pads to 48."""
+        conv has 41 input channels where the TPU package pads to 48. The
+        time codes, drawn last, are N(0, 1) * 0.01 / sqrt(time_code_dim), as
+        ``zest_tpu``'s."""
         params = {}
         dev = generator.device
         for name, p in self.named_parameters():
+            if name == "time_codes":
+                continue
             mod_name, _, leaf = name.rpartition(".")
             mod = self.get_submodule(mod_name)
             if isinstance(mod, BatchNormAct):
@@ -242,7 +261,29 @@ class ZestSystem(nn.Module):
             bound = 1.0 / math.sqrt(fan_in)
             params[name] = (torch.rand(p.shape, generator=generator, device=dev)
                             * 2.0 - 1.0) * bound
+        if self.cfg.train_video:
+            shape = self.time_codes.shape
+            params["time_codes"] = torch.randn(
+                shape, generator=generator, device=dev) * (0.01 / shape[1] ** 0.5)
         return params
+
+    def time_code(self, batch):
+        """sigmoid(time_codes[keyframe_id]) [time_code_dim], the static
+        field's time code for this batch. A batch without ``keyframe_id``
+        (only the Neural 3D Video loader gives one) or with one outside the
+        N_TIME_CODES codes is an error: ``zest_tpu``'s gather would clamp it
+        to the last code, the reference's index would raise."""
+        if "keyframe_id" not in batch:
+            raise ValueError("train_video reads the batch's keyframe_id, "
+                             "which only the Neural 3D Video loader "
+                             "(dataset_name neural3Dvideo) gives")
+        kid = int(batch["keyframe_id"])
+        if not 0 <= kid < N_TIME_CODES:
+            raise ValueError(f"keyframe_id {kid} is outside the "
+                             f"{N_TIME_CODES} time codes of train_video "
+                             f"(zest_tpu would clamp it to code "
+                             f"{min(max(kid, 0), N_TIME_CODES - 1)})")
+        return torch.sigmoid(self.time_codes[kid])
 
     # ------------------------------------------------------------------
     def render_models(self, batch) -> render.RenderModels:
@@ -256,21 +297,40 @@ class ZestSystem(nn.Module):
         reads bf16-rounded images, and the warped lookups take
         ``grid_sample_3d_rows`` on the volume cast to bf16. The rounding is
         ``zest_tpu``'s; the float32 weights of its MXU-formed interpolations
-        stay float32 here."""
+        stay float32 here.
+
+        With ``use_color_volume`` the static features are one lookup of the
+        colour volume (``render.append_color_volume``, from the float32
+        images, built once here), rounded whole to bf16 at 16-bit
+        precision; the gradient reaches its first 8 channels, the encoding
+        volume's. With ``train_video`` the static field takes the batch's
+        time code (``time_code``): the fused field folds it into its biases,
+        the plain one reads it after the embedded points."""
         cfg = self.cfg
         near_far = batch["near_fars"][0]
         rnd = round_bf16 if self.bf16 else (lambda t: t)
 
-        def field_fn(field):
-            if field.use_mvs:
-                return lambda p, f, v: fused_nerf_forward(field, p, f, v)
-            return field
+        def field_fn(field, code=None):
+            if field.fused:
+                return lambda p, f, v: fused_nerf_forward(field, p, f, v, code)
+            if code is None:
+                return field
+            return lambda p, f, v: field(append_code(p, code), f, v)
 
         static_feats = None
         if self.enc_static is not None:
             static_vol, _, _ = self.enc_static(
                 batch["images"][:-1], batch["proj_mats"][:-1], near_far,
                 pad=cfg.pad)
+        if self.enc_static is not None and cfg.use_color_volume:
+            lead = rnd(static_vol)
+            combined = rnd(render.append_color_volume(
+                static_vol.detach(), unpreprocess(batch["images"][:-1]),
+                batch["w2cs"], batch["intrinsics"], near_far, cfg.pad))
+
+            def static_feats(pts_world, ndc):
+                return sample_volume(combined, ndc, lead)
+        elif self.enc_static is not None:
             src_imgs = rnd(unpreprocess(batch["images"][:-1]))
 
             def static_feats(pts_world, ndc):
@@ -294,8 +354,9 @@ class ZestSystem(nn.Module):
                 dynamic["dynamic_vol_warped"] = lambda ndc: grid_sample_3d_rows(
                     dyn_vol.to(torch.bfloat16), ndc * 2.0 - 1.0)
 
+        code = self.time_code(batch) if cfg.train_video else None
         return render.RenderModels(
-            static_fn=field_fn(self.nerf_static),
+            static_fn=field_fn(self.nerf_static, code),
             dynamic_fn=(None if self.nerf_dynamic is None
                         else field_fn(self.nerf_dynamic)),
             static_feats=static_feats, multires=self.multires,
@@ -386,16 +447,21 @@ class ZestSystem(nn.Module):
     # ------------------------------------------------------------------
     def make_optimizer(self, steps_per_epoch: int) -> Optimizer:
         """Adam (0.9, 0.999) after a global-norm clip at 1.0, its learning
-        rate cosine-annealed per epoch from ``lrate`` down to 1e-7."""
+        rate cosine-annealed per epoch from ``lrate`` down to 1e-7; the time
+        codes of ``train_video`` on the same cosine from ``lrate * 10``."""
         cfg = self.cfg
         eps_min = 1e-7
 
-        def lr_fn(count: int) -> float:
-            epoch = min(count // max(steps_per_epoch, 1), cfg.num_epochs)
-            return eps_min + (cfg.lrate - eps_min) * 0.5 * (
-                1.0 + math.cos(math.pi * epoch / cfg.num_epochs))
+        def schedule(base_lr):
+            def lr_fn(count: int) -> float:
+                epoch = min(count // max(steps_per_epoch, 1), cfg.num_epochs)
+                return eps_min + (base_lr - eps_min) * 0.5 * (
+                    1.0 + math.cos(math.pi * epoch / cfg.num_epochs))
+            return lr_fn
 
-        return Optimizer(lr_fn)
+        leaf_lr = ({"time_codes": schedule(cfg.lrate * 10)}
+                   if cfg.train_video else None)
+        return Optimizer(schedule(cfg.lrate), leaf_lr=leaf_lr)
 
     def train_rays(self, batch, draws: sampling.Draws, phase: Phase):
         """The step's rays: the draws' pixels (random ones, square patches

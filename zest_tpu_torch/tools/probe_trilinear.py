@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 
@@ -45,6 +46,7 @@ from zest_tpu_torch.system import phase_for_step
 
 LAUNCHES = 50
 SETTLE = 16      # uncounted kernels that open each profiled session
+LOST_SHARE = 0.1  # of a kernel's launches whose events a session may miss
 WARP = 32
 
 
@@ -179,15 +181,22 @@ def k4_atomics(ndc, dims, g=None) -> dict:
 
 
 def device_ms(fn, iters: int = LAUNCHES, tries: int = 3) -> float:
-    """Device time of fn()'s kernels per call: their durations as the
-    profiler records them, summed over iters calls after a warm-up. The
-    gaps between launches are left out (a wrapper's host side takes about
-    as long as a 30 us kernel, so CUDA events around a loop of them time
-    the host). The profiler can miss the first few device events of a
-    session (4 of 50 launches, seen on an H100), so each session opens with
-    SETTLE short spin kernels that are not counted, and it counts only if
-    every call left the same number of events (a multiple of iters);
-    otherwise it is taken again, at most tries times, and then raises."""
+    """Device time of fn()'s kernels per call, after a warm-up: for each
+    kernel (by name), its median duration as the profiler records it over
+    iters calls, times its launches per call (its events over iters,
+    rounded). The gaps between launches are left out (a wrapper's host side
+    takes about as long as a 30 us kernel, so CUDA events around a loop of
+    them time the host). The profiler misses device events of a session:
+    the first few (4 of 50 launches, seen on an H100), so each session
+    opens with SETTLE short spin kernels that are not counted, and a few
+    later ones (8 of 500 for 50 calls of a twin of ten kernels, seen on an
+    H100), which ``device_ms.lost`` names ({kernel: events missing}) after
+    each call. A session counts if each kernel's events are within
+    LOST_SHARE of its launches; otherwise it is taken again, at most tries
+    times, and then raises. Copies and memsets are not kernels and are
+    left out: a twin's small host-to-device copy or zero fill shows as a
+    device event in only some of its calls (189 events for 50 calls of
+    three kernels and a copy, seen on an H100)."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -198,13 +207,25 @@ def device_ms(fn, iters: int = LAUNCHES, tries: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA
-              and "spin_kernel" not in e.name]
-        if us and len(us) % iters == 0:
-            return sum(us) / 1e3 / iters
-    raise RuntimeError(f"device_ms: the profiler recorded {len(us)} device "
-                       f"events for {iters} calls in each of {tries} tries")
+        us = {}
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA
+                    and "spin_kernel" not in e.name
+                    and not e.name.startswith(("Memcpy", "Memset"))):
+                us.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        per_call = {k: max(1, round(len(v) / iters)) for k, v in us.items()}
+        lost = {k: per_call[k] * iters - len(v) for k, v in us.items()}
+        if us and all(abs(n) <= LOST_SHARE * per_call[k] * iters
+                      for k, n in lost.items()):
+            device_ms.lost = {k: n for k, n in lost.items() if n}
+            return sum(per_call[k] * statistics.median(v)
+                       for k, v in us.items()) / 1e3
+    raise RuntimeError(f"device_ms: the profiler's device events for {iters} "
+                       f"calls, by kernel, in the last of {tries} tries: "
+                       + ", ".join(f"{k} {len(v)}" for k, v in us.items()))
+
+
+device_ms.lost = {}
 
 
 def train_points(system, batch, cfg, gen) -> tuple:

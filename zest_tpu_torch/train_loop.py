@@ -23,8 +23,11 @@ checkpointed), where ``acc_grad`` > 1 is warned about and ignored, as
 ``zest_tpu`` does. Elsewhere ``acc_grad`` > 1 accumulates the mean
 gradient over that many steps (``system.MultiSteps``). With
 ``lpips_weights`` validation and the test report ``val_LPIPS``; a file that
-does not load is an error. Not ported yet, and refused by name:
-``vis_cnn``'s encoder dumps. The loop has no W&B sink.
+does not load is an error. With ``train_video`` each sample's
+``keyframe_id`` (the Neural 3D Video loader's) picks the step's time code;
+a dataset without it is refused before the first step. Not ported yet,
+and refused by name: ``vis_cnn``'s encoder dumps. The loop has no W&B
+sink.
 """
 from __future__ import annotations
 
@@ -240,6 +243,10 @@ def run_training(cfg, datasets: Optional[dict] = None,
     seed = cfg.seed_everything if cfg.seed_everything >= 0 else 0
     datasets = datasets or build_datasets(cfg)
     train_ds, val_ds = datasets["train"], datasets.get("val")
+    if cfg.train_video and "keyframe_id" not in train_ds[0]:
+        raise ValueError("train_video reads each sample's keyframe_id, which "
+                         "only the Neural 3D Video loader (dataset_name "
+                         "neural3Dvideo) gives; these samples have none")
     steps_per_epoch = cfg.steps_per_epoch or len(train_ds)
 
     ckpt = CheckpointManager(run_dir / "ckpts", cfg)
