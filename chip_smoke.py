@@ -190,7 +190,24 @@ sm_90a), then:
     the trained time codes' rows moved in ``ckpts/last`` and no other, no
     [n, 1087] input on the card), ``run_test`` on one frame, the fold and
     its backward against their twins, K6 and K7 in the video geometry
-    under the gates of phases 3, 6 and 9 (``video_kernels``).
+    under the gates of phases 3, 6 and 9 (``video_kernels``);
+18. the last modules (``aux_modules``), at the flagship's width and
+    float32 (``presets.FLAGSHIP_TRAIN`` on ``FLAGSHIP_SCENE``): (a)
+    ``utils.observability.profile_trace`` around one training step, whose
+    Chrome trace must name K1's, K6's and K7's kernels, its launches
+    checked and its peak memory from ``device_memory_stats``; (b)
+    ``train_loop.run_test`` with ``vis_cnn`` on the target frame (K1 once
+    more for the dump), every dumped tensor within 1e-4 x max(1, its
+    largest |value|) of the same dump on the CPU and the same files; (c) a
+    Lightning-layout ``.ckpt`` of the seeded weights in the reference's
+    names through ``convert.convert_checkpoint`` (equal to the weights) and
+    ``load_state_dict(strict=True)`` to an eval image, with phase 5's
+    launches and its s/image; (d) the training step and an eval image
+    split over two gloo ranks on the one card (``parallel.dryrun.
+    run_ranks``; NCCL refuses two ranks on one device): the loss within
+    rtol 1e-5 of the one-process step's, every gradient leaf within 1e-4
+    of its largest, the image within 1e-4, each rank's launches (the step's
+    at half the rays) and peak memory, and which leaves differ.
 
 The second-to-last line of stdout is a JSON object with one entry per kernel
 (``timing``: "device" for the rows timed by the profiler's kernel durations,
@@ -205,6 +222,7 @@ the synthetic scene and the seeded weights are the port's own
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -3562,6 +3580,343 @@ def options(rows, dev, tmp) -> tuple:
     return launches, summary, per_step
 
 
+# --------------------------------------------------------------------------
+# phase 18: the last modules (profiling, vis_cnn, the .ckpt loader, sharding)
+# --------------------------------------------------------------------------
+
+# each kernel of the training step the trace must name: K1, K6 and K7's
+# float32 launches (any one of K7's three)
+TRACE_KERNELS = {"K1": ("plane_sweep_warp_kernel",),
+                 "K6": ("fused_nerf_tc32_kernel",),
+                 "K7": ("recompute_tc32_kernel", "input_grads_tc32_kernel",
+                        "wgrad_tc32_kernel")}
+# vis_cnn's dumps, card against CPU: phase 4's 1e-4, of max(1, the CPU
+# tensor's largest |value|) as ``Rows.verify`` scales a forward output
+# (cuDNN's and oneDNN's convolutions differ by up to 1.1e-4 at activations
+# up to 5 after eight layers of BatchNorm on the flagship's 8 views)
+DUMP_TOL = 1e-4
+SPLIT_RANKS = 2              # gloo ranks sharing the one card
+SPLIT_LOSS_RTOL = 1e-5
+SPLIT_GRAD_TOL = 1e-4        # of each leaf's largest gradient
+SPLIT_IMAGE_ATOL = 1e-4
+
+
+def reference_state_dict(params: dict) -> dict:
+    """The port's state dict in the reference's Lightning names (the
+    inverse of ``convert.convert_checkpoint``'s renames; the layouts are
+    the same)."""
+    prefixes = {"nerf_static.": "nerf_static.nerf.",
+                "nerf_dynamic.": "nerf_dynamic.nerf.",
+                "enc_static.": "encoding_net.", "enc_dy.": "encoding_net_dy."}
+    out = {}
+    for k, v in params.items():
+        head = next(p for p in prefixes if k.startswith(p))
+        out[prefixes[head] + k[len(head):]] = v.detach().cpu()
+    return out
+
+
+def _split_rank(mesh, inputs_path, device) -> dict:
+    """One rank of phase 18's split step on ``device`` (cuda:0 on the
+    card): the training step's loss, logs and gradients, then the eval
+    image, each with every launch counter reset first
+    (``parallel.dryrun.load_inputs``' inputs)."""
+    from zest_tpu_torch.parallel.dryrun import load_inputs
+    from zest_tpu_torch.system import ZestSystem
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    cfg, batch, params, draws, phase, step = load_inputs(inputs_path, dev)
+    system = ZestSystem(cfg).to(dev)
+    system.mesh = mesh
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    loss, logs, grads = system.loss_and_grads(params, batch, draws, phase, step)
+    if card:
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_launches = read_counters()
+    reset_counters()
+    t0 = time.perf_counter()
+    maps = system.make_eval_step()(params, batch)
+    if card:
+        torch.cuda.synchronize()
+    return dict(loss=loss.cpu(), logs={k: v.cpu() for k, v in logs.items()},
+                grads={k: v.cpu() for k, v in grads.items()},
+                maps={k: v.cpu() for k, v in maps.items()},
+                step_launches=step_launches, eval_launches=read_counters(),
+                step_s=step_s, eval_s=time.perf_counter() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30 if card
+                else 0.0)
+
+
+def _profiled_step(cfg, system, batch, params, draws, phase, tmp) -> dict:
+    """18(a): ``profile_trace`` around one flagship training step: the
+    trace must name K1, K6 and K7's kernels; the step's peak memory from
+    ``device_memory_stats``. Returns the step's launches."""
+    from zest_tpu_torch.system import TrainState
+    from zest_tpu_torch.utils.observability import (device_memory_stats,
+                                                    profile_trace)
+    opt = system.make_optimizer(8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    with profile_trace(str(tmp / "trace")):
+        _, logs = system.make_train_step(opt)(
+            TrainState(params, opt.init(params), 0), batch, draws, phase)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    _check("profiled step", launches,
+           expected_step_launches(system, cfg, batch, phase))
+    trace = tmp / "trace" / "trace.json"
+    text = trace.read_text()
+    named = {k: [n for n in names if n in text]
+             for k, names in TRACE_KERNELS.items()}
+    peak = device_memory_stats()["cuda:0"]["allocated_bytes.all.peak"]
+    log(f"[aux] (a) profile_trace around one flagship step: {wall:.2f} s "
+        f"with the profiler, trace {trace.stat().st_size / 2**20:.1f} MiB, "
+        f"names {named}; step peak {peak / 2**30:.2f} GiB "
+        f"(device_memory_stats), loss {float(logs['train_loss']):.5g}")
+    missing = [k for k, v in named.items() if not v]
+    if missing:
+        raise AssertionError(f"the trace names no kernel of {missing}")
+    return launches
+
+
+def _vis_cnn(cfg, system, sample, dev, tmp) -> tuple:
+    """18(b), on the card: ``run_test`` with ``vis_cnn`` on one frame,
+    the dumps under ``tmp/vis_cuda``. Returns (its launches, seconds)."""
+    import dataclasses
+    import warnings
+    from zest_tpu_torch import train_loop
+    from zest_tpu_torch.system import to_batch
+    vcfg = dataclasses.replace(cfg, vis_cnn=True, save_dir=str(tmp / "runs"),
+                               expname="vis", save_test=str(tmp / "vis_cuda"))
+    expected = expected_eval_launches(system, to_batch(sample, dev))
+    expected["homo_warp_cm"] *= 2           # the dump's encoder pass
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "run_test called without --ckpt")
+        out = train_loop.run_test(vcfg, {"test": [sample]}, quiet=True,
+                                  device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    _check("vis_cnn run_test", launches, expected)
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"vis_cnn test metrics {out}")
+    return launches, wall
+
+
+def _cpu_dump(cfg, sample, out_dir) -> float:
+    """18(b), on the CPU: the same dump from ``run_test``'s weights (seed
+    0, no ckpt). Returns its seconds."""
+    from zest_tpu_torch.models import MVSEncoder
+    from zest_tpu_torch.system import ZestSystem
+    from zest_tpu_torch.utils.introspect import dump_encoder_activations
+    t0 = time.perf_counter()
+    weights = ZestSystem(cfg).init_params(torch.Generator().manual_seed(0))
+    encoder = MVSEncoder()
+    encoder.load_state_dict({k[len("enc_static."):]: v for k, v in
+                             weights.items() if k.startswith("enc_static.")})
+    cpu = {k: torch.as_tensor(np.asarray(sample[k])) for k in
+           ("images", "proj_mats", "near_fars")}
+    dump_encoder_activations(encoder, cpu["images"][:-1],
+                             cpu["proj_mats"][:-1], cpu["near_fars"][0],
+                             cfg.pad, out_dir)
+    return time.perf_counter() - t0
+
+
+def _compare_dumps(card_dir, cpu_dir) -> str:
+    """18(b): the card's dumps against the CPU's: the same files, every
+    tensor within DUMP_TOL x max(1, its largest |value|). Returns a
+    summary."""
+    def tree(root):
+        return sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                      if p.is_file())
+    files = tree(card_dir)
+    if files != tree(cpu_dir):
+        raise AssertionError("vis_cnn's files differ between the card and "
+                             "the CPU")
+    worst, n_bytes = (0.0, 0.0, ""), 0
+    for f in files:
+        if not f.endswith(".npy"):
+            continue
+        a, b = np.load(card_dir / f), np.load(cpu_dir / f)
+        n_bytes += a.nbytes
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError(f"{f}: shape {a.shape} against {b.shape} "
+                                 f"or non-finite values")
+        d = float(np.abs(a - b).max())
+        limit = DUMP_TOL * max(1.0, float(np.abs(b).max()))
+        worst = max(worst, (d / limit, d, f))
+        if d > limit:
+            raise AssertionError(f"{f}: card against CPU {d:.3e}, limit "
+                                 f"{limit:.3e}")
+    return (f"{len(files)} files, {n_bytes / 2**30:.2f} GiB of .npy; every "
+            f"tensor within {DUMP_TOL:g} x max(1, its largest |value|) of the "
+            f"CPU's (closest: {worst[2]}, |d| {worst[1]:.3e}, {worst[0]:.3f} "
+            f"of its limit)")
+
+
+def _ckpt_eval(cfg, params, batch, dev, tmp) -> dict:
+    """18(c): a Lightning-layout ``.ckpt`` in the reference's names, from
+    the seeded flagship weights, through ``convert_checkpoint`` and
+    ``load_state_dict(strict=True)`` to one eval image, logging its
+    s/image. Returns its launches."""
+    import argparse
+    from zest_tpu_torch.convert import convert_checkpoint
+    from zest_tpu_torch.system import ZestSystem
+    path = tmp / "reference.ckpt"
+    torch.save({"epoch": 0, "global_step": 0,
+                "state_dict": reference_state_dict(params),
+                "hyper_parameters": argparse.Namespace(expname="flagship")},
+               path)
+    t0 = time.perf_counter()
+    converted = convert_checkpoint(path, cfg)
+    convert_s = time.perf_counter() - t0
+    moved = [k for k in params if not torch.equal(converted[k],
+                                                  params[k].cpu())]
+    if moved:
+        raise AssertionError(f"converted leaves differ: {moved[:5]}")
+    system = ZestSystem(cfg).to(dev)
+    system.load_state_dict({k: v.to(dev) for k, v in converted.items()},
+                           strict=True)
+    weights = dict(system.state_dict())
+    step = system.make_eval_step()
+    expected = expected_eval_launches(system, batch)
+    times = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        maps = step(weights, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if run == 0:
+            launches = read_counters()
+    _check("converted checkpoint's eval image", launches, expected)
+    key = blended(system)
+    if not all(bool(torch.isfinite(v).all()) for v in maps.values()) or \
+            float(maps[key].std()) <= 0.0:
+        raise AssertionError("the converted checkpoint's image is not finite "
+                             "or constant")
+    log(f"[aux] (c) reference .ckpt ({path.stat().st_size / 2**20:.1f} MiB, "
+        f"{len(converted)} tensors) converted in {convert_s:.2f} s, equal to "
+        f"the seeded weights; eval image {times[0]:.3f} s first run, "
+        f"{times[1]:.3f} s/image; launches {launches}")
+    return launches
+
+
+def _split(cfg, system, batch, params, draws, phase, tmp) -> dict:
+    """18(d): the flagship step and an eval image split over SPLIT_RANKS
+    gloo ranks on the one card, against the one-process step and image.
+    Returns ({path: rank 0's launches}, the ranks' results)."""
+    import dataclasses
+    from zest_tpu_torch.parallel import dryrun
+    t0 = time.perf_counter()
+    loss, logs, grads = system.loss_and_grads(params, batch, draws, phase, 0)
+    maps = system.make_eval_step()(params, batch)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    inputs = tmp / "split_inputs.pt"
+    dryrun.save_inputs(inputs, cfg, batch, params, draws, phase, 0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(SPLIT_RANKS, _split_rank, str(inputs),
+                             str(batch["images"].device))
+    spawn_s = time.perf_counter() - t0
+    rays = cfg.batch_size + cfg.num_extra_samples
+    half = dataclasses.replace(cfg, batch_size=cfg.batch_size // SPLIT_RANKS,
+                               num_extra_samples=cfg.num_extra_samples
+                               // SPLIT_RANKS)
+    expected_step = expected_step_launches(system, half, batch, phase)
+    expected_eval = expected_eval_launches(system, batch)
+    diffs = {}
+    for r, got in enumerate(ranks):
+        _check(f"split step, rank {r}", got["step_launches"], expected_step)
+        _check(f"split eval, rank {r}", got["eval_launches"], expected_eval)
+        rel = abs(float(got["loss"]) - float(loss)) / abs(float(loss))
+        if rel > SPLIT_LOSS_RTOL:
+            raise AssertionError(f"rank {r}'s loss {float(got['loss'])} "
+                                 f"against {float(loss)}: {rel:.2e}")
+        for k, g in grads.items():
+            g = g.cpu()
+            err = float((got["grads"][k] - g).abs().max())
+            scale = max(float(g.abs().max()), 1e-30)
+            diffs[k] = max(diffs.get(k, 0.0), err / scale)
+            if err > SPLIT_GRAD_TOL * scale:
+                raise AssertionError(f"rank {r}'s gradient {k}: {err:.3e} "
+                                     f"of {scale:.3e}")
+        worst_map = max(float((got["maps"][k] - maps[k].cpu()).abs().max())
+                        for k in maps)
+        if worst_map > SPLIT_IMAGE_ATOL:
+            raise AssertionError(f"rank {r}'s split image: {worst_map:.3e}")
+        log(f"[aux] (d) rank {r}: loss {float(got['loss']):.7g} (one process "
+            f"{float(loss):.7g}, rel {rel:.2e}), image max |d| "
+            f"{worst_map:.3e}, step {got['step_s']:.2f} s, eval image "
+            f"{got['eval_s']:.2f} s, peak memory {got['peak_gib']:.2f} GiB")
+    groups = {}
+    for k, v in diffs.items():
+        n, differ, worst = groups.get(k.split(".")[0], (0, 0, 0.0))
+        groups[k.split(".")[0]] = (n + 1, differ + (v > 0), max(worst, v))
+    top = sorted(((v, k) for k, v in diffs.items() if v > 0), reverse=True)
+    log(f"[aux] (d) {SPLIT_RANKS} gloo ranks on one card, {rays} rays "
+        f"({rays // SPLIT_RANKS} a rank): {spawn_s:.1f} s for the ranks "
+        f"(start included), the one-process step and image {ref_s:.2f} s; "
+        f"gradient leaves that differ from the one-process step, by module "
+        f"(differing / leaves, largest of a leaf's largest): " + "; ".join(
+            f"{g} {d} / {n}, {w:.2e}" for g, (n, d, w) in groups.items())
+        + "; the largest: " + ", ".join(f"{k} {v:.2e}" for v, k in top[:6]))
+    return {"split_train": ranks[0]["step_launches"],
+            "split_eval": ranks[0]["eval_launches"]}
+
+
+def aux_modules(dev, tmp) -> tuple:
+    """Phase 18: the modules of the last slice at flagship width, float32
+    (``presets.FLAGSHIP_TRAIN`` on ``FLAGSHIP_SCENE``): (a) a profiled
+    training step, (b) ``vis_cnn``, (c) the reference ``.ckpt`` loader,
+    (d) the step and an eval image split over two gloo ranks on the card.
+    Returns ({path: launches}, the phase's seconds)."""
+    from zest_tpu_torch import presets, sampling
+    from zest_tpu_torch.system import phase_for_step
+    t0 = time.perf_counter()
+    cfg, system, batch, params = presets.build(presets.FLAGSHIP_TRAIN,
+                                               presets.FLAGSHIP_SCENE, dev, SEED)
+    sample = presets.scene_of(presets.FLAGSHIP_TRAIN, presets.FLAGSHIP_SCENE)[
+        presets.TARGET_FRAME]
+    phase = phase_for_step(cfg, 0)
+    draws = sampling.sample_draws(
+        torch.Generator(device=dev).manual_seed(SEED + 18), cfg, cfg.img_h,
+        cfg.img_w, int(batch["motion_count"]), phase.extra_samples)
+    launches = {"profiled_train": _profiled_step(cfg, system, batch, params,
+                                                 draws, phase, tmp)}
+    launches["vis_cnn"], vis_s = _vis_cnn(cfg, system, sample, dev, tmp)
+    # the CPU's dump is host work: it runs beside (c) and (d), whose ranks
+    # mostly wait for their own start and for the card
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu_dump = pool.submit(_cpu_dump, cfg, sample, tmp / "vis_cpu")
+        launches["ckpt_eval"] = _ckpt_eval(cfg, params, batch, dev, tmp)
+        launches.update(_split(cfg, system, batch, params, draws, phase, tmp))
+        cpu_s = cpu_dump.result()
+    t1 = time.perf_counter()
+    summary = _compare_dumps(tmp / "vis_cuda", tmp / "vis_cpu")
+    log(f"[aux] (b) run_test with vis_cnn on one flagship frame: {vis_s:.2f} "
+        f"s (eval and dump); the CPU's dump {cpu_s:.2f} s (beside (c) and "
+        f"(d)); compared in {time.perf_counter() - t1:.2f} s: {summary}; "
+        f"launches {launches['vis_cnn']}")
+    del system, params, batch
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"[aux] phase 18 in {seconds:.1f} s")
+    return launches, seconds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3569,6 +3924,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     smi = card()
     build()
     from zest_tpu_torch import presets
@@ -3607,6 +3963,8 @@ def main() -> int:
         real_paths = real_data(rows, dev, tmp, step_ms, loop_sps)
     with tempfile.TemporaryDirectory() as tmp:
         option_paths, option_summary, video_step = options(rows, dev, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        aux_paths, aux_s = aux_modules(dev, Path(tmp))
     log(f"[summary] flagship eval s/image: float32 {s_image:.3f}, precision "
         f"16 {s_image16:.3f}; train_rays_per_sec: float32 {rays_s:.1f}, "
         f"precision 16 {rays_s16:.1f}; path s/pose: float32 "
@@ -3629,13 +3987,16 @@ def main() -> int:
                     for tag, v in option_summary.items())
         + "; the video loop's s/step (first step included): "
         + ", ".join(f"{tag} {v:.3f}" for tag, v in video_step.items()))
+    log(f"[summary] phase 18 (profiling, vis_cnn, the .ckpt loader, two "
+        f"ranks) {aux_s:.1f} s; the whole command {time.perf_counter() - t_start:.1f} s")
     for path, counts in {**new_paths, **svs_paths, **real_paths,
-                         **option_paths}.items():
+                         **option_paths, **aux_paths}.items():
         log(f"[summary] launches, {path}: "
             + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
     results = rows.finish({"eval": eval_launches, "train": train_launches,
                            "eval16": eval16, "train16": train16, **new_paths,
-                           **svs_paths, **real_paths, **option_paths})
+                           **svs_paths, **real_paths, **option_paths,
+                           **aux_paths})
     for r in results:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never launched on the main path")

@@ -64,8 +64,8 @@ def test_port_imports_no_jax():
     """The port runs its eval step and one training step in a fresh
     interpreter without JAX and without the JAX package ``zest_tpu``; its
     training loop, checkpoints, path rendering, config parser, command-line
-    modules, metrics, quality gate, real-data loaders and scene fixtures
-    import neither."""
+    modules, metrics, quality gate, real-data loaders and scene fixtures,
+    ray sharding, encoder dumps and observability hooks import neither."""
     script = textwrap.dedent("""
         import sys
         import torch
@@ -77,7 +77,9 @@ def test_port_imports_no_jax():
                                          neural3dvideo, nsff, pfm, pose_utils)
         from zest_tpu_torch.tools import scene_fixtures
         from zest_tpu_torch.tools import quality_gate
-        from zest_tpu_torch.utils import visualize
+        from zest_tpu_torch.utils import introspect, observability, visualize
+        from zest_tpu_torch import parallel
+        from zest_tpu_torch.parallel import dryrun, mesh
         from zest_tpu_torch.system import TrainState, phase_for_step
         assert config.config_parser(["--netwidth", "96"]).netwidth == 96
         _, system, batch, params = presets.build(

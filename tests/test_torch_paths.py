@@ -247,6 +247,15 @@ def test_run_test_warns_without_ckpt_and_refuses_vis_cnn(tmp_path):
                                   datasets=ds, quiet=True, device="cpu")
     assert np.isfinite(out["val_PSNR"])
     assert (tmp_path / "port" / "run" / "test_metrics.txt").exists()
-    with pytest.raises(NotImplementedError, match="vis_cnn"):
-        train_loop.run_test(ZestConfig(**_cfg(tmp_path, "port", vis_cnn=True)),
-                            datasets=ds, device="cpu")
+    # vis_cnn is no longer refused: it dumps the static encoder first and
+    # leaves the metrics as they were
+    vis = tmp_path / "vis"
+    with pytest.warns(UserWarning, match="without --ckpt"):
+        again = train_loop.run_test(
+            ZestConfig(**_cfg(tmp_path, "port", vis_cnn=True,
+                              save_test=str(vis))),
+            datasets=ds, quiet=True, device="cpu")
+    assert again == out
+    assert (vis / "cost_vol" / "tensors" / "volume_feat.npy").exists()
+    assert (vis / "2cnn_vis" / "tensors" / "feature.conv0_0.bn.npy").exists()
+    assert (vis / "3cnn_vis" / "feat2viz" / "cost_reg_2.conv7.png").exists()

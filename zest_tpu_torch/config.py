@@ -13,8 +13,7 @@ LLFF, DTU and Neural 3D Video scenes under ``datadir``, or the synthetic
 scene). ``net_type`` (v0 or v2), ``use_color_volume`` and ``train_video``
 (with ``time_code_dim``) select the model options. What the port does not
 run is refused by name where it is read: another ``precision`` by
-``system.ZestSystem``, ``vis_cnn`` by ``train_loop.run_test``. The TPU
-package's kernel choices and bands
+``system.ZestSystem``. The TPU package's kernel choices and bands
 (``mesh_shape``, ``use_pallas_*``, ``warp_band``, ``warp_group``,
 ``z_band*``, ``use_fused_mlp``, ``color_band_train``) select among
 ``zest_tpu``'s implementations of the same values; the port has one CUDA

@@ -20,7 +20,11 @@ adversarial (SVS) step around it is ``system_gan.GanSystem``'s.
 ``params`` is a state dict (from ``init_params`` or
 ``convert.from_jax_params``) applied with ``torch.func.functional_call``;
 ``batch`` is a dataset sample as tensors on one device (``to_batch``);
-``draws`` are the step's random numbers (``sampling.sample_draws``). On a
+``draws`` are the step's random numbers (``sampling.sample_draws``). With
+``mesh`` set (``parallel.make_mesh``) the ranks of a process group split
+each step's rays and each eval chunk's (``render_split``): every rank
+renders its shard, gathers the others', takes the loss over all rays and
+sums the gradients over the ranks. On a
 CUDA device every kernel of both paths is the port's own: the plane-sweep
 warp, the volume lookup, the color gather and the fused field, and on the
 training path the backward of the warp, the lookup and the field, and with
@@ -58,6 +62,7 @@ from .models.embedding import embedding_out_channels
 from .models.feature_net import BatchNormAct
 from .models.nerf import append_code, round_bf16
 from .ops.grid_sample import grid_sample_3d_rows
+from .parallel.mesh import gather_rays, shard_rays, sum_over_ranks
 
 
 def unpreprocess(imgs):
@@ -227,6 +232,8 @@ class ZestSystem(nn.Module):
             self.enc_dy = MVSEncoder(identity_src_warp=True, dtype=enc_dtype)
         self.multires, self.multires_views = multires, multires_views
         self.eval_keys = EVAL_KEYS if sceneflow else STATIC_EVAL_KEYS
+        # a process group's ranks split the rays (parallel.make_mesh)
+        self.mesh = None
 
     def init_params(self, generator: torch.Generator) -> dict:
         """Fresh weights drawn with ``generator``, in the distributions of
@@ -363,7 +370,35 @@ class ZestSystem(nn.Module):
             multires_views=self.multires_views, **dynamic)
 
     def _chunk(self, H, W) -> int:
-        return min(self.cfg.eval_chunk or self.cfg.chunk, H * W)
+        chunk = min(self.cfg.eval_chunk or self.cfg.chunk, H * W)
+        if self.mesh is not None:
+            # a whole shard for every rank, rounded as zest_tpu rounds it
+            chunk = max(chunk // self.mesh.size * self.mesh.size,
+                        self.mesh.size)
+        return chunk
+
+    def render_split(self, render_fn, rays: sampling.RayBatch,
+                     draws: sampling.Draws = None) -> dict:
+        """``render_fn(rays, draws)``, a dict of per-ray outputs. With
+        ``mesh`` it runs on this rank's contiguous shard of the rays (and of
+        the draws' per-ray density noise) and every output is gathered
+        from all ranks, so each rank returns all rays' outputs, with a
+        gradient to its own shard only; a ray count that does not divide
+        the mesh warns and runs whole on every rank."""
+        mesh = self.mesh
+        if mesh is None:
+            return render_fn(rays, draws)
+        local = rays._replace(**{k: shard_rays(v, mesh)
+                                 for k, v in rays._asdict().items()
+                                 if v is not None and k != "t_vals"})
+        if draws is not None:
+            draws = draws._replace(**{
+                k: shard_rays(getattr(draws, k), mesh)
+                for k in sampling.NOISE_FIELDS if getattr(draws, k) is not None})
+        out = render_fn(local, draws)
+        if not mesh.splits(rays.pts.shape[0]):
+            return out
+        return {k: gather_rays(v, mesh) for k, v in out.items()}
 
     def chunk_rays(self, batch, idx: int, imgs_un=None) -> sampling.RayBatch:
         """The idx-th chunk of the target (last) view's rays, the last chunk
@@ -400,8 +435,9 @@ class ZestSystem(nn.Module):
         _, H, W, _ = batch["images"].shape
         pose_batch = dict(batch, c2ws=c2ws, w2cs=w2cs)
         kwargs = self.render_kwargs(batch, w2cs)
-        outs = [render.render_rays(
-                    models, self.chunk_rays(pose_batch, idx, imgs_un), **kwargs)
+        outs = [self.render_split(
+                    lambda rays, _: render.render_rays(models, rays, **kwargs),
+                    self.chunk_rays(pose_batch, idx, imgs_un))
                 for idx in range(-(-(H * W) // self._chunk(H, W)))]
         return {k: torch.cat([o[k] for o in outs])[:H * W]
                 .reshape(H, W, *outs[0][k].shape[1:]) for k in self.eval_keys}
@@ -488,12 +524,14 @@ class ZestSystem(nn.Module):
         training render. Returns (results, rays)."""
         models = self.render_models(batch)
         rays = self.train_rays(batch, draws, phase)
-        results = render.render_rays_train(
-            models, rays, draws, **self.render_kwargs(batch),
-            num_frames=batch.get("total_frames", 1.0),
-            # the two-frame chain alternates every step, t-2 first
-            chain_bwd=step % 2 == 0, chain_5frames=phase.chain_5frames,
-            raw_noise_std=self.cfg.raw_noise_std)
+        kwargs = self.render_kwargs(batch)
+        results = self.render_split(
+            lambda rays, draws: render.render_rays_train(
+                models, rays, draws, **kwargs,
+                num_frames=batch.get("total_frames", 1.0),
+                # the two-frame chain alternates every step, t-2 first
+                chain_bwd=step % 2 == 0, chain_5frames=phase.chain_5frames,
+                raw_noise_std=self.cfg.raw_noise_std), rays, draws)
         return results, rays
 
     def regularizers(self, results, rays) -> dict:
@@ -551,7 +589,9 @@ class ZestSystem(nn.Module):
     def loss_and_grads(self, params: dict, batch, draws: sampling.Draws,
                        phase: Phase, step: int):
         """(train_loss, logs, grads) of one step at ``params``; grads has
-        params' keys. The logs are detached."""
+        params' keys. The logs are detached. With ``mesh`` (the rays split
+        over its ranks) the gradients are summed over the ranks: every rank
+        returns the whole step's."""
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         with torch.enable_grad():
             total, logs = torch.func.functional_call(
@@ -561,6 +601,8 @@ class ZestSystem(nn.Module):
                                         allow_unused=True)
         grads = {k: torch.zeros_like(v) if g is None else g
                  for (k, v), g in zip(leaves.items(), grads)}
+        if self.mesh is not None and self.mesh.splits(draws.jitter.shape[0]):
+            grads = sum_over_ranks(grads, self.mesh)
         return total.detach(), {k: v.detach() for k, v in logs.items()}, grads
 
     def make_train_step(self, optimizer: Optimizer):

@@ -233,7 +233,13 @@ class GanSystem(nn.Module):
     def generator_update(self, state: GanTrainState, batch, draws, phase,
                          optimizer: Optimizer):
         """The generator's step: (new params, new optimizer state, logs,
-        the render's detached (rgb_pred, rgb_gt, depth_pred, depth_gt))."""
+        the render's detached (rgb_pred, rgb_gt, depth_pred, depth_gt)).
+        Not under a process group (``system.mesh``): its gradients would
+        miss the other ranks' shares."""
+        if self.system.mesh is not None:
+            raise NotImplementedError(
+                "the SVS (GAN) step does not run with its rays split over a "
+                "process group (system.mesh); run it on one rank")
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         with torch.enable_grad():

@@ -25,9 +25,10 @@ gradient over that many steps (``system.MultiSteps``). With
 ``lpips_weights`` validation and the test report ``val_LPIPS``; a file that
 does not load is an error. With ``train_video`` each sample's
 ``keyframe_id`` (the Neural 3D Video loader's) picks the step's time code;
-a dataset without it is refused before the first step. Not ported yet,
-and refused by name: ``vis_cnn``'s encoder dumps. The loop has no W&B
-sink.
+a dataset without it is refused before the first step. ``MetricLogger``
+writes metrics.csv and, when ``wandb`` imports, a W&B run whose id is kept
+in ``wandb_id.txt`` (``WandbAdapter``). With ``vis_cnn`` ``run_test`` first
+dumps the static encoder's activations (``utils.introspect``).
 """
 from __future__ import annotations
 
@@ -90,16 +91,53 @@ def build_datasets(cfg, splits=("train", "val")) -> dict:
     return out
 
 
+class WandbAdapter:
+    """The W&B sink, with the reference's resumable run id: the id is kept
+    in ``<save_dir>/wandb_id.txt``, so a resumed training continues the same
+    run (project "SVS", ``resume="allow"``). Raises when ``wandb`` does not
+    import; ``_maybe_wandb`` gates it."""
+
+    def __init__(self, save_dir: Path, expname: str):
+        import wandb
+        id_file = save_dir / "wandb_id.txt"
+        if id_file.exists():
+            run_id = id_file.read_text().strip()
+        else:
+            run_id = wandb.util.generate_id()
+            save_dir.mkdir(parents=True, exist_ok=True)
+            id_file.write_text(run_id)
+        self.run = wandb.init(project="SVS", name=expname, id=run_id,
+                              resume="allow")
+
+    def log(self, step: int, scalars: dict):
+        self.run.log({k: float(v) for k, v in scalars.items()}, step=step)
+
+    def close(self):
+        self.run.finish()
+
+
+def _maybe_wandb(save_dir: Path, expname: str):
+    """A ``WandbAdapter``, or None when ``wandb`` does not import or its
+    init raises (no package, no network): the CSV log goes on alone."""
+    try:
+        return WandbAdapter(save_dir, expname)
+    except Exception:
+        return None
+
+
 class MetricLogger:
-    """``<save_dir>/metrics.csv``, one row per ``log`` call.
+    """``<save_dir>/metrics.csv``, one row per ``log`` call, and with
+    ``expname`` set the W&B run of ``_maybe_wandb`` (dormant without
+    ``wandb``).
 
     Train and validation rows carry different keys; a row that brings new
     keys rewrites the file with the wider header, so no column is dropped.
     An existing file's rows are kept."""
 
-    def __init__(self, save_dir: Path):
+    def __init__(self, save_dir: Path, expname: str = ""):
         save_dir.mkdir(parents=True, exist_ok=True)
         self.path = save_dir / "metrics.csv"
+        self._wandb = _maybe_wandb(save_dir, expname) if expname else None
         self._keys: list = []
         self._rows: list = []
         self._fh = None
@@ -131,10 +169,14 @@ class MetricLogger:
         else:
             self._writer.writerow(row)
         self._fh.flush()
+        if self._wandb is not None:
+            self._wandb.log(step, {k: v for k, v in row.items() if k != "step"})
 
     def close(self):
         if self._fh:
             self._fh.close()
+        if self._wandb is not None:
+            self._wandb.close()
 
 
 def _maybe_lpips(cfg, device="cpu"):
@@ -250,7 +292,7 @@ def run_training(cfg, datasets: Optional[dict] = None,
     steps_per_epoch = cfg.steps_per_epoch or len(train_ds)
 
     ckpt = CheckpointManager(run_dir / "ckpts", cfg)
-    logger = MetricLogger(run_dir)
+    logger = MetricLogger(run_dir, cfg.expname)
     system = ZestSystem(cfg).to(device)
     init_gen = torch.Generator().manual_seed(seed)
     if cfg.gan_type:
@@ -341,10 +383,9 @@ def run_test(cfg, datasets: Optional[dict] = None, quiet: bool = False,
     ``cfg.ckpt``: ``validate`` (tag "test", PNGs of the first four) and
     ``<save_dir>/<expname>/test_metrics.txt`` (PSNR, SSIM, and LPIPS with
     ``lpips_weights``). Without ``cfg.ckpt`` it warns and evaluates fresh
-    weights of seed 0."""
-    if cfg.vis_cnn:
-        raise NotImplementedError(
-            "zest_tpu_torch does not port vis_cnn's encoder dumps yet")
+    weights of seed 0. With ``vis_cnn`` and a static volume it first dumps
+    the static encoder's activations on the first test sample's source
+    views under ``cfg.save_test`` (``utils.introspect``), on ``device``."""
     device = torch.device(device)
     datasets = datasets or build_datasets(cfg, splits=("test",))
     test_ds = datasets["test"]
@@ -360,6 +401,15 @@ def run_test(cfg, datasets: Optional[dict] = None, quiet: bool = False,
                       "initialised weights, not a trained model", stacklevel=2)
         params = {k: v.to(device) for k, v in
                   system.init_params(torch.Generator().manual_seed(0)).items()}
+    if cfg.vis_cnn and system.enc_static is not None:
+        from .utils.introspect import dump_encoder_activations
+        system.enc_static.load_state_dict(
+            {k[len("enc_static."):]: v for k, v in params.items()
+             if k.startswith("enc_static.")})
+        b0 = to_batch(test_ds[0], device)
+        dump_encoder_activations(system.enc_static, b0["images"][:-1],
+                                 b0["proj_mats"][:-1], b0["near_fars"][0],
+                                 cfg.pad, cfg.save_test)
     out = validate(cfg, system, system.make_eval_step(), params, test_ds,
                    save_dir, 0, tag="test")
     with open(save_dir / "test_metrics.txt", "w") as f:
