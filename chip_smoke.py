@@ -207,7 +207,13 @@ sm_90a), then:
     run_ranks``; NCCL refuses two ranks on one device): the loss within
     rtol 1e-5 of the one-process step's, every gradient leaf within 1e-4
     of its largest, the image within 1e-4, each rank's launches (the step's
-    at half the rays) and peak memory, and which leaves differ.
+    at half the rays) and peak memory, and which leaves differ; (e) the
+    SVS flagship step (``FLAGSHIP_SVS``) at float32 and at precision 16
+    over the same two ranks (``_split_gan``): every log, every generator
+    and discriminator gradient leaf and the ranks' states after the step
+    against the one-process step, each rank's launches at 2,048 rays, its
+    seconds and peak memory; (f) ``python -m
+    zest_tpu_torch.parallel.dryrun 2``, which runs on the card.
 
 The second-to-last line of stdout is a JSON object with one entry per kernel
 (``timing``: "device" for the rows timed by the profiler's kernel durations,
@@ -254,6 +260,12 @@ F32_VALUE_NORM = 1e-5
 # F32_FLIPPED_FLOOR points
 F32_FLIPPED_SHARE = 0.005
 F32_FLIPPED_FLOOR = 5
+# K7 float32's pass 2 against its twin, each output sum_i x_i d_i of a chunk:
+# 1e-4 of its leaf's largest plus this share of its terms' magnitude
+# sum_i |x_i d_i|, one float32 rounding of that (a chunk's alpha-head bias
+# sums cancel to ~1 from ~1e4 and read up to 2.1e-4 of their largest;
+# leaving out one point's term moves an output by ~256x as much)
+F32_SUM_ROUNDING = 2.0 ** -24
 TRAIN_STEPS = 5              # timed flagship training steps, after warm-up
 LOOP_STEPS = 40              # training loop steps of the quality phase
 SVS_LOOP_STEPS = 10          # training loop steps of the SVS phase
@@ -331,14 +343,32 @@ def device_ms(fn) -> float:
     (``probe_trilinear.device_ms``), with the events it missed logged. Rows
     whose kernel runs under 1 ms take
     it: there a wrapper's host side takes about as long as the kernel, and
-    CUDA events around a loop of calls time the host."""
-    from zest_tpu_torch.tools.probe_trilinear import LAUNCHES
+    CUDA events around a loop of calls time the host. Where the profiler
+    records no usable events for fn, the time is ``queued_ms``'s (CUDA
+    events around calls queued behind a spin kernel), logged, and
+    ``device_ms.stand_in`` is True until the next call."""
+    from zest_tpu_torch.tools.probe_trilinear import LAUNCHES, queued_ms
     from zest_tpu_torch.tools.probe_trilinear import device_ms as profiled
-    ms = profiled(fn)
+    device_ms.stand_in = False
+    try:
+        ms = profiled(fn)
+    except RuntimeError as err:
+        ms = queued_ms(fn)
+        device_ms.stand_in = True
+        device_ms.stand_ins += 1
+        log(f"[device_ms] {err}; timed instead by CUDA events around "
+            f"{LAUNCHES} calls queued behind a spin kernel: {ms:.4f} ms "
+            + ("(queued whole)" if queued_ms.queued
+               else "(NOT queued whole: the host's time is in it)"))
+        return ms
     if profiled.lost:
         log(f"[device_ms] device events the profiler missed over {LAUNCHES} "
             f"calls, by kernel: {profiled.lost}")
     return ms
+
+
+device_ms.stand_in = False
+device_ms.stand_ins = 0
 
 
 def nbytes(*tensors) -> int:
@@ -461,10 +491,19 @@ class Rows:
                                               relative)
         timer = {"events": functools.partial(cuda_ms, iters=iters),
                  "device": device_ms}[timing]
+        stand_ins = []
+
+        def timed(key, fn):
+            t = timer(fn)
+            if timing == "device" and device_ms.stand_in:
+                stand_ins.append(key)
+            return t
+
         with torch.no_grad():
-            ms = timer(kern)
-            plain_ms = timer(plain)
-            lib_ms = timer(library) if library is not None else None
+            ms = timed("ms", kern)
+            plain_ms = timed("plain_ms", plain)
+            lib_ms = (timed("library_ms", library) if library is not None
+                      else None)
         bound_ms = 1e3 * max(moved_bytes / HBM_BYTES_PER_S,
                              ops_seconds(flops, flops_bf16, flops_tf32))
         log(f"[kernel] {name}: shapes {shapes} max_abs_err {err:.3e} "
@@ -476,6 +515,9 @@ class Rows:
             counter=counter, timing=timing, max_abs_err=0.0, ms=0.0,
             plain_ms=0.0, bytes=0, flops=0, flops_bf16=0, flops_tf32=0,
             paths=paths, library_ms=0.0 if library is not None else None))
+        for key in stand_ins:
+            if key not in row.setdefault("queued_ms_for", []):
+                row["queued_ms_for"].append(key)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
         row["plain_ms"] += plain_ms
@@ -509,7 +551,9 @@ class Rows:
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=max(b_ms, o_ms),
                 bound_by="bytes" if b_ms >= o_ms else "operations",
-                library_ms=r["library_ms"], timing=r["timing"]))
+                library_ms=r["library_ms"], timing=r["timing"],
+                **({"queued_ms_for": r["queued_ms_for"]}
+                   if "queued_ms_for" in r else {})))
         return rows
 
 
@@ -886,6 +930,17 @@ def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets,
             real[2](field, pts, feats, views, bufs, offsets, out)
             return leaves(out)
 
+        with torch.no_grad():
+            verified = hold_weight_grads(
+                suffix, [k for k, _ in fused_mlp.pack_leaves(field, d_pack,
+                                                             offsets)],
+                kern(),
+                leaves(fused_mlp.weight_grads_plain(field, pts, feats, views,
+                                                    bufs)),
+                leaves(fused_mlp.weight_grads_plain(
+                    field, pts.abs(), feats.abs(), views.abs(),
+                    {k: v if k in ("cond", "z") else v.abs()
+                     for k, v in bufs.items()})))
         cond, z, dz = bufs["cond"], bufs["z"], bufs["dz"]
         h = [torch.relu(zi * cond) for zi in z]
         xs = [feats, pts] + [torch.cat([pts, h[i - 1]], -1)
@@ -902,7 +957,7 @@ def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets,
                    lambda: [torch.matmul(x.T, d) for x, d in zip(xs, ds)],
                    1e-4, 3, nbytes(pts, feats, views, *bufs.values())
                    + nbytes(d_pack), f32_ops, relative=True,
-                   flops_tf32=tf32_ops, paths=paths)
+                   flops_tf32=tf32_ops, paths=paths, verified=verified)
 
     held = (recompute, input_grads, weight_grads)
     for fn in held:
@@ -917,6 +972,35 @@ def hold_float32_backward(rows, name, label, field, flat, g, pack, offsets,
             setattr(fused_mlp, fn.__name__, orig)
     return hold_at_own_forward(name, label, field, flat, g, pack, offsets,
                                got, saved)
+
+
+def hold_weight_grads(suffix, names, got, twin, magnitude) -> tuple:
+    """K7 float32's pass 2 on one chunk (``got``, its leaves by ``names``)
+    against the twin's: each output within 1e-4 of its leaf's largest plus
+    F32_SUM_ROUNDING of its terms' magnitude (``magnitude``: the twin's sums
+    of |x_i d_i|, leaf by leaf). Logs the leaf nearest its limit and the
+    one nearest 1e-4 of its largest alone; raises naming each leaf over
+    its limit. Returns (the largest error, the leaves' shapes), as
+    ``Rows.verify`` does."""
+    err, near, near_plain, failures = 0.0, (0.0, ""), (0.0, ""), []
+    for name, a, b, m in zip(names, got, twin, magnitude):
+        e = (a - b).abs()
+        top = float(b.abs().max())
+        share = float((e / (1e-4 * top + F32_SUM_ROUNDING * m)).max())
+        plain = float(e.max()) / max(top, 1e-30)
+        err = max(err, float(e.max()))
+        near = max(near, (share, name))
+        near_plain = max(near_plain, (plain, name))
+        if not (bool(torch.isfinite(a).all()) and share <= 1.0):
+            failures.append(f"{name} at {share:.3f} of its limit "
+                            f"({plain:.3e} of its largest)")
+    log(f"[backward] fused_nerf_weight_grads{suffix} chunk: nearest its "
+        f"limit {near[1]} {near[0]:.3f}; nearest 1e-4 of its largest alone "
+        f"{near_plain[1]} {near_plain[0]:.3e}")
+    if failures:
+        raise AssertionError(f"fused_nerf_weight_grads{suffix} disagrees "
+                             f"with its twin: " + "; ".join(failures))
+    return err, [tuple(t.shape) for t in twin]
 
 
 def hold_at_own_forward(name, label, field, flat, g, pack, offsets, got,
@@ -3581,7 +3665,8 @@ def options(rows, dev, tmp) -> tuple:
 
 
 # --------------------------------------------------------------------------
-# phase 18: the last modules (profiling, vis_cnn, the .ckpt loader, sharding)
+# phase 18: the last modules (profiling, vis_cnn, the .ckpt loader, sharding,
+# the SVS step over a process group)
 # --------------------------------------------------------------------------
 
 # each kernel of the training step the trace must name: K1, K6 and K7's
@@ -3599,6 +3684,12 @@ SPLIT_RANKS = 2              # gloo ranks sharing the one card
 SPLIT_LOSS_RTOL = 1e-5
 SPLIT_GRAD_TOL = 1e-4        # of each leaf's largest gradient
 SPLIT_IMAGE_ATOL = 1e-4
+# the split SVS step at precision 16, held as phase 15 holds its 16-bit
+# steps: every gradient leaf within twice the one-process step's own
+# 16-vs-32 difference plus 1e-3 of its module's largest, every log within
+# one bf16 rounding
+SPLIT_GRAD_TOL16 = 1e-3
+SPLIT_LOG_RTOL16 = 2.0 ** -8
 
 
 def reference_state_dict(params: dict) -> dict:
@@ -3877,11 +3968,300 @@ def _split(cfg, system, batch, params, draws, phase, tmp) -> dict:
             "split_eval": ranks[0]["eval_launches"]}
 
 
+def _split_gan_rank(mesh, inputs_paths, device) -> list:
+    """One rank of phase 18's split SVS steps on ``device``: for each of
+    ``parallel.dryrun.save_inputs``' files, ``dryrun.gan_step`` with the
+    rays split over ``mesh`` and every launch counter reset first, then
+    the same step again for its warm seconds, and at float32 a third time
+    for its share of the encoders' weight gradients summed in float64
+    (``_conv_rounding``). Returns one dict per file (``gan_step``'s, on
+    the CPU, with the first run's launches, the first two runs' seconds,
+    the peak memory and ``wide``, that float64 share)."""
+    from zest_tpu_torch import system_gan
+    from zest_tpu_torch.parallel import dryrun
+    from zest_tpu_torch.system import ZestSystem
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+
+    def synced():
+        if card:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+    results = []
+    for path in inputs_paths:
+        cfg, batch, state, draws, phase, _ = dryrun.load_inputs(path, dev)
+        gan = system_gan.GanSystem(ZestSystem(cfg)).to(dev)
+        gan.system.mesh = mesh
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = synced()
+        out = dryrun.gan_step(gan, state, batch, draws, phase)
+        first_s = synced() - t0
+        launches = read_counters()
+        t0 = synced()
+        dryrun.gan_step(gan, state, batch, draws, phase)
+        warm_s = synced() - t0
+        out["wide"] = {} if cfg.precision == 16 else _conv_rounding(
+            gan.system, lambda: dryrun.gan_step(gan, state, batch, draws,
+                                                phase))[2]
+        out["state"] = out["state"]._asdict()
+        results.append(dict(
+            dryrun.map_tensors(out, lambda t: t.detach().cpu()),
+            launches=launches, first_s=first_s, warm_s=warm_s,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30 if card
+            else 0.0))
+        del gan, state, batch
+    return results
+
+
+def _conv_rounding(system, step) -> tuple:
+    """``step()`` (a GAN step -> ``dryrun.gan_step``'s dict) with every
+    convolution of the encoders' input and output cotangent captured:
+    (its result, {weight leaf: the largest |difference| of the step's
+    float32 gradient from the same convolution's weight gradient summed
+    in float64 from the captured tensors}: the float32 rounding of each
+    convolution's weight-gradient sum, {weight leaf: that float64 weight
+    gradient, on the CPU})."""
+    kinds = (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose3d)
+    seen, hooks = {}, []
+    for name, mod in system.named_modules():
+        if name.startswith("enc_") and isinstance(mod, kinds):
+            def keep(m, inp, out, name=name):
+                seen[name] = [inp[0].detach()]
+                out.register_hook(lambda g: seen[name].append(g.detach()))
+            hooks.append(mod.register_forward_hook(keep))
+    try:
+        out = step()
+    finally:
+        for h in hooks:
+            h.remove()
+    rounding, wide = {}, {}
+    for name, (x, g) in seen.items():
+        mod = system.get_submodule(name)
+        kw = dict(stride=mod.stride, padding=mod.padding,
+                  dilation=mod.dilation, groups=mod.groups)
+        weight_grad = (torch.nn.grad.conv2d_weight if x.dim() == 4
+                       else torch.nn.grad.conv3d_weight)
+        # a transposed convolution's weight gradient is the convolution's
+        # with its input and its output cotangent swapped
+        a, b = ((g, x) if isinstance(mod, torch.nn.ConvTranspose3d)
+                else (x, g))
+        leaf = f"{name}.weight"
+        wide[leaf] = weight_grad(a.double(), mod.weight.shape, b.double(),
+                                 **kw)
+        rounding[leaf] = float((out["gen_grads"][leaf].double()
+                                - wide[leaf]).abs().max())
+        wide[leaf] = wide[leaf].cpu()
+    return out, rounding, wide
+
+
+def _grad_margins(got, ref, tol: float, again=None, ref32=None,
+                  rounding=None) -> list:
+    """[(err / limit, leaf, err / the leaf's largest)] of each gradient
+    leaf of ``got`` against ``ref`` (trees of gen_grads, disc_grads,
+    depth_grads), largest first. At float32 (``again``: the same
+    one-process step run a second time) the limit is tol times the leaf's
+    own largest plus twice the leaf's own run-to-run difference (K4's
+    float atomics sum a volume's gradient in another order in every run)
+    and, for an encoder's convolution, twice its float32 rounding
+    (``_conv_rounding``: cuDNN's weight-gradient sums are up to 1.6e-4 of
+    a leaf's largest from float64 on the flagship). With ``ref32``, phase
+    15's 16-bit rule: twice the 16-vs-32 difference of ``ref`` from
+    ``ref32`` (the leaf's, or its module's largest for an encoder) plus tol
+    times the module's largest."""
+    out = []
+    for tree in ("gen_grads", "disc_grads", "depth_grads"):
+        if set(got[tree]) != set(ref[tree]):
+            raise AssertionError(f"{tree}: the leaves differ")
+        scale, spread_m = {}, {}
+        for k, g in ref[tree].items():
+            m = k.split(".")[0]
+            scale[m] = max(scale.get(m, 0.0), float(g.abs().max()))
+            if ref32 is not None:
+                spread_m[m] = max(spread_m.get(m, 0.0), float(
+                    (g.cpu() - ref32[tree][k].cpu()).abs().max()))
+        for k, g in ref[tree].items():
+            m = k.split(".")[0]
+            err = float((got[tree][k].cpu() - g.cpu()).abs().max())
+            if ref32 is None:
+                limit = tol * float(g.abs().max()) + 2 * float(
+                    (g - again[tree][k]).abs().max())
+                if tree == "gen_grads":
+                    limit += 2 * (rounding or {}).get(k, 0.0)
+            else:
+                spread = (spread_m[m] if m.startswith("enc_") else float(
+                    (g.cpu() - ref32[tree][k].cpu()).abs().max()))
+                limit = 2 * spread + tol * scale[m]
+            out.append((err / max(limit, 1e-30), f"{tree[:-6]} {k}",
+                        err / max(float(g.abs().max()), 1e-30)))
+    return sorted(out, reverse=True)
+
+
+def _split_gan(dev, tmp) -> dict:
+    """18(e): the SVS step (``FLAGSHIP_SVS``, one 64x64 GRAF patch of 4,096
+    rays) at float32 and at precision 16 split over SPLIT_RANKS gloo ranks
+    on the one card, against the one-process ``GanSystem`` step on the same
+    seeded weights and draws: at float32 every log within SPLIT_LOSS_RTOL
+    and every gradient leaf (generator and discriminator) within
+    SPLIT_GRAD_TOL of its own largest plus twice the one-process step's own
+    difference from itself run again and, for the encoders' convolutions,
+    twice their float32 rounding (``_conv_rounding``); at precision 16 each
+    log within
+    SPLIT_LOG_RTOL16 and each leaf within twice the one-process steps'
+    16-vs-32 difference plus SPLIT_GRAD_TOL16 of its module's largest
+    (``_grad_margins``); the ranks' states after the step (the discriminator's
+    parameters, spectral ``u``s and optimizer state, and the generator's)
+    equal bit for bit; each rank's launches a step's at 2,048 rays.
+    Returns {path: rank 0's launches}."""
+    import dataclasses
+    from zest_tpu_torch import presets, sampling
+    from zest_tpu_torch.parallel import dryrun
+    from zest_tpu_torch.system import phase_for_step
+    presets.write_random_lpips()
+    paths, refs, expected, tags = [], [], [], []
+    for tag, preset in (("svs", presets.FLAGSHIP_SVS),
+                        ("svs16", presets.FLAGSHIP_SVS_16)):
+        cfg, gan, batch, state = presets.build_gan(
+            preset, presets.MVSNERF_SCENE, dev, SEED)
+        phase = phase_for_step(cfg, 0)
+        draws = sampling.sample_draws(
+            torch.Generator(device=dev).manual_seed(SEED + 22), cfg,
+            cfg.img_h, cfg.img_w, 0, False, 0)
+        rays = draws.xs.shape[0]
+        half = dataclasses.replace(cfg, batch_size=rays // SPLIT_RANKS,
+                                   num_extra_samples=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        ref = dryrun.gan_step(gan, state, batch, draws, phase)
+        torch.cuda.synchronize()
+        ref["s"] = time.perf_counter() - t0
+        ref["launches"] = read_counters()
+        ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        dryrun.gan_step(gan, state, batch, draws, phase)
+        torch.cuda.synchronize()
+        ref["warm_s"] = time.perf_counter() - t0
+        ref["again"], ref["rounding"], ref["wide"] = _conv_rounding(
+            gan.system, lambda: dryrun.gan_step(gan, state, batch, draws,
+                                                phase)) \
+            if cfg.precision != 16 else (
+                dryrun.gan_step(gan, state, batch, draws, phase), {}, {})
+        _check(f"one-process {tag} step", ref["launches"],
+               expected_step_launches(gan.system, cfg, batch, phase))
+        expected.append(expected_step_launches(gan.system, half, batch, phase))
+        paths.append(str(tmp / f"split_{tag}.pt"))
+        dryrun.save_inputs(paths[-1], cfg, batch, state, draws, phase, 0)
+        refs.append(ref)
+        tags.append((tag, rays))
+        del gan, state, batch
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(SPLIT_RANKS, _split_gan_rank, paths,
+                             str(dev))
+    spawn_s = time.perf_counter() - t0
+    launches, failed = {}, []
+    for i, ((tag, rays), ref) in enumerate(zip(tags, refs)):
+        got = [r[i] for r in ranks]
+        p16 = tag.endswith("16")
+        rounding = {k: v / float(ref["gen_grads"][k].abs().max())
+                    for k, v in ref["rounding"].items()}
+        for r, g in enumerate(got):
+            _check(f"split {tag} step, rank {r}", g["launches"], expected[i])
+            for k, v in ref["logs"].items():
+                a, b = float(g["logs"][k]), float(v)
+                rtol = SPLIT_LOG_RTOL16 if p16 else SPLIT_LOSS_RTOL
+                if not (np.isfinite(a) and abs(a - b) <= rtol * abs(b)):
+                    failed.append(f"split {tag} rank {r} log {k}: {a} "
+                                  f"against {b}")
+            margins = (_grad_margins(g, ref, SPLIT_GRAD_TOL16,
+                                     ref32=refs[0]) if p16 else
+                       _grad_margins(g, ref, SPLIT_GRAD_TOL, ref["again"],
+                                     rounding=ref["rounding"]))
+            if margins[0][0] > 1.0:
+                failed.append(f"split {tag} rank {r}: {margins[0][1]} at "
+                              f"{margins[0][0]:.3f} of its limit")
+            log(f"[aux] (e) split {tag}, rank {r}: step {g['first_s']:.2f} s "
+                f"first, {g['warm_s']:.3f} s warm (one process "
+                f"{ref['s']:.3f} / {ref['warm_s']:.3f} s), peak memory "
+                f"{g['peak_gib']:.2f} GiB "
+                f"(one process {ref['peak_gib']:.2f}); G_loss "
+                f"{float(g['logs']['G_loss']):.7g} (one process "
+                f"{float(ref['logs']['G_loss']):.7g}); the nearest leaves, "
+                f"of their limit (of their own largest): " + ", ".join(
+                    f"{k} {v:.3f} ({e:.2e})" for v, k, e in margins[:4])
+                + "; the largest of a leaf's own largest: " + ", ".join(
+                    f"{k} {e:.2e}" for _, k, e in sorted(
+                        margins, key=lambda x: -x[2])[:3])
+                + ("" if p16 else "; their float32 rounding (of the leaf's "
+                   "largest, from float64): " + ", ".join(
+                       f"{k} {rounding[k[4:]]:.2e}" for _, k, _ in margins[:3]
+                       if k[4:] in rounding)))
+        if not _tree_equal(got[0]["state"], got[1]["state"]):
+            failed.append(f"split {tag}: the ranks' states differ")
+        if ref["wide"]:
+            # the same sums in float64 from each step's own inputs and
+            # cotangents: the split hands the encoders the same cotangent
+            wide = sorted(((float((sum(g["wide"][k] for g in got) - w).abs()
+                                  .max()) / float(w.abs().max()), k)
+                           for k, w in ref["wide"].items()), reverse=True)
+            log(f"[aux] (e) split {tag}: the encoders' {len(wide)} "
+                f"convolutions' weight gradients summed in float64, the "
+                f"ranks' shares against the one-process step's, of the "
+                f"leaf's largest: " + ", ".join(f"{k} {v:.2e}"
+                                                for v, k in wide[:3]))
+            if wide[0][0] > SPLIT_GRAD_TOL:
+                failed.append(f"split {tag}: float64 {wide[0][1]} at "
+                              f"{wide[0][0]:.2e}")
+        again = _grad_margins(ref["again"], ref, 0.0, ref["again"])
+        log(f"[aux] (e) {tag}: the one-process step run again differs most "
+            f"in " + ", ".join(f"{k} {e:.2e}" for _, k, e in sorted(
+                again, key=lambda x: -x[2])[:3]) + " of the leaf's largest")
+        worst_log = max(abs(float(got[0]["logs"][k]) - float(v))
+                        / abs(float(v)) for k, v in ref["logs"].items())
+        worst_disc = max(float((got[0]["disc_grads"][k] - g.cpu()).abs()
+                               .max() / g.abs().max())
+                         for k, g in ref["disc_grads"].items())
+        log(f"[aux] (e) split {tag}: {SPLIT_RANKS} gloo ranks on one card, "
+            f"{rays} rays ({rays // SPLIT_RANKS} a rank); largest log "
+            f"difference {worst_log:.2e} relative, discriminator leaf "
+            f"{worst_disc:.2e} of its largest; the ranks' states after "
+            f"the step equal bit for bit ({len(got[0]['state']['disc_vars'])}"
+            f" spectral u); launches {got[0]['launches']}")
+        launches[f"split_{tag}"] = got[0]["launches"]
+    log(f"[aux] (e) the split SVS steps: {spawn_s:.1f} s for the ranks "
+        f"(start included)")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
+def _dryrun_cli() -> None:
+    """18(f): ``python -m zest_tpu_torch.parallel.dryrun 2``, which runs
+    its ranks on the card by default."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "zest_tpu_torch.parallel.dryrun", "2"],
+                         capture_output=True, text=True, timeout=300)
+    line = out.stdout.strip().splitlines()[-1:] or [""]
+    log(f"[aux] (f) python -m zest_tpu_torch.parallel.dryrun 2: exit "
+        f"{out.returncode} in {time.perf_counter() - t0:.1f} s: {line[0]}")
+    if out.returncode != 0 or "on cuda:0 OK" not in line[0]:
+        raise AssertionError(f"dryrun 2 on the card: {out.stderr[-2000:]}")
+
+
 def aux_modules(dev, tmp) -> tuple:
-    """Phase 18: the modules of the last slice at flagship width, float32
+    """Phase 18: the modules of the last slices at flagship width, float32
     (``presets.FLAGSHIP_TRAIN`` on ``FLAGSHIP_SCENE``): (a) a profiled
     training step, (b) ``vis_cnn``, (c) the reference ``.ckpt`` loader,
-    (d) the step and an eval image split over two gloo ranks on the card.
+    (d) the step and an eval image split over two gloo ranks on the card;
+    then (e) the SVS step split over two ranks at both precisions
+    (``_split_gan``) and (f) ``python -m zest_tpu_torch.parallel.dryrun
+    2`` on the card.
     Returns ({path: launches}, the phase's seconds)."""
     from zest_tpu_torch import presets, sampling
     from zest_tpu_torch.system import phase_for_step
@@ -3904,14 +4284,16 @@ def aux_modules(dev, tmp) -> tuple:
         launches["ckpt_eval"] = _ckpt_eval(cfg, params, batch, dev, tmp)
         launches.update(_split(cfg, system, batch, params, draws, phase, tmp))
         cpu_s = cpu_dump.result()
+    del system, params, batch
+    torch.cuda.empty_cache()
+    launches.update(_split_gan(dev, tmp))
+    _dryrun_cli()
     t1 = time.perf_counter()
     summary = _compare_dumps(tmp / "vis_cuda", tmp / "vis_cpu")
     log(f"[aux] (b) run_test with vis_cnn on one flagship frame: {vis_s:.2f} "
         f"s (eval and dump); the CPU's dump {cpu_s:.2f} s (beside (c) and "
         f"(d)); compared in {time.perf_counter() - t1:.2f} s: {summary}; "
         f"launches {launches['vis_cnn']}")
-    del system, params, batch
-    torch.cuda.empty_cache()
     seconds = time.perf_counter() - t0
     log(f"[aux] phase 18 in {seconds:.1f} s")
     return launches, seconds
@@ -3988,7 +4370,10 @@ def main() -> int:
         + "; the video loop's s/step (first step included): "
         + ", ".join(f"{tag} {v:.3f}" for tag, v in video_step.items()))
     log(f"[summary] phase 18 (profiling, vis_cnn, the .ckpt loader, two "
-        f"ranks) {aux_s:.1f} s; the whole command {time.perf_counter() - t_start:.1f} s")
+        f"ranks, the SVS step over two ranks, dryrun 2) {aux_s:.1f} s; the "
+        f"whole command {time.perf_counter() - t_start:.1f} s")
+    log(f"[summary] device timings the profiler could not take "
+        f"(queued_ms instead): {device_ms.stand_ins}")
     for path, counts in {**new_paths, **svs_paths, **real_paths,
                          **option_paths, **aux_paths}.items():
         log(f"[summary] launches, {path}: "

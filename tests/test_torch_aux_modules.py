@@ -33,6 +33,7 @@ from zest_tpu.models.mvsnet import MVSEncoder as JMVSEncoder
 from zest_tpu.utils import introspect as jintrospect
 from zest_tpu.utils import observability as jobs
 
+from test_torch_ablation_mvsnerf import _few_threads  # noqa: F401
 from zest_tpu_torch import train_loop
 from zest_tpu_torch.config import config_parser
 from zest_tpu_torch.convert import from_jax_params

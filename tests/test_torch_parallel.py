@@ -32,6 +32,7 @@ from zest_tpu.system import phase_for_step as jphase_for_step
 
 from test_torch_train_step import jax_draws
 
+from test_torch_ablation_mvsnerf import _few_threads  # noqa: F401
 from zest_tpu_torch import ZestConfig, sampling
 from zest_tpu_torch.convert import from_jax_params
 from zest_tpu_torch.data.synthetic import SyntheticDataset
@@ -137,7 +138,9 @@ def split_runs(tmp_path_factory):
         paths.append(tmp / f"{name}.pt")
         dryrun.save_inputs(paths[-1], cfg, batch, params, draws, phase, 0)
         refs[name] = one_process(cfg, batch, params, draws, phase)
-    ranks = dryrun.run_ranks(N_RANKS, dryrun.split_step, paths)
+    # the ranks sum at the thread count of the one-process step
+    ranks = dryrun.run_ranks(N_RANKS, dryrun.split_step, paths,
+                             threads=torch.get_num_threads())
     return refs, {name: [r[i] for r in ranks] for i, name in enumerate(cases)}, \
         {k: float(v) for k, v in jlogs.items()}
 
@@ -180,5 +183,18 @@ def test_mesh_helpers_without_a_group():
 
 
 def test_dryrun_multichip():
-    loss = dryrun.dryrun_multichip(N_RANKS)
+    loss = dryrun.dryrun_multichip(N_RANKS, "cpu")
     assert np.isfinite(loss)
+
+
+def test_dryrun_cli_refuses_without_a_card(monkeypatch, capsys):
+    """``python -m zest_tpu_torch.parallel.dryrun N`` runs its ranks on the
+    card; without one it exits 2 unless given ``--device cpu``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(dryrun, "dryrun_multichip",
+                        lambda n, device: ran.append((n, device)))
+    assert dryrun.main(["2"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err and not ran
+    assert dryrun.main(["3", "--device", "cpu"]) == 0
+    assert ran == [(3, "cpu")]

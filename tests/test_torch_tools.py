@@ -8,8 +8,9 @@ import torch
 from zest_tpu_torch.kernels import trilinear
 from zest_tpu_torch.kernels import fused_mlp
 from zest_tpu_torch.models.nerf import NeRFField
-from zest_tpu_torch.tools import (probe_bf16_sums, probe_trilinear, probe_wgrad,
-                                  profile_eval, profile_train, quality_gate)
+from zest_tpu_torch.tools import (probe_bf16_sums, probe_device_ms,
+                                  probe_trilinear, probe_wgrad, profile_eval,
+                                  profile_train, quality_gate)
 
 
 @pytest.mark.parametrize("intervals,busy", [
@@ -147,6 +148,156 @@ def test_device_ms_counts_each_kernel_and_names_missed_events(
         return
     assert probe_trilinear.device_ms(lambda: None) == pytest.approx(ms)
     assert probe_trilinear.device_ms.lost == lost
+
+
+def test_device_ms_settles_for_a_stretch_of_host_time(monkeypatch):
+    """Each session opens with at least SETTLE spin kernels, each waited
+    for, and goes on with them until SETTLE_S of host time has passed; a
+    refusal names the spin kernels the profiler saw."""
+    spins = []
+    monkeypatch.setattr(probe_trilinear, "profile", _Events)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", spins.append)
+    clock = iter(range(10**6))
+    monkeypatch.setattr(probe_trilinear.time, "perf_counter",
+                        lambda: next(clock) * 1e-3)   # 1 ms a reading
+    monkeypatch.setattr(_Events, "recorded", [("spin_kernel", 1.0)] * 3)
+    # SETTLE (16) kernels, then one a reading until SETTLE_S (10 ms) has
+    # passed: the clock is read once before them and once from the 16th on
+    assert (probe_trilinear.SETTLE, probe_trilinear.SETTLE_S) == (16, 0.01)
+    with pytest.raises(RuntimeError, match=r"\(and 3 of its 25 spin kernels"):
+        probe_trilinear.device_ms(lambda: None, tries=1)
+    assert len(spins) == 25
+
+
+class _CardEvent:
+    """A stand-in for ``torch.cuda.Event``: ``start.query()`` reads True
+    (the stream already reached it) on the first ``late`` tries."""
+
+    made = []
+    late = 0
+
+    def __init__(self, **_):
+        _CardEvent.made.append(self)
+
+    def record(self):
+        pass
+
+    def query(self):
+        return len(_CardEvent.made) <= 2 * _CardEvent.late
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 5.0
+
+
+@pytest.mark.parametrize("late,queued,tries", [(0, True, 1), (2, True, 3),
+                                               (3, False, 3)])
+def test_queued_ms_doubles_its_spin_until_the_calls_queue(
+        monkeypatch, late, queued, tries):
+    """queued_ms spins twice the host's time for the calls (+1 ms), doubles
+    the spin while the stream reaches the first event before the host has
+    queued the last call, and says whether its last reading was queued
+    whole."""
+    spins, calls = [], []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", spins.append)
+    monkeypatch.setattr(torch.cuda, "Event", _CardEvent)
+    monkeypatch.setattr(_CardEvent, "made", [])
+    monkeypatch.setattr(_CardEvent, "late", late)
+    monkeypatch.setattr(probe_trilinear._cycles_per_s, "rate", 1e9)
+    clock = iter([0.0, 0.004])                      # the calls take 4 ms
+    monkeypatch.setattr(probe_trilinear.time, "perf_counter",
+                        lambda: next(clock))
+    ms = probe_trilinear.queued_ms(lambda: calls.append(1), iters=10)
+    assert ms == pytest.approx(0.5)                 # 5 ms over 10 calls
+    assert probe_trilinear.queued_ms.queued is queued
+    assert spins == [int(9e6 * 2 ** i) for i in range(tries)]
+    assert len(calls) == 1 + 10 + 10 * tries
+
+
+def _chip_smoke():
+    """chip_smoke.py, the script at the repository's root, as a module."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_times_by_queued_ms_where_the_profiler_fails(
+        monkeypatch, capsys):
+    """chip_smoke's device_ms takes queued_ms's reading where the profiler
+    records no usable events, logs it, and Rows.check names the numbers
+    taken so in the row (``queued_ms_for``)."""
+    chip_smoke = _chip_smoke()
+
+    def profiled(fn):
+        if fn() == "library":
+            raise RuntimeError("device_ms: no events")
+        return 1.0
+
+    profiled.lost = {}
+    monkeypatch.setattr(probe_trilinear, "device_ms", profiled)
+    def queued(fn):
+        return 2.0
+
+    queued.queued = True
+    monkeypatch.setattr(probe_trilinear, "queued_ms", queued)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    rows = chip_smoke.Rows()
+    t = torch.ones(3)
+    rows.check("k", "src", "rep", "c", lambda: t, lambda: t, lambda: t,
+               1e-6, 1, 12, 3, timing="device",
+               verified=(0.0, [(3,)]))
+    assert rows.rows["k"]["ms"] == 1.0 and "queued_ms_for" not in rows.rows["k"]
+    rows.check("k2", "src", "rep", "c", lambda: "kernel", lambda: "plain",
+               lambda: "library", 1e-6, 1, 12, 3, timing="device",
+               verified=(0.0, [(3,)]))
+    r = rows.rows["k2"]
+    assert (r["ms"], r["plain_ms"], r["library_ms"]) == (1.0, 1.0, 2.0)
+    assert r["queued_ms_for"] == ["library_ms"]
+    assert chip_smoke.device_ms.stand_ins == 1
+    assert "timed instead by CUDA events" in capsys.readouterr().out
+    out = rows.finish({"eval": {"c": 1}, "train": {"c": 1}})
+    assert out[1]["queued_ms_for"] == ["library_ms"]
+    assert "queued_ms_for" not in out[0]
+
+
+def test_chip_smoke_pass2_gate_allows_rounding_not_a_lost_point(capsys):
+    """chip_smoke's gate on K7 float32's pass 2: a chunk's sums over 65,536
+    points that cancel, moved by a few float32 roundings of their terms'
+    magnitude, pass where 1e-4 of the largest alone would not; the same
+    sums with one point's term left out fail, naming the leaf."""
+    chip_smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand((65536, 4), generator=gen, dtype=torch.float64)
+    d = torch.randn((65536, 1), generator=gen, dtype=torch.float64)
+    d -= d.mean()                       # the sums cancel to ~1 from ~1e4
+    twin = [(x.T @ d).float(), d.sum(0).float()]
+    magnitude = [(x.abs().T @ d.abs()).float(), d.abs().sum(0).float()]
+    names = ["w.weight", "w.bias"]
+    rounded = [t + 0.25 * chip_smoke.F32_SUM_ROUNDING * m
+               for t, m in zip(twin, magnitude)]
+    assert float((rounded[1] - twin[1]).abs().max()) > 1e-4 * float(
+        twin[1].abs().max())
+    err, shapes = chip_smoke.hold_weight_grads("", names, rounded, twin,
+                                               magnitude)
+    assert shapes == [(4, 1), (1,)] and err > 0
+    assert "nearest its limit w.bias 0.2" in capsys.readouterr().out
+    lost = [(x[1:].T @ d[1:]).float(), d[1:].sum(0).float()]
+    with pytest.raises(AssertionError, match="w.weight at .* w.bias at"):
+        chip_smoke.hold_weight_grads("", names, lost, twin, magnitude)
+
+
+def test_probe_device_ms_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe_device_ms.main() == 2
+    assert probe_device_ms.main(["--repeats", "2"]) == 2
 
 
 def test_probe_bf16_sums_refuses_without_cuda(monkeypatch):

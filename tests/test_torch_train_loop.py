@@ -45,7 +45,8 @@ from zest_tpu.config import ZestConfig as JZestConfig
 from zest_tpu.data.synthetic import SyntheticDataset as JSyntheticDataset
 from zest_tpu.system import ZestSystem as JZestSystem
 
-from test_torch_ablation_mvsnerf import zest_tpu_shapes
+from test_torch_ablation_mvsnerf import (_few_threads,  # noqa: F401
+                                         zest_tpu_shapes)
 
 from zest_tpu_torch import ZestConfig, presets, sampling, train_loop
 from zest_tpu_torch.checkpoint import restore_path

@@ -1,4 +1,7 @@
-from .mesh import Mesh, gather_rays, make_mesh, replicate, shard_rays, sum_over_ranks
+from .mesh import (Mesh, RanksDisagree, check_replicated, gather_rays,
+                   make_mesh, replicate, replicate_all, shard_rays,
+                   sum_over_ranks)
 
-__all__ = ["Mesh", "gather_rays", "make_mesh", "replicate", "shard_rays",
+__all__ = ["Mesh", "RanksDisagree", "check_replicated", "gather_rays",
+           "make_mesh", "replicate", "replicate_all", "shard_rays",
            "sum_over_ranks"]

@@ -12,7 +12,12 @@ distortion sums and the patch regularizers need whole batches, and a mean
 of per-rank losses would be wrong. The gather's backward returns a rank its
 own slice of the gradient, so each rank's parameter gradient is its rays'
 share, and ``sum_over_ranks`` adds the shares. A ray count that does not
-divide the group warns and runs replicated (``shard_rays``).
+divide the group warns and runs replicated (``shard_rays``). A step whose
+ranks hold different draws is refused (``check_replicated``): their shards
+would be of different rays. Where every rank computes the same update
+(the GAN step's discriminators), rank 0's numbers stand for all
+(``replicate_all``), so that sums taken in another order on another card
+cannot drift the ranks apart.
 
 Every collective here is an ``all_reduce`` (or a ``broadcast``): gloo takes
 only those two on CUDA tensors, and two ranks can share one card only over
@@ -25,6 +30,11 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
+
+
+class RanksDisagree(ValueError):
+    """The ranks of a split step hold inputs that should be, and are not,
+    the same on every rank."""
 
 
 class Mesh(NamedTuple):
@@ -96,18 +106,59 @@ def gather_rays(x, mesh: Optional[Mesh]):
     return _GatherRays.apply(x, mesh)
 
 
-def sum_over_ranks(tensors: dict, mesh: Optional[Mesh]) -> dict:
-    """Each tensor summed over the ranks (one all_reduce of them all,
-    flattened into one buffer)."""
-    if mesh is None or not tensors:
-        return tensors
+def _flat(tensors: dict, collective) -> dict:
+    """``collective`` (in place) on one buffer of all of ``tensors``,
+    flattened, then the buffer as the tensors again."""
     flat = torch.cat([t.reshape(-1) for t in tensors.values()])
-    dist.all_reduce(flat, group=mesh.group)
+    collective(flat)
     out, at = {}, 0
     for k, t in tensors.items():
         out[k] = flat[at:at + t.numel()].view_as(t)
         at += t.numel()
     return out
+
+
+def sum_over_ranks(tensors: dict, mesh: Optional[Mesh]) -> dict:
+    """Each tensor summed over the ranks (one all_reduce of them all,
+    flattened into one buffer)."""
+    if mesh is None or not tensors:
+        return tensors
+    return _flat(tensors, lambda t: dist.all_reduce(t, group=mesh.group))
+
+
+def replicate_all(tensors: dict, mesh: Optional[Mesh]) -> dict:
+    """Each tensor as rank 0 holds it, on every rank (one broadcast of
+    them all, flattened into one buffer)."""
+    if mesh is None or not tensors:
+        return tensors
+    return _flat(tensors, lambda t: dist.broadcast(
+        t, src=dist.get_global_rank(mesh.group, 0), group=mesh.group))
+
+
+def check_replicated(tensors: dict, mesh: Optional[Mesh], what: str) -> None:
+    """Raise ``RanksDisagree``, on every rank, unless every rank holds the
+    same ``tensors`` (None entries skipped; all on one device): one
+    ``all_reduce`` (MAX) of two float64 fingerprints of each, the sum and
+    the index-weighted sum, beside their negatives."""
+    names = [k for k, t in tensors.items() if t is not None]
+    if mesh is None or not names:
+        return
+    prints = []
+    for k in names:
+        t = tensors[k].detach().reshape(-1).double()
+        weights = torch.arange(1, t.numel() + 1, device=t.device,
+                               dtype=torch.float64)
+        prints += [t.sum(), (t * weights).sum()]
+    prints = torch.stack(prints)
+    both = torch.cat([prints, -prints])
+    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=mesh.group)
+    spread = (both[:len(prints)] + both[len(prints):]).cpu()   # max - min
+    differ = sorted({names[i // 2] for i in range(len(prints))
+                     if not spread[i] == 0.0})
+    if differ:
+        raise RanksDisagree(
+            f"the ranks hold different {what} ({', '.join(differ)}): a split "
+            f"step needs the same {what} on every rank (one seed for all)")
 
 
 def replicate(x, mesh: Optional[Mesh]):

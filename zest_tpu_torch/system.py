@@ -24,7 +24,8 @@ adversarial (SVS) step around it is ``system_gan.GanSystem``'s.
 ``mesh`` set (``parallel.make_mesh``) the ranks of a process group split
 each step's rays and each eval chunk's (``render_split``): every rank
 renders its shard, gathers the others', takes the loss over all rays and
-sums the gradients over the ranks. On a
+sums the gradients over the ranks; ranks that hold different draws are
+refused. On a
 CUDA device every kernel of both paths is the port's own: the plane-sweep
 warp, the volume lookup, the color gather and the fused field, and on the
 training path the backward of the warp, the lookup and the field, and with
@@ -62,7 +63,8 @@ from .models.embedding import embedding_out_channels
 from .models.feature_net import BatchNormAct
 from .models.nerf import append_code, round_bf16
 from .ops.grid_sample import grid_sample_3d_rows
-from .parallel.mesh import gather_rays, shard_rays, sum_over_ranks
+from .parallel.mesh import (check_replicated, gather_rays, shard_rays,
+                             sum_over_ranks)
 
 
 def unpreprocess(imgs):
@@ -521,7 +523,11 @@ class ZestSystem(nn.Module):
     def forward_train(self, batch, draws: sampling.Draws, phase: Phase,
                       step: int):
         """One training forward: the volumes, the step's rays and the
-        training render. Returns (results, rays)."""
+        training render. Returns (results, rays). With ``mesh`` every rank
+        must hold the same draws and step (``RanksDisagree`` otherwise)."""
+        if self.mesh is not None:
+            check_replicated(dict(draws._asdict(), step=torch.tensor(
+                float(step), device=draws.jitter.device)), self.mesh, "draws")
         models = self.render_models(batch)
         rays = self.train_rays(batch, draws, phase)
         kwargs = self.render_kwargs(batch)

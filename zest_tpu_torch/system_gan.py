@@ -22,6 +22,18 @@ discriminator, then the depth discriminator when the config has one.
   same schedule.
 
 The discriminators and LPIPS run in float32 at either precision.
+
+With ``system.mesh`` (``parallel.make_mesh``) the ranks of a process group
+split the step's rays, as ``zest_tpu``'s GSPMD splits them over a mesh:
+each rank renders its shard and gathers every rank's outputs
+(``ZestSystem.render_split``), so the generator's loss, LPIPS and the
+discriminators see whole patches, identically on every rank; the
+generator's gradients are the ranks' shares summed (``sum_over_ranks``)
+before the clip and Adam. Every rank takes the discriminators' steps on
+the same gathered patches, and rank 0's gradients and spectral state
+stand for all (``replicate_all``), so that the ranks' discriminators stay
+equal bit for bit. A ray count that does not divide the ranks warns and
+runs whole on every rank (``shard_rays``).
 """
 from __future__ import annotations
 
@@ -36,6 +48,7 @@ from .losses import abs_
 from .models.discriminators import (NLayerDiscriminator, SpectralConv,
                                     build_discriminator, spectral_state)
 from .models.lpips import load_lpips
+from .parallel.mesh import replicate_all, sum_over_ranks
 from .system import Optimizer, Phase, ZestSystem
 
 
@@ -234,12 +247,8 @@ class GanSystem(nn.Module):
                          optimizer: Optimizer):
         """The generator's step: (new params, new optimizer state, logs,
         the render's detached (rgb_pred, rgb_gt, depth_pred, depth_gt)).
-        Not under a process group (``system.mesh``): its gradients would
-        miss the other ranks' shares."""
-        if self.system.mesh is not None:
-            raise NotImplementedError(
-                "the SVS (GAN) step does not run with its rays split over a "
-                "process group (system.mesh); run it on one rank")
+        With ``system.mesh`` the outputs are every rank's, and the
+        gradients are summed over the ranks before the update."""
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         with torch.enable_grad():
@@ -252,6 +261,9 @@ class GanSystem(nn.Module):
                                         allow_unused=True)
         grads = {k: torch.zeros_like(v) if g is None else g
                  for (k, v), g in zip(leaves.items(), grads)}
+        mesh = self.system.mesh
+        if mesh is not None and mesh.splits(draws.jitter.shape[0]):
+            grads = sum_over_ranks(grads, mesh)
         with torch.no_grad():
             params, opt_state = optimizer.update(grads, state.opt_state,
                                                  state.params)
@@ -264,7 +276,9 @@ class GanSystem(nn.Module):
                     interm: bool = False):
         """(loss, its fake and real terms, the spectral state after both
         calls, the gradients by name) of a discriminator's step; with
-        ``interm`` the outputs are feature lists, the last one judged."""
+        ``interm`` the outputs are feature lists, the last one judged.
+        With ``system.mesh`` the gradients and the spectral state are rank
+        0's on every rank."""
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         with torch.enable_grad():
             d_fake, vars1 = apply_disc(disc, leaves, spectral, fake)
@@ -275,8 +289,15 @@ class GanSystem(nn.Module):
             l_real = adversarial_loss(self.cfg, d_real, True)
             loss = (l_fake + l_real) / 2.0
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        return (loss.detach(), l_fake.detach(), l_real.detach(), vars2,
-                dict(zip(leaves, grads)))
+        grads = dict(zip(leaves, grads))
+        if self.system.mesh is not None:
+            shared = replicate_all(
+                {**{f"grad.{k}": g for k, g in grads.items()},
+                 **{f"spectral.{k}": u for k, u in vars2.items()}},
+                self.system.mesh)
+            grads = {k: shared[f"grad.{k}"] for k in grads}
+            vars2 = {k: shared[f"spectral.{k}"] for k in vars2}
+        return (loss.detach(), l_fake.detach(), l_real.detach(), vars2, grads)
 
     def discriminator_update(self, state: GanTrainState, outs,
                              disc_optimizer: Optimizer):

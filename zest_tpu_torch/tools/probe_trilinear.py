@@ -35,6 +35,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 from torch.autograd import DeviceType
@@ -45,7 +46,9 @@ from zest_tpu_torch.kernels import fused_mlp, trilinear
 from zest_tpu_torch.system import phase_for_step
 
 LAUNCHES = 50
-SETTLE = 16      # uncounted kernels that open each profiled session
+SETTLE = 16      # uncounted kernels that open each profiled session,
+SETTLE_S = 0.01  # and the least host time they take
+MAX_SPIN_S = 1.0  # longest spin that queued_ms puts before its calls
 LOST_SHARE = 0.1  # of a kernel's launches whose events a session may miss
 WARP = 32
 
@@ -191,27 +194,38 @@ def device_ms(fn, iters: int = LAUNCHES, tries: int = 3) -> float:
     opens with SETTLE short spin kernels that are not counted, and a few
     later ones (8 of 500 for 50 calls of a twin of ten kernels, seen on an
     H100), which ``device_ms.lost`` names ({kernel: events missing}) after
-    each call. A session counts if each kernel's events are within
-    LOST_SHARE of its launches; otherwise it is taken again, at most tries
-    times, and then raises. Copies and memsets are not kernels and are
-    left out: a twin's small host-to-device copy or zero fill shows as a
-    device event in only some of its calls (189 events for 50 calls of
-    three kernels and a copy, seen on an H100)."""
+    each call. What is missed at the start is taken to be a stretch of
+    time rather than a count of launches: sessions of 50 calls of a 2-us
+    cuBLAS gemv, the shortest here, once held none of its events in three
+    tries on an H100. So the spin kernels go on, each waited for, until
+    SETTLE_S of host time has passed. A session
+    counts if each kernel's events are within LOST_SHARE of its launches;
+    otherwise it is taken again, at most tries times, and then raises,
+    naming the events it saw (``queued_ms`` is the stand-in). Copies and
+    memsets are not kernels and are left out: a twin's small host-to-device
+    copy or zero fill shows as a device event in only some of its calls
+    (189 events for 50 calls of three kernels and a copy, seen on an
+    H100)."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(SETTLE):
+            t0 = time.perf_counter()
+            settle = 0
+            while settle < SETTLE or time.perf_counter() - t0 < SETTLE_S:
                 torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
+                settle += 1
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = {}
+        us, spins = {}, 0
         for e in prof.events():
-            if (e.device_type == DeviceType.CUDA
-                    and "spin_kernel" not in e.name
-                    and not e.name.startswith(("Memcpy", "Memset"))):
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if "spin_kernel" in e.name:
+                spins += 1
+            elif not e.name.startswith(("Memcpy", "Memset")):
                 us.setdefault(e.name, []).append(e.time_range.elapsed_us())
         per_call = {k: max(1, round(len(v) / iters)) for k, v in us.items()}
         lost = {k: per_call[k] * iters - len(v) for k, v in us.items()}
@@ -222,10 +236,68 @@ def device_ms(fn, iters: int = LAUNCHES, tries: int = 3) -> float:
                        for k, v in us.items()) / 1e3
     raise RuntimeError(f"device_ms: the profiler's device events for {iters} "
                        f"calls, by kernel, in the last of {tries} tries: "
-                       + ", ".join(f"{k} {len(v)}" for k, v in us.items()))
+                       + ", ".join(f"{k} {len(v)}" for k, v in us.items())
+                       + f" (and {spins} of its {settle} spin kernels)")
 
 
 device_ms.lost = {}
+
+
+def queued_ms(fn, iters: int = LAUNCHES, tries: int = 3) -> float:
+    """Device time of fn() per call without the profiler, where it records
+    no usable events: CUDA events around iters calls that the host queues
+    while a spin kernel holds the stream, so that they time the calls run
+    back to back on the card and not the host's launches (the gaps between
+    kernels are counted, unlike in ``device_ms``). The spin lasts twice the
+    host's time for the iters calls, read first. If the stream reached the
+    first event before the host had queued the last call (fn waits for
+    the card, or the spin was short), the spin is doubled, at most
+    MAX_SPIN_S, and the reading taken again, at most tries times;
+    ``queued_ms.queued`` says whether the last one was queued whole (if
+    not, it times the host too)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    spin_s = 2 * (time.perf_counter() - t0) + 1e-3
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(min(spin_s, MAX_SPIN_S) * _cycles_per_s()))
+        start.record()
+        for _ in range(iters):
+            fn()
+        queued = not start.query()
+        end.record()
+        end.synchronize()
+        if queued:
+            break
+        spin_s *= 2
+    queued_ms.queued = queued
+    return start.elapsed_time(end) / iters
+
+
+queued_ms.queued = False
+
+
+def _cycles_per_s() -> float:
+    """The card's clock as ``torch.cuda._sleep`` counts it, timed once."""
+    if not _cycles_per_s.rate:
+        cycles = 10_000_000
+        torch.cuda._sleep(cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _cycles_per_s.rate = cycles / (start.elapsed_time(end) / 1e3)
+    return _cycles_per_s.rate
+
+
+_cycles_per_s.rate = 0.0
 
 
 def train_points(system, batch, cfg, gen) -> tuple:
